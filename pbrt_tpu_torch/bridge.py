@@ -1,0 +1,74 @@
+"""Carry a scene built by pbrt_tpu over to the port.
+
+``scene_from_jax``, ``camera_from_jax`` and ``filter_from_jax`` turn a
+built ``pbrt_tpu`` Scene, Camera and Filter into this package's objects
+on a given device. Every field is read through ``np.asarray``, so this
+module never imports jax itself; static fields (``n_tri``, ``n_pln``,
+``n_channels``, ``fused_profile``) carry over as they are. Only what the
+port models is carried: a scene with other shape families raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.scene.camera import PERSPECTIVE, Camera
+from pbrt_tpu_torch.scene.film import Filter
+from pbrt_tpu_torch.scene.lights import LightTable
+from pbrt_tpu_torch.scene.materials import MaterialTable
+from pbrt_tpu_torch.scene.types import Geometry, Scene
+
+
+def _t(x, device):
+    return torch.as_tensor(np.array(np.asarray(x)), device=device)
+
+
+def scene_from_jax(scene, device="cpu") -> Scene:
+    extra = {k: getattr(scene, k, 0) for k in ("n_sph", "n_dsk", "n_crv",
+                                               "n_vprims")}
+    if any(extra.values()) or getattr(scene, "has_motion", False):
+        raise NotImplementedError(
+            f"bridge: only triangles + aaplanes are ported ({extra})")
+    g, m, lt = scene.geom, scene.materials, scene.lights
+    return Scene(
+        geom=Geometry(**{k: _t(getattr(g, k), device) for k in (
+            "tri_v0", "tri_v1", "tri_v2", "pln_lo", "pln_hi", "pln_ax",
+            "pln_facing")}),
+        prim_mat=_t(scene.prim_mat, device),
+        prim_light=_t(scene.prim_light, device),
+        materials=MaterialTable(mtype=_t(m.mtype, device),
+                                kd=_t(m.kd, device),
+                                sigma=_t(m.sigma, device)),
+        lights=LightTable(**{k: _t(getattr(lt, k), device) for k in (
+            "emit", "prim_id", "two_sided", "strategy",
+            "n_portals", "portal_lo", "portal_hi", "portal_ax",
+            "portal_facing")}),
+        world_lo=_t(scene.world_lo, device),
+        world_hi=_t(scene.world_hi, device),
+        n_tri=int(scene.n_tri), n_pln=int(scene.n_pln),
+        n_channels=int(scene.n_channels),
+        fused_profile=scene.fused_profile)
+
+
+def camera_from_jax(cam, device="cpu") -> Camera:
+    if int(np.asarray(cam.cam_type)) != PERSPECTIVE or \
+            getattr(cam, "anim", None) is not None:
+        raise NotImplementedError("bridge: only perspective cameras "
+                                  "without motion are ported")
+    res = np.asarray(cam.resolution)
+    return Camera(
+        cam_type=PERSPECTIVE,
+        cam_to_world=Transform(_t(cam.cam_to_world.m, device),
+                               _t(cam.cam_to_world.m_inv, device)),
+        **{k: _t(getattr(cam, k), device).to(torch.float32) for k in (
+            "screen_min", "screen_max", "lens_radius", "focal_distance",
+            "fov_scale")},
+        resolution=(int(res[0]), int(res[1])))
+
+
+def filter_from_jax(filt, device="cpu") -> Filter:
+    if not filt.is_box:
+        raise NotImplementedError("bridge: tabulated filters are not ported")
+    return Filter(radius=_t(filt.radius, device))

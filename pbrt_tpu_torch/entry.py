@@ -1,0 +1,132 @@
+"""The port's scenes and camera for the main path (counterpart of
+``__graft_entry__.py:13-63``), built with the port's SceneBuilder only.
+
+- ``_portal_scene``: the 26-triangle cornell box whose ceiling has a
+  0.3×0.3 opening (the portal), lit by a projection-strategy area light
+  on an aaplane above it (fused mode 1, flat sweep).
+- ``_plain_cornell``: the classic cornell box with a plain one-sided
+  area light (fused mode 0, two-sample MIS).
+- ``_tessellated_portal``: the portal scene plus a lat-long tessellated
+  sphere (fused mode 1 with cluster culling once past 64 triangles).
+
+The last two mirror the scenes of tests/test_fused_path.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pbrt_tpu_torch.core import transform
+from pbrt_tpu_torch.scene import camera as cam_mod
+from pbrt_tpu_torch.scene.types import SceneBuilder
+
+_WHITE = (0.73, 0.73, 0.73)
+_RED = (0.63, 0.065, 0.05)
+_GREEN = (0.14, 0.45, 0.091)
+_WALLS = [
+    [(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],   # floor
+    [(0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],   # back
+    [(0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0)],   # left
+    [(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)],   # right
+]
+_QUAD = [(0, 1, 2), (0, 2, 3)]
+
+
+def _box_with_opening(b):
+    """Materials, walls and the ceiling's four slabs around the
+    [0.35,0.65]² opening. Returns (white, black) material rows."""
+    white = b.add_material(type=0, kd=_WHITE)
+    red = b.add_material(type=0, kd=_RED)
+    green = b.add_material(type=0, kd=_GREEN)
+    black = b.add_material(type=0, kd=0.0)
+    for verts, m in zip(_WALLS, (white, white, red, green)):
+        b.add_mesh(verts, _QUAD, mat=m)
+    for lo, hi in [((0.0, 0.0), (0.35, 1.0)), ((0.65, 0.0), (1.0, 1.0)),
+                   ((0.35, 0.0), (0.65, 0.35)), ((0.35, 0.65), (0.65, 1.0))]:
+        b.add_mesh([(lo[0], 1.0, lo[1]), (hi[0], 1.0, lo[1]),
+                    (hi[0], 1.0, hi[1]), (lo[0], 1.0, hi[1])], _QUAD,
+                   mat=white)
+    return white, black
+
+
+def _portal_light(b, black):
+    """Area light behind the ceiling portal: emitter plane above the
+    opening, portal = the opening itself."""
+    li = b.add_light(type="area", L=(18.4, 15.6, 8.0), prim=-1,
+                     strategy="projection", two_sided=False,
+                     portals=[((0.35, 1.0, 0.35), (0.65, 1.0, 0.65), 1,
+                               False)])
+    pid = b.add_aaplane((0.3, 1.2, 0.3), (0.7, 1.2, 0.7), axis=1,
+                        facing_fw=False, mat=black, light=li)
+    b.light_rows[li]["prim"] = b.prim_index("pln", pid)
+
+
+def _portal_scene(device="cpu"):
+    b = SceneBuilder()
+    white, black = _box_with_opening(b)
+    # short block
+    b.add_mesh([(0.2, 0.0, 0.3), (0.5, 0.0, 0.3), (0.5, 0.3, 0.3),
+                (0.2, 0.3, 0.3), (0.2, 0.0, 0.6), (0.5, 0.0, 0.6),
+                (0.5, 0.3, 0.6), (0.2, 0.3, 0.6)],
+               [(0, 1, 2), (0, 2, 3), (4, 6, 5), (4, 7, 6), (0, 3, 7),
+                (0, 7, 4), (1, 5, 6), (1, 6, 2), (3, 2, 6), (3, 6, 7)],
+               mat=white)
+    _portal_light(b, black)
+    return b.build(device)
+
+
+def _plain_cornell(device="cpu"):
+    """Classic cornell box with a plain one-sided diffuse area light."""
+    b = SceneBuilder()
+    white = b.add_material(type=0, kd=_WHITE)
+    red = b.add_material(type=0, kd=_RED)
+    green = b.add_material(type=0, kd=_GREEN)
+    black = b.add_material(type=0, kd=0.0)
+    for verts, m in zip(_WALLS, (white, white, red, green)):
+        b.add_mesh(verts, _QUAD, mat=m)
+    b.add_mesh([(0, 1, 0), (1, 1, 0), (1, 1, 0.3), (0, 1, 0.3)], _QUAD,
+               mat=white)
+    b.add_mesh([(0, 1, 0.7), (1, 1, 0.7), (1, 1, 1), (0, 1, 1)], _QUAD,
+               mat=white)
+    li = b.add_light(type="area", L=(15.0, 13.0, 9.0), prim=-1)
+    pid = b.add_aaplane((0.3, 0.99, 0.35), (0.7, 0.99, 0.65), axis=1,
+                        facing_fw=False, mat=black, light=li)
+    b.light_rows[li]["prim"] = b.prim_index("pln", pid)
+    return b.build(device)
+
+
+def _add_sphere_mesh(b, c, r, m, nseg):
+    """Lat-long tessellated sphere (2·nseg²−2·nseg faces)."""
+    th = np.linspace(0, np.pi, nseg + 1)
+    ph = np.linspace(0, 2 * np.pi, nseg + 1)
+    vs = [(c[0] + r * np.sin(th[i]) * np.cos(ph[j]),
+           c[1] + r * np.cos(th[i]),
+           c[2] + r * np.sin(th[i]) * np.sin(ph[j]))
+          for i in range(nseg + 1) for j in range(nseg + 1)]
+    fs = []
+    for i in range(nseg):
+        for j in range(nseg):
+            a = i * (nseg + 1) + j
+            d = a + nseg + 1
+            if i > 0:
+                fs.append((a, a + 1, d + 1))
+            if i < nseg - 1:
+                fs.append((a, d + 1, d))
+    b.add_mesh(vs, fs, mat=m)
+
+
+def _tessellated_portal(nseg=13, device="cpu"):
+    """The portal scene's box and light plus a tessellated sphere
+    (nseg=13: 328 triangles; nseg=22: 940)."""
+    b = SceneBuilder()
+    white, black = _box_with_opening(b)
+    _add_sphere_mesh(b, (0.35, 0.22, 0.45), 0.22, white, nseg)
+    _portal_light(b, black)
+    return b.build(device)
+
+
+def _camera(res=(64, 64), device="cpu"):
+    return cam_mod.make_perspective(
+        transform.look_at((0.5, 0.5, -1.4), (0.5, 0.5, 1.0), (0, 1, 0),
+                          device=device),
+        40.0, res, device=device)

@@ -1,0 +1,258 @@
+"""Scene container and host-side builder (port of the triangle + aaplane
+subset of pbrt_tpu/scene/types.py).
+
+The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``
+first, then aaplanes. ``prim_mat`` / ``prim_light`` map a global prim to
+its material row and light row (−1 = not emissive).
+
+Spheres, disks, curves, instancing, media, textures, motion, shading
+normals and uvs, spectral rendering and the BVH belong to later slices
+and raise ``NotImplementedError``; ``Scene.bvh`` is always None (the
+fused kernel never reads it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.scene import lights as lights_mod
+from pbrt_tpu_torch.scene import materials as mat_mod
+
+
+@dataclasses.dataclass
+class Geometry:
+    tri_v0: torch.Tensor      # (T,3)
+    tri_v1: torch.Tensor
+    tri_v2: torch.Tensor
+    pln_lo: torch.Tensor      # (P,3)
+    pln_hi: torch.Tensor      # (P,3)
+    pln_ax: torch.Tensor      # (P,) int32
+    pln_facing: torch.Tensor  # (P,) bool
+
+
+@dataclasses.dataclass
+class Scene:
+    geom: Geometry
+    prim_mat: torch.Tensor    # (N,) int32
+    prim_light: torch.Tensor  # (N,) int32 (−1 none)
+    materials: mat_mod.MaterialTable
+    lights: Optional[lights_mod.LightTable]
+    world_lo: torch.Tensor    # (3,)
+    world_hi: torch.Tensor    # (3,)
+    n_tri: int
+    n_pln: int
+    n_channels: int
+    bvh: Any = None
+    # fused-path kernel profile (ops/fused_path.py):
+    # (axis, plane_facing, portal_facing, n_materials, mode) or None
+    fused_profile: Optional[tuple] = None
+
+
+def to_device(obj, device):
+    """Copy every tensor of a (nested) dataclass of tensors to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _unported(what: str, item: int):
+    raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
+
+
+class SceneBuilder:
+    """Host-side scene construction (numpy lists → tensors), the role of
+    the pbrt API's world block. RGB only (``n_channels=3``)."""
+
+    def __init__(self, n_channels: int = 3):
+        if n_channels != 3:
+            _unported("spectral rendering (n_channels != 3)", 9)
+        self.n_channels = n_channels
+        self.tris = []        # dicts: v0 v1 v2 mat light
+        self.planes = []      # dicts: lo hi ax facing mat light
+        self.materials = []   # parameter dicts (scene/materials.py)
+        self.light_rows = []  # parameter dicts (scene/lights.py)
+
+    # -- materials and lights ---------------------------------------------
+    def add_material(self, **params) -> int:
+        mat_mod.check_row(params)
+        if "kd" in params:
+            params["kd"] = self._to_spec(params["kd"])
+        self.materials.append(params)
+        return len(self.materials) - 1
+
+    def _to_spec(self, v):
+        v = np.asarray(v, np.float32)
+        if v.ndim == 0:
+            return np.full(self.n_channels, float(v), np.float32)
+        if v.shape[-1] == self.n_channels:
+            return v
+        raise ValueError(f"bad spectrum shape {v.shape}")
+
+    def add_light(self, **params) -> int:
+        for key in ("L", "scale"):
+            if key in params:
+                params[key] = self._to_spec(params[key])
+        self.light_rows.append(params)
+        return len(self.light_rows) - 1
+
+    # -- shapes ------------------------------------------------------------
+    def add_triangle(self, v0, v1, v2, mat=0, light=-1, n0=None, n1=None,
+                     n2=None, uv0=None, uv1=None, uv2=None, med_in=-1,
+                     med_out=-1, v0_e=None, v1_e=None, v2_e=None):
+        if any(x is not None for x in (n0, n1, n2, uv0, uv1, uv2)):
+            _unported("shading normals and uvs", 5)
+        if med_in != -1 or med_out != -1:
+            _unported("participating media", 9)
+        if any(x is not None for x in (v0_e, v1_e, v2_e)):
+            _unported("motion blur", 8)
+        self.tris.append(dict(v0=v0, v1=v1, v2=v2, mat=mat, light=light))
+        return len(self.tris) - 1
+
+    def add_mesh(self, vertices, indices, mat=0, light=-1, normals=None,
+                 uvs=None, med_in=-1, med_out=-1, vertices_end=None):
+        """trianglemesh: vertices (V,3), indices (F,3)."""
+        if normals is not None or uvs is not None:
+            _unported("shading normals and uvs", 5)
+        if vertices_end is not None:
+            _unported("motion blur", 8)
+        vertices = np.asarray(vertices, np.float32)
+        indices = np.asarray(indices, np.int32).reshape(-1, 3)
+        return [self.add_triangle(vertices[f[0]], vertices[f[1]],
+                                  vertices[f[2]], mat, light,
+                                  med_in=med_in, med_out=med_out)
+                for f in indices]
+
+    def add_aaplane(self, lo, hi, axis, facing_fw=True, mat=0, light=-1,
+                    med_in=-1, med_out=-1):
+        if med_in != -1 or med_out != -1:
+            _unported("participating media", 9)
+        self.planes.append(dict(lo=lo, hi=hi, ax=axis, facing=facing_fw,
+                                mat=mat, light=light))
+        return len(self.planes) - 1
+
+    def add_sphere(self, *args, **kw):
+        _unported("spheres", 5)
+
+    def add_disk(self, *args, **kw):
+        _unported("disks", 5)
+
+    def add_curve(self, *args, **kw):
+        _unported("curves", 8)
+
+    def add_instanced_object(self, *args, **kw):
+        _unported("instancing", 6)
+
+    def add_medium(self, *args, **kw):
+        _unported("participating media", 9)
+
+    def add_texture(self, *args, **kw):
+        _unported("textures", 8)
+
+    # -- finalize ----------------------------------------------------------
+    def prim_index(self, family: str, local_idx: int) -> int:
+        """Global primitive index for (family, local index). Only the
+        ported families exist, so planes follow triangles directly."""
+        base = {"tri": 0, "pln": len(self.tris)}[family]
+        return base + local_idx
+
+    def build(self, device="cpu") -> Scene:
+        nt, npl = len(self.tris), len(self.planes)
+
+        def rows_f32(rows, key, shape):
+            if not rows:
+                return np.zeros(shape, np.float32)
+            return np.asarray([np.asarray(r[key], np.float32) for r in rows],
+                              np.float32).reshape(shape)
+
+        tv = [rows_f32(self.tris, k, (max(nt, 1), 3))
+              for k in ("v0", "v1", "v2")]
+        p_lo = rows_f32(self.planes, "lo", (max(npl, 1), 3))
+        p_hi = rows_f32(self.planes, "hi", (max(npl, 1), 3))
+
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        geom = Geometry(
+            tri_v0=t(tv[0]), tri_v1=t(tv[1]), tri_v2=t(tv[2]),
+            pln_lo=t(p_lo), pln_hi=t(p_hi),
+            pln_ax=t(np.asarray([r["ax"] for r in self.planes] or [2],
+                                np.int32)),
+            pln_facing=t(np.asarray([r["facing"] for r in self.planes]
+                                    or [True], bool)))
+
+        def ids(key):
+            a = np.asarray([r[key] for r in self.tris + self.planes],
+                           np.int32)
+            return a if a.size else np.full(1, 0 if key == "mat" else -1,
+                                            np.int32)
+
+        pts = [v[:nt] for v in tv]
+        if npl:
+            pts += [p_lo, p_hi]
+        allp = np.concatenate([p for p in pts if p.size]) \
+            if any(p.size for p in pts) else np.zeros((1, 3), np.float32)
+        scene = Scene(
+            geom=geom, prim_mat=t(ids("mat")), prim_light=t(ids("light")),
+            materials=mat_mod.make_material_table(
+                self.materials or [dict()], self.n_channels, device),
+            lights=lights_mod.build_light_table(self, device),
+            world_lo=t(allp.min(0) - 1e-3), world_hi=t(allp.max(0) + 1e-3),
+            n_tri=nt, n_pln=npl, n_channels=self.n_channels)
+        return dataclasses.replace(scene,
+                                   fused_profile=self._fused_profile(scene))
+
+    def _fused_profile(self, scene):
+        """Static profile for the fused path-bounce kernel
+        (ops/fused_path.py), as pbrt_tpu's gate (types.py:567-629):
+        all-matte triangles + ONE aaplane that is the scene's single
+        one-sided area light, either
+
+        - mode 1 ("projection"): a projection-strategy portal light with
+          one portal parallel to the light plane, or
+        - mode 0 ("area"): a plain diffuse area light (two-sample MIS).
+
+        The families pbrt_tpu's gate also rules out (spheres, disks,
+        curves, instances, motion, media, textures, SSS, Fourier) cannot
+        be built here at all. The triangle cap is the kernel's shared
+        memory plan (fused_path.MAX_TRI). Returns (axis, plane_facing,
+        portal_facing, n_materials, mode) or None."""
+        from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
+
+        if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > MAX_TRI:
+            return None
+        if scene.n_channels != 3 or len(self.materials) > MAX_MAT:
+            return None
+        for m in self.materials:
+            if float(np.max(np.asarray(m.get("sigma", 0.0)))) != 0.0:
+                return None
+        if len(self.light_rows) != 1:
+            return None
+        lr = self.light_rows[0]
+        if lr.get("type") != "area" or lr.get("two_sided", False):
+            return None
+        if any(tr["light"] != -1 for tr in self.tris):
+            return None
+        if int(scene.lights.prim_id[0]) != scene.n_tri:
+            return None
+        pl = self.planes[0]
+        portals = lr.get("portals") or ()
+        if not portals:
+            if lr.get("strategy") not in (None, "light"):
+                return None
+            return (int(pl["ax"]), bool(pl["facing"]), False,
+                    len(self.materials), 0)
+        if lr.get("strategy") != "projection" or len(portals) != 1:
+            return None
+        pax = int(portals[0][2])
+        pfac = bool(portals[0][3])
+        if int(pl["ax"]) != pax:       # SampleProj assumes parallel rects
+            return None
+        return (pax, bool(pl["facing"]), pfac, len(self.materials), 1)
