@@ -1,11 +1,12 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the fused path-bounce kernel (csrc/fused_path.cu) with nvcc into
-   build/kernels/ and prints the card, its power limit and the build time.
+1. Builds the two kernels (csrc/fused_path.cu, csrc/intersect.cu) with
+   nvcc, both at once, into build/kernels/ and prints the card, its power
+   limit and the build times.
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -15,8 +16,24 @@ Run from the root of a checkout, with no arguments:
    launched the kernel once per chunk and that the image mean matches
    pbrt_tpu's on the same sample streams to rel 1e-3.
 4. Times one 32-spp chunk (camera rays / kernel / replay), the 64-spp
-   render and the twin, with CUDA events, and prints a JSON line of the
-   kernels, then {"ok": true, "device": {...}} as the last line.
+   render and the twin, with CUDA events.
+5. Holds the brute-force intersection kernel against its plain-torch twin
+   on three primitive tables (the portal scene, the sphere cornell, a
+   4,001-primitive table near the 4,096 cap that spans eight shared-memory
+   tiles), for camera rays and for random rays with infinite and finite
+   tmax: prim equal and t bit-equal.
+6. Holds the generic wavefront loop against the fused kernel on the two
+   scenes inside the fused profile (same lanes, seam allowance of
+   tests/test_fused_path.py:258-261).
+7. Renders the generic loop's path at full width through ``render``:
+   ``_portal_scene(strategy="portal")`` and ``_sphere_cornell()``, 256² ×
+   64 spp, and `direct`, `whitted`, `ao`, `mypath` at 64²; checks the
+   launch counts the loop implies, that the fused kernel is not launched,
+   and pbrt_tpu's image means to rel 1e-3.
+8. Times the intersection kernel and its twin on 2,097,152-ray launches
+   and the new scenes' passes and renders, and prints a JSON line of the
+   kernels (with each kernel's roofline bound computed from this run's
+   inputs), then {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
@@ -34,7 +51,9 @@ from pbrt_tpu_torch import entry
 from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import fused_path as fp
+from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import film as film_mod
+from pbrt_tpu_torch.scene.types import SceneBuilder
 
 W = H = 256
 SPP = 64
@@ -47,6 +66,27 @@ MAX_DEPTH = 4
 # rounds the camera's float32 3×3 product to bf16.
 REF_IMAGE_MEAN = 0.11957985907793045
 TPU_IMAGE_MEAN = 0.11655332893133163
+# pbrt_tpu's float32 image means on the CPU backend for the generic loop's
+# renders below (max_depth 4, independent sampler, box filter), printed by
+# ``PYTHONPATH=. python tests/test_torch_li_loop.py``: scene, integrator,
+# resolution, spp -> mean.
+REF_LOOP_MEANS = {
+    ("portal_portal", "path", 256, 64): 0.11963030876927395,
+    ("sphere_cornell", "path", 256, 64): 0.5771794151666872,
+    ("sphere_cornell", "direct", 64, 4): 0.4631363573859672,
+    ("sphere_cornell", "whitted", 64, 4): 0.4631363573859672,
+    ("sphere_cornell", "ao", 64, 4): 0.8542355703393696,
+    ("sphere_cornell", "mypath", 64, 4): 0.5735151737091652,
+}
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and float32 rate outside the tensor cores (a multiply-add counts as
+# two, so code built without multiply-add contraction can reach half).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# float arithmetic operations of one ray-primitive test in intersect.cu /
+# fused_path.cu (multiplies, adds, subtracts, divides, sqrt, min/max;
+# compares and selects not counted)
+OPS_TRI, OPS_SPH, OPS_PLN = 46, 31, 8
 
 
 def check(ok, what):
@@ -146,6 +186,148 @@ def check_kernel(name, scene, max_depth, dev):
     return err
 
 
+def bound_ms(n_bytes, n_ops):
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def intersect_bound(scene, n_rays):
+    """Each ray read once (o, d, tmax: 28 B) and written once (t, prim:
+    8 B), the tables read once; every ray tests every primitive."""
+    tabs = ik.pack_scene(scene)
+    n_bytes = 36 * n_rays + sum(t.numel() * 4 for t in tabs)
+    n_ops = n_rays * (OPS_TRI * scene.n_tri + OPS_SPH * scene.n_sph
+                      + OPS_PLN * scene.n_pln)
+    return bound_ms(n_bytes, n_ops)
+
+
+def fused_bound(scene, code, n_b):
+    """From this run's residuals: a lane alive entering bounce b sweeps
+    the table once for its closest hit and, unless b is the emission-only
+    last bounce, once (mode 1) or twice (mode 0) more for next-event
+    estimation; ended lanes are not counted."""
+    n_rays = code.shape[1]
+    live = live_mask(code).sum(dim=1).tolist()
+    shadow = 1 if scene.fused_profile[4] == 1 else 2
+    sweeps = sum(n * (1 + (shadow if b < n_b - 1 else 0))
+                 for b, n in enumerate(live))
+    n_ops = sweeps * (OPS_TRI * scene.n_tri + OPS_PLN)
+    n_bytes = n_rays * (24 + 8 + 12 * n_b) + 64 * scene.n_tri
+    return bound_ms(n_bytes, n_ops)
+
+
+def cap_table(dev):
+    """A table near the intersection gate's cap of 4,096 primitives: the
+    portal box, a 3,776-triangle tessellated sphere, 200 small spheres
+    and the light's aaplane (4,001 primitives; the triangles span eight
+    512-row shared-memory tiles)."""
+    b = SceneBuilder()
+    white, black = entry._box_with_opening(b)
+    entry._add_sphere_mesh(b, (0.35, 0.22, 0.45), 0.22, white, 44)
+    for i in range(200):
+        b.add_sphere((0.55 + 0.04 * (i % 10), 0.03 + 0.045 * (i // 10), 0.8),
+                     0.02, mat=white)
+    entry._portal_light(b, black, "portal")
+    return b.build(dev)
+
+
+def ray_sets(dev, n=8192):
+    """Camera rays (64² × 2 spp) and random rays from inside the box with
+    infinite and with finite tmax, made from a seed."""
+    o_c, d_c, _, _ = lanes(64, 2, dev)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    o_r = (torch.rand(n, 3, generator=gen) * 0.9 + 0.05).to(dev)
+    d_r = torch.nn.functional.normalize(
+        torch.randn(n, 3, generator=gen), dim=-1).to(dev)
+    inf = torch.full((n,), math.inf, device=dev)
+    fin = (torch.rand(n, generator=gen) * 0.7 + 0.1).to(dev)
+    return {"camera": (o_c, d_c, torch.full_like(o_c[:, 0], math.inf)),
+            "random": (o_r, d_r, inf),
+            "random_tmax": (o_r, d_r, fin)}
+
+
+def check_intersect(name, scene, dev):
+    """Kernel vs twin on the three ray sets: prim equal on every ray and
+    t equal bit for bit. Returns the largest |t_kernel − t_twin|."""
+    tabs = ik.pack_scene(scene)
+    counts = (scene.n_tri, scene.n_sph, scene.n_pln)
+    worst = 0.0
+    for rname, (o, d, tmax) in ray_sets(dev).items():
+        t, prim = ik.intersect_brute(*tabs, o, d, tmax, *counts)
+        torch.cuda.synchronize()
+        t_ref, prim_ref = ik._intersect_reference(*tabs, o, d, tmax, *counts)
+        check(prim.dtype == torch.int32 and t.dtype == torch.float32,
+              "output types")
+        n_prim = int((prim != prim_ref).sum())
+        err = float((t - t_ref).abs().max())
+        worst = max(worst, err)
+        hit = float((prim >= 0).float().mean())
+        print(f"intersect kernel vs twin {name} {counts} {rname}: "
+              f"{n_prim} prim mismatches, t max err {err:.3g}, hit share "
+              f"{hit:.3f}")
+        check(n_prim == 0, f"{n_prim} prim mismatches")
+        check(torch.equal(t, t_ref), f"t differs from the twin by {err}")
+        check(hit > 0.05, f"hit share {hit}")
+    return worst
+
+
+def check_loop_vs_fused(name, scene, max_depth, dev):
+    """The generic loop against the fused kernel on the same lanes."""
+    cfg = render_mod.RenderConfig(max_depth=max_depth)
+    o, d, pid, sidx = lanes(64, 2, dev)
+    sfn = render_mod.make_sampler("independent")
+    check(fp.eligible(scene, cfg), f"{name} is outside the fused profile")
+    k0, i0 = fp.fused_bounce.launches, ik.intersect_brute.launches
+    L_fused = render_mod.li_path(scene, o, d, pid.long(), sidx.long(), sfn,
+                                 cfg, None)
+    check(fp.fused_bounce.launches == k0 + 1
+          and ik.intersect_brute.launches == i0, "li_path took the loop")
+    L_loop = render_mod._li_loop(scene, o, d, pid.long(), sidx.long(), sfn,
+                                 cfg, None)
+    torch.cuda.synchronize()
+    check(ik.intersect_brute.launches > i0
+          and fp.fused_bounce.launches == k0 + 1, "_li_loop's launches")
+    bad = (L_loop - L_fused).abs().amax(-1) > 1e-4
+    rel = abs(float(L_loop.mean() - L_fused.mean())) / float(L_fused.mean())
+    print(f"loop vs fused kernel {name} depth {max_depth}: max diff "
+          f"{float((L_loop - L_fused).abs().max()):.3g}, lanes over 1e-4: "
+          f"{int(bad.sum())} of {bad.numel()}, means rel {rel:.3g}")
+    check(float(bad.float().mean()) < 6e-3, f"{int(bad.sum())} lanes")
+    torch.testing.assert_close(L_loop[~bad], L_fused[~bad], atol=1.1e-4,
+                               rtol=0)
+    check(rel < 0.01, f"means differ by rel {rel}")
+
+
+def render_loop(key, scene, integrator, res, spp, want_launches):
+    """One render of the generic loop through ``render``; checks the
+    image, the launch counts and pbrt_tpu's mean. Returns the launches."""
+    cam = entry._camera((res, res))
+    k0 = fp.fused_bounce.launches
+    i0 = ik.intersect_brute.launches
+    img = render_mod.render(scene, cam, spp=spp, integrator=integrator,
+                            max_depth=MAX_DEPTH, chunk_spp=CHUNK,
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_k = fp.fused_bounce.launches - k0
+    n_i = ik.intersect_brute.launches - i0
+    ref = REF_LOOP_MEANS[(key, integrator, res, spp)]
+    mean = float(img.double().mean())
+    rel = abs(mean - ref) / ref
+    print(f"generic loop {key} {integrator} {res}² × {spp} spp: mean "
+          f"{mean!r} vs pbrt_tpu {ref!r} (rel {rel:.3g}), {n_i} intersect "
+          f"launches, {n_k} fused launches")
+    check(img.shape == (res, res, 3) and img.device.type == "cuda",
+          f"image {tuple(img.shape)} on {img.device}")
+    check(bool(torch.isfinite(img).all()), "non-finite image")
+    check(float(img.mean()) > 0.05, "the scene does not light up")
+    check(n_k == 0, f"the fused kernel was launched {n_k} times")
+    check(n_i == want_launches, f"{n_i} intersect launches, the loop "
+          f"implies {want_launches}")
+    check(rel < 1e-3, f"image mean off by rel {rel}")
+    return n_i
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -154,10 +336,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.load("fused_path")
-    print(f"kernel build {_build.load.build_seconds['fused_path']:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)")
-    print(_build.load.ptxas_log.get("fused_path", "").strip()[-1500:])
+    _build.load_all(("fused_path", "intersect"))
+    print(f"kernel builds (in parallel) "
+          f"{ {k: round(v, 1) for k, v in _build.load.build_seconds.items()} }"
+          f" s (wall {time.perf_counter() - t0:.1f} s)")
+    for name in ("fused_path", "intersect"):
+        print(_build.load.ptxas_log.get(name, "").strip()[-1500:])
 
     # ---- 2. kernel vs twin on the card
     scenes = {"portal": entry._portal_scene(dev),
@@ -175,6 +359,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
     t0 = time.perf_counter()
     img = render_mod.render(scene, cam, spp=SPP, integrator="path",
                             max_depth=MAX_DEPTH, chunk_spp=CHUNK,
@@ -183,6 +368,8 @@ def main():
     t_first = time.perf_counter() - t0
     launches = fp.fused_bounce.launches
     check(launches == SPP // CHUNK, f"{launches} kernel launches")
+    check(ik.intersect_brute.launches == 0,
+          "the main path launched the intersection kernel")
     check(img.shape == (H, W, 3) and img.device.type == "cuda",
           f"image {tuple(img.shape)} on {img.device}")
     check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -251,13 +438,111 @@ def main():
           f"{peak_mb:.1f} MiB")
 
     check(math.isfinite(mrays), f"rate {mrays}")
+    fused_bound_ms, fused_bound_by = fused_bound(scene_d, res_k[0],
+                                                 MAX_DEPTH + 1)
+
+    # ---- 5. the intersection kernel vs its twin on three tables
+    loop_scenes = {"portal_portal": entry._portal_scene(dev, "portal"),
+                   "sphere_cornell": entry._sphere_cornell(dev)}
+    tables = dict(loop_scenes, cap_table=cap_table(dev))
+    check(tables["cap_table"].n_prims == 4001, "the 4,001-primitive table")
+    for name, sc in tables.items():
+        check_intersect(name, sc, dev)
+
+    # ---- 6. the generic loop against the fused kernel
+    for name in ("portal", "cornell_mode0"):
+        for md in (4, 6):
+            check_loop_vs_fused(name, scenes[name], md, dev)
+
+    # ---- 7. the generic loop's path at full width, through render
+    # launches per pass: per full bounce one closest hit, one NEE trace
+    # and, where a light without portals exists, one BSDF-half trace;
+    # then the emission-only last bounce's closest hit
+    per_pass = {"portal_portal": MAX_DEPTH * 2 + 1,
+                "sphere_cornell": MAX_DEPTH * 3 + 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    for key, sc in (("portal_portal", entry._portal_scene(strategy="portal")),
+                    ("sphere_cornell", entry._sphere_cornell())):
+        render_loop(key, sc, "path", W, SPP, per_pass[key] * (SPP // CHUNK))
+    loop_launches = ik.intersect_brute.launches
+    check(fp.fused_bounce.launches == 0, "fused launches on the loop's path")
+    loop_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    # one pass each: direct and whitted end after the first bounce (no
+    # ported material has a specular lobe), ao traces a hit and a probe,
+    # mypath has no BSDF half
+    for integ, want in (("direct", 3), ("whitted", 3), ("ao", 2),
+                        ("mypath", MAX_DEPTH * 2 + 1)):
+        render_loop("sphere_cornell", loop_scenes["sphere_cornell"], integ,
+                    64, 4, want)
+
+    # ---- 8. timings of the intersection kernel and the generic loop
+    o_m, d_m, _, _ = rays
+    inf_m = torch.full((o_m.shape[0],), math.inf, device=dev)
+    ims, ibound = {}, {}
+    for name, sc in tables.items():
+        tabs = ik.pack_scene(sc)
+        counts = (sc.n_tri, sc.n_sph, sc.n_pln)
+
+        def ikern_fn():
+            return ik.intersect_brute(*tabs, o_m, d_m, inf_m, *counts)
+
+        def itwin_fn():
+            return ik._intersect_reference(*tabs, o_m, d_m, inf_m, *counts)
+
+        got = ikern_fn()
+        ims[f"kernel_{name}"] = sync_ms(ikern_fn, 5)
+        ibound[name] = intersect_bound(sc, o_m.shape[0])
+        if name == "cap_table":
+            continue    # its twin is ~180,000 launches on 8 MB tensors
+        want = itwin_fn()
+        ims[f"twin_{name}"] = sync_ms(itwin_fn, 2)
+        ims[f"kernel_again_{name}"] = sync_ms(ikern_fn, 5)
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"kernel differs from the twin at {o_m.shape[0]} rays")
+        if name == "sphere_cornell":
+            intersect_err = float((got[0] - want[0]).abs().max())
+    for key, sc in loop_scenes.items():
+        cfg_l = render_mod.RenderConfig(max_depth=MAX_DEPTH)
+
+        def lpass_fn():
+            return render_mod.render_pass(sc, cam_d, filt, cfg_l, W, H, CHUNK,
+                                          0, dev)
+
+        def lrender_fn():
+            return render_mod.render(sc, cam_d, spp=SPP, max_depth=MAX_DEPTH,
+                                     chunk_spp=CHUNK, device=dev)
+
+        lpass_fn()
+        ims[f"pass_32spp_{key}"] = sync_ms(lpass_fn, 3)
+        ims[f"render_64spp_{key}"] = sync_ms(lrender_fn, 2)
+    print("intersect and generic-loop times (ms, CUDA events, "
+          f"{o_m.shape[0]} rays per launch): "
+          + json.dumps({k: round(v, 4) for k, v in ims.items()}))
+    print("intersect bounds (ms, by): " + json.dumps(
+        {k: [round(v[0], 5), v[1]] for k, v in ibound.items()}))
+    print(f"peak memory of the generic loop's 64-spp renders "
+          f"{loop_peak_mb:.1f} MiB")
+
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_path", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/fused_path.cu",
         "replaces": "pbrt_tpu/ops/fused_path.py:107",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms["kernel"], "plain_ms": ms["twin"]}]}))
+        "ms": ms["kernel"], "plain_ms": ms["twin"],
+        "bound_ms": fused_bound_ms, "bound_by": fused_bound_by,
+        "library_ms": None}, {
+        "name": "intersect", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/intersect.cu",
+        "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
+        "launches": loop_launches, "max_abs_err": intersect_err,
+        "ms": ims["kernel_sphere_cornell"],
+        "plain_ms": ims["twin_sphere_cornell"],
+        "bound_ms": ibound["sphere_cornell"][0],
+        "bound_by": ibound["sphere_cornell"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,14 @@
 ``scene_from_jax``, ``camera_from_jax`` and ``filter_from_jax`` turn a
 built ``pbrt_tpu`` Scene, Camera and Filter into this package's objects
 on a given device. Every field is read through ``np.asarray``, so this
-module never imports jax itself; static fields (``n_tri``, ``n_pln``,
-``n_channels``, ``fused_profile``) carry over as they are. Only what the
-port models is carried: a scene with other shape families raises.
+module never imports jax itself; static fields (the primitive counts,
+``n_channels``, ``fused_profile``, the light table's ``present`` and
+``has_portals``) carry over as they are. Only what the port models is
+carried: a scene with other shape families, material types, light types,
+media, textures or motion raises. A BVH is left behind (``Scene.bvh`` is
+None here): the port's intersection gate goes by the primitive count. This is the tests' tool for
+feeding both packages one scene, so it defaults to the CPU, where JAX runs
+there; the port's own entry points default to the card.
 """
 
 from __future__ import annotations
@@ -16,8 +21,8 @@ import torch
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.scene.camera import PERSPECTIVE, Camera
 from pbrt_tpu_torch.scene.film import Filter
-from pbrt_tpu_torch.scene.lights import LightTable
-from pbrt_tpu_torch.scene.materials import MaterialTable
+from pbrt_tpu_torch.scene.lights import AREA, LightTable
+from pbrt_tpu_torch.scene.materials import MATTE, MaterialTable
 from pbrt_tpu_torch.scene.types import Geometry, Scene
 
 
@@ -26,29 +31,45 @@ def _t(x, device):
 
 
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {k: getattr(scene, k, 0) for k in ("n_sph", "n_dsk", "n_crv",
-                                               "n_vprims")}
-    if any(extra.values()) or getattr(scene, "has_motion", False):
+    extra = {k: getattr(scene, k, 0) for k in ("n_dsk", "n_crv", "n_vprims")}
+    extra.update({k: getattr(scene, k, None) is not None
+                  for k in ("textures", "inst", "sss")})
+    extra.update({k: bool(getattr(scene, k, False))
+                  for k in ("has_motion", "has_sss", "media", "fourier")})
+    if any(extra.values()):
         raise NotImplementedError(
-            f"bridge: only triangles + aaplanes are ported ({extra})")
+            f"bridge: only triangles, spheres and aaplanes without media, "
+            f"textures or motion are ported ({extra})")
     g, m, lt = scene.geom, scene.materials, scene.lights
+    if (np.asarray(m.mtype) != MATTE).any():
+        raise NotImplementedError("bridge: only matte material rows are "
+                                  "ported")
+    ltype = np.asarray(lt.ltype)
+    if (ltype > AREA).any():
+        raise NotImplementedError("bridge: only point, spot, distant and "
+                                  "area lights are ported")
     return Scene(
         geom=Geometry(**{k: _t(getattr(g, k), device) for k in (
-            "tri_v0", "tri_v1", "tri_v2", "pln_lo", "pln_hi", "pln_ax",
-            "pln_facing")}),
+            "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+            "tri_uv0", "tri_uv1", "tri_uv2", "sph_center", "sph_radius",
+            "pln_lo", "pln_hi", "pln_ax", "pln_facing")}),
         prim_mat=_t(scene.prim_mat, device),
         prim_light=_t(scene.prim_light, device),
         materials=MaterialTable(mtype=_t(m.mtype, device),
                                 kd=_t(m.kd, device),
                                 sigma=_t(m.sigma, device)),
-        lights=LightTable(**{k: _t(getattr(lt, k), device) for k in (
-            "emit", "prim_id", "two_sided", "strategy",
-            "n_portals", "portal_lo", "portal_hi", "portal_ax",
-            "portal_facing")}),
+        lights=LightTable(
+            **{k: _t(getattr(lt, k), device) for k in (
+                "ltype", "emit", "pos", "dir", "cos_total", "cos_falloff",
+                "prim_id", "two_sided", "strategy", "n_portals", "portal_lo",
+                "portal_hi", "portal_ax", "portal_facing", "power")},
+            present=tuple(lt.present), has_portals=bool(lt.has_portals),
+            has_plain_area=bool(((ltype == AREA)
+                                 & (np.asarray(lt.n_portals) == 0)).any())),
         world_lo=_t(scene.world_lo, device),
         world_hi=_t(scene.world_hi, device),
-        n_tri=int(scene.n_tri), n_pln=int(scene.n_pln),
-        n_channels=int(scene.n_channels),
+        n_tri=int(scene.n_tri), n_sph=int(scene.n_sph),
+        n_pln=int(scene.n_pln), n_channels=int(scene.n_channels),
         fused_profile=scene.fused_profile)
 
 

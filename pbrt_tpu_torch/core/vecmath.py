@@ -1,12 +1,15 @@
 """Vector math over batched ``(..., 3)`` tensors (port of the subset of
-pbrt_tpu/core/vecmath.py that the fused path slice uses)."""
+pbrt_tpu/core/vecmath.py that the fused path and the generic wavefront
+loop use)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+INF = math.inf
 SHADOW_EPS = 1e-3  # conservative ray-offset epsilon (vecmath.SHADOW_EPS)
 
 
@@ -14,8 +17,20 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
 
+def absdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return dot(a, b).abs()
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def length_squared(v: torch.Tensor) -> torch.Tensor:
+    return torch.sum(v * v, dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(length_squared(v))
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -26,6 +41,33 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
 def face_forward(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Flip n into the hemisphere of v (geometry.h Faceforward)."""
     return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
+
+
+def coordinate_system(v1: torch.Tensor):
+    """Orthonormal basis around the unit vector v1 (geometry.h:237), by
+    the branchless construction of Duff et al."""
+    x, y, z = v1.unbind(-1)
+    s = torch.where(z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + z)
+    b = x * y * a
+    v2 = torch.stack([1.0 + s * x ** 2 * a, s * b, -s * x], dim=-1)
+    v3 = torch.stack([b, s + y ** 2 * a, -y], dim=-1)
+    return v2, v3
+
+
+def spherical_theta(v: torch.Tensor) -> torch.Tensor:
+    return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v: torch.Tensor) -> torch.Tensor:
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * math.pi, p)
+
+
+def take_axis(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """v[..., i] for a per-element component index i (pbrt_tpu's
+    fastgather.select_component; plain indexing here)."""
+    return torch.gather(v, -1, i.long().unsqueeze(-1)).squeeze(-1)
 
 
 def offset_ray_origin(p: torch.Tensor, n: torch.Tensor,

@@ -1,15 +1,22 @@
-"""The port's scenes and camera for the main path (counterpart of
+"""The port's scenes and camera (counterpart of
 ``__graft_entry__.py:13-63``), built with the port's SceneBuilder only.
 
 - ``_portal_scene``: the 26-triangle cornell box whose ceiling has a
-  0.3×0.3 opening (the portal), lit by a projection-strategy area light
-  on an aaplane above it (fused mode 1, flat sweep).
+  0.3×0.3 opening (the portal), lit by a portal area light on an aaplane
+  above it. With the default ``strategy="projection"`` it is the main
+  path's scene (fused mode 1, flat sweep); with ``"portal"`` or
+  ``"light"`` it falls outside the fused profile and renders through the
+  generic wavefront loop.
 - ``_plain_cornell``: the classic cornell box with a plain one-sided
   area light (fused mode 0, two-sample MIS).
 - ``_tessellated_portal``: the portal scene plus a lat-long tessellated
   sphere (fused mode 1 with cluster culling once past 64 triangles).
+- ``_sphere_cornell``: the plain cornell box plus two matte spheres (one
+  Oren–Nayar) and a point light beside the area light: the generic
+  loop's scene with all three shape families, a delta light and light
+  selection over two lights.
 
-The last two mirror the scenes of tests/test_fused_path.py.
+The makers build on the card unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import numpy as np
 
 from pbrt_tpu_torch.core import transform
 from pbrt_tpu_torch.scene import camera as cam_mod
-from pbrt_tpu_torch.scene.types import SceneBuilder
+from pbrt_tpu_torch.scene.types import SceneBuilder, require_device
 
 _WHITE = (0.73, 0.73, 0.73)
 _RED = (0.63, 0.065, 0.05)
@@ -49,11 +56,11 @@ def _box_with_opening(b):
     return white, black
 
 
-def _portal_light(b, black):
+def _portal_light(b, black, strategy="projection"):
     """Area light behind the ceiling portal: emitter plane above the
     opening, portal = the opening itself."""
     li = b.add_light(type="area", L=(18.4, 15.6, 8.0), prim=-1,
-                     strategy="projection", two_sided=False,
+                     strategy=strategy, two_sided=False,
                      portals=[((0.35, 1.0, 0.35), (0.65, 1.0, 0.65), 1,
                                False)])
     pid = b.add_aaplane((0.3, 1.2, 0.3), (0.7, 1.2, 0.7), axis=1,
@@ -61,8 +68,9 @@ def _portal_light(b, black):
     b.light_rows[li]["prim"] = b.prim_index("pln", pid)
 
 
-def _portal_scene(device="cpu"):
-    b = SceneBuilder()
+def _fill_portal_scene(b, strategy="projection"):
+    """Add the portal scene to builder ``b`` (any object with the
+    SceneBuilder interface)."""
     white, black = _box_with_opening(b)
     # short block
     b.add_mesh([(0.2, 0.0, 0.3), (0.5, 0.0, 0.3), (0.5, 0.3, 0.3),
@@ -71,13 +79,18 @@ def _portal_scene(device="cpu"):
                [(0, 1, 2), (0, 2, 3), (4, 6, 5), (4, 7, 6), (0, 3, 7),
                 (0, 7, 4), (1, 5, 6), (1, 6, 2), (3, 2, 6), (3, 6, 7)],
                mat=white)
-    _portal_light(b, black)
+    _portal_light(b, black, strategy)
+
+
+def _portal_scene(device="cuda", strategy="projection"):
+    b = SceneBuilder()
+    _fill_portal_scene(b, strategy)
     return b.build(device)
 
 
-def _plain_cornell(device="cpu"):
-    """Classic cornell box with a plain one-sided diffuse area light."""
-    b = SceneBuilder()
+def _cornell_box(b):
+    """The classic cornell box with a plain one-sided diffuse area light
+    on an aaplane under the ceiling. Returns the white material row."""
     white = b.add_material(type=0, kd=_WHITE)
     red = b.add_material(type=0, kd=_RED)
     green = b.add_material(type=0, kd=_GREEN)
@@ -91,7 +104,31 @@ def _plain_cornell(device="cpu"):
     li = b.add_light(type="area", L=(15.0, 13.0, 9.0), prim=-1)
     pid = b.add_aaplane((0.3, 0.99, 0.35), (0.7, 0.99, 0.65), axis=1,
                         facing_fw=False, mat=black, light=li)
-    b.light_rows[li]["prim"] = b.prim_index("pln", pid)
+    b.light_rows[li]["prim"] = ("pln", pid)
+    return white
+
+
+def _plain_cornell(device="cuda"):
+    """Classic cornell box with a plain one-sided diffuse area light."""
+    b = SceneBuilder()
+    _cornell_box(b)
+    return b.build(device)
+
+
+def _fill_sphere_cornell(b):
+    """Add the sphere cornell scene to builder ``b``: the plain cornell
+    box plus two matte spheres (the second one Oren–Nayar, sigma 20°) and
+    a point light beside the area light."""
+    white = _cornell_box(b)
+    rough = b.add_material(type=0, kd=(0.6, 0.5, 0.3), sigma=20.0)
+    b.add_sphere((0.3, 0.18, 0.55), 0.18, mat=white)
+    b.add_sphere((0.68, 0.14, 0.35), 0.14, mat=rough)
+    b.add_light(type="point", I=(0.5, 0.5, 0.6), pos=(0.85, 0.8, 0.15))
+
+
+def _sphere_cornell(device="cuda"):
+    b = SceneBuilder()
+    _fill_sphere_cornell(b)
     return b.build(device)
 
 
@@ -115,7 +152,7 @@ def _add_sphere_mesh(b, c, r, m, nseg):
     b.add_mesh(vs, fs, mat=m)
 
 
-def _tessellated_portal(nseg=13, device="cpu"):
+def _tessellated_portal(nseg=13, device="cuda"):
     """The portal scene's box and light plus a tessellated sphere
     (nseg=13: 328 triangles; nseg=22: 940)."""
     b = SceneBuilder()
@@ -125,7 +162,8 @@ def _tessellated_portal(nseg=13, device="cpu"):
     return b.build(device)
 
 
-def _camera(res=(64, 64), device="cpu"):
+def _camera(res=(64, 64), device="cuda"):
+    device = require_device(device)
     return cam_mod.make_perspective(
         transform.look_at((0.5, 0.5, -1.4), (0.5, 0.5, 1.0), (0, 1, 0),
                           device=device),

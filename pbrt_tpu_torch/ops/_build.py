@@ -61,3 +61,14 @@ def load(name: str) -> ctypes.CDLL:
 
 load.build_seconds = {}
 load.ptxas_log = {}
+
+
+def load_all(names=("fused_path", "intersect")) -> None:
+    """Build several kernels at once: one nvcc process per source, all
+    started together (each ``load`` waits on its own compiler in its own
+    thread)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(load, n) for n in names]:
+            fut.result()

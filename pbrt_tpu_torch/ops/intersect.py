@@ -1,0 +1,184 @@
+"""Brute-force closest-hit kernel for small scenes (port of
+pbrt_tpu/ops/intersect_pallas.py).
+
+For every ray it tests every triangle, sphere and aaplane of a scene with
+no BVH and returns ``(t, prim)``: the closest hit distance and the global
+primitive index, −1 on a miss. It carries every integrator but the fused
+path on such scenes (scene/intersect.py holds the gate).
+
+``intersect_brute`` dispatches on the device of its tensors: a CUDA tensor
+launches ``csrc/intersect.cu``; a CPU tensor runs ``_intersect_reference``,
+the plain-torch twin that does the same tests in the same order with the
+same tie rule. Nothing falls back from one to the other. The query is not
+differentiated (pbrt_tpu's custom_vjp returns zero cotangents): callers
+run it under ``torch.no_grad()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BIG = 1e30
+MAX_PRIMS = 4096      # the gate of scene/intersect.py, as pbrt_tpu's
+
+
+def pack_scene(scene):
+    """Pack the primitive tables into the kernel's layouts: tri (T,9) =
+    v0, e1, e2; sph (S,4) = center, radius; pln (P,8) = lo, hi, axis, pad.
+    A family with no primitive keeps its one padding row, which the
+    kernel never reads (its count is 0)."""
+    g = scene.geom
+    tri = torch.cat([g.tri_v0, g.tri_v1 - g.tri_v0, g.tri_v2 - g.tri_v0],
+                    dim=-1)
+    sph = torch.cat([g.sph_center, g.sph_radius[:, None]], dim=-1)
+    pln = torch.cat([g.pln_lo, g.pln_hi,
+                     g.pln_ax[:, None].to(torch.float32),
+                     torch.zeros_like(g.pln_lo[:, :1])], dim=-1)
+    return tri.contiguous(), sph.contiguous(), pln.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain-torch twin of the kernel
+# ---------------------------------------------------------------------------
+
+def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
+    """What the kernel computes, vectorized over rays, with Python loops
+    over the primitives in the kernel's order. Returns t (R,) float32 and
+    prim (R,) int32."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    zero = torch.zeros_like(ox)
+    best_t = torch.clamp_max(tmax, BIG)
+    best_p = torch.full_like(ox, -1, dtype=torch.int32)
+
+    # triangles: Möller–Trumbore (shapes/triangle.cpp role)
+    for i in range(n_tri):
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[i].unbind(0)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        okd = det.abs() > 1e-12
+        inv_det = torch.where(okd, 1.0 / det, zero)
+        rx = ox - v0x
+        ry = oy - v0y
+        rz = oz - v0z
+        u = (rx * px + ry * py + rz * pz) * inv_det
+        qx = ry * e1z - rz * e1y
+        qy = rz * e1x - rx * e1z
+        qz = rx * e1y - ry * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        hit = (okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-4)
+               & (t < best_t))
+        best_t = torch.where(hit, t, best_t)
+        best_p = torch.where(hit, i, best_p)
+
+    # spheres: stable quadratic (sphere.cpp:141-150)
+    if n_sph:
+        a = dx * dx + dy * dy + dz * dz
+    for i in range(n_sph):
+        cx, cy, cz, rad = sph[i].unbind(0)
+        lx = ox - cx
+        ly = oy - cy
+        lz = oz - cz
+        b = 2.0 * (lx * dx + ly * dy + lz * dz)
+        c = lx * lx + ly * ly + lz * lz - rad * rad
+        disc = b * b - 4.0 * a * c
+        ok = disc >= 0.0
+        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        q = torch.where(b >= 0.0, -0.5 * (b + sq), -0.5 * (b - sq))
+        t0 = q / torch.clamp_min(a, 1e-20)
+        t1 = c / torch.where(q.abs() > 1e-20, q, 1e-20)
+        tn = torch.minimum(t0, t1)
+        tf = torch.maximum(t0, t1)
+        t = torch.where(tn > 1e-4, tn, tf)
+        hit = ok & (t > 1e-4) & (t < best_t)
+        best_t = torch.where(hit, t, best_t)
+        best_p = torch.where(hit, n_tri + i, best_p)
+
+    # aaplanes (plane.cpp:15-55): open bounds on the rectangle
+    ray_o, ray_d = (ox, oy, oz), (dx, dy, dz)
+    for i in range(n_pln):
+        row = pln[i].unbind(0)
+        lo, hi = row[0:3], row[3:6]
+        ax = int(row[6])
+        ax0, ax1 = {0: (1, 2), 1: (0, 2), 2: (0, 1)}[ax]
+        d_ax = ray_d[ax]
+        okd = d_ax.abs() > 1e-12
+        t = (lo[ax] - ray_o[ax]) / torch.where(okd, d_ax, 1e-12)
+        p0 = ray_o[ax0] + t * ray_d[ax0]
+        p1 = ray_o[ax1] + t * ray_d[ax1]
+        hit = (okd & (t > 1e-4) & (t < best_t) & (p0 > lo[ax0])
+               & (p0 < hi[ax0]) & (p1 > lo[ax1]) & (p1 < hi[ax1]))
+        best_t = torch.where(hit, t, best_t)
+        best_p = torch.where(hit, n_tri + n_sph + i, best_p)
+    return best_t, best_p
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from pbrt_tpu_torch.ops import _build
+
+    lib = _build.load("intersect")
+    fn = lib.intersect_launch
+    if fn.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+        fn.restype = i32
+    return fn
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {dtype} on {device}, "
+                         f"got {x.dtype} on {x.device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def intersect_brute(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
+    """Closest hit of rays o, d (R,3) within tmax (R,) against the packed
+    tables (``pack_scene``). Returns t (R,) float32, prim (R,) int32.
+
+    On the CPU this is the twin; on CUDA it launches the kernel (and adds
+    one to ``intersect_brute.launches``). Any other device raises."""
+    if o.device.type == "cpu":
+        return _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph,
+                                    n_pln)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"intersect_brute on {o.device}")
+    dev = o.device
+    R = o.shape[0]
+    f32 = torch.float32
+    if not (0 <= n_tri <= tri.shape[0] and 0 <= n_sph <= sph.shape[0]
+            and 0 <= n_pln <= pln.shape[0] and R > 0
+            and n_tri + n_sph + n_pln <= MAX_PRIMS):
+        raise ValueError(f"bad sizes n_tri={n_tri} n_sph={n_sph} "
+                         f"n_pln={n_pln} R={R}")
+    _check("tri", tri, f32, (tri.shape[0], 9), dev)
+    _check("sph", sph, f32, (sph.shape[0], 4), dev)
+    _check("pln", pln, f32, (pln.shape[0], 8), dev)
+    _check("o", o, f32, (R, 3), dev)
+    _check("d", d, f32, (R, 3), dev)
+    _check("tmax", tmax, f32, (R,), dev)
+    t = torch.empty(R, dtype=f32, device=dev)
+    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(tri.data_ptr(), sph.data_ptr(), pln.data_ptr(),
+                 o.data_ptr(), d.data_ptr(), tmax.data_ptr(), t.data_ptr(),
+                 prim.data_ptr(), R, n_tri, n_sph, n_pln, stream)
+    if err != 0:
+        raise RuntimeError(f"intersect kernel launch failed: CUDA error "
+                           f"{err}")
+    intersect_brute.launches += 1
+    return t, prim
+
+
+intersect_brute.launches = 0

@@ -2,7 +2,7 @@
 
 Only the independent sampler is ported: it is the counter-based
 ``core.rng.uniform`` itself. The stratified, Halton, Sobol', (0,2) and
-max-min-distance samplers come with the generic integrator loop.
+max-min-distance samplers come with the rest of the scene zoo.
 """
 
 from __future__ import annotations
@@ -19,5 +19,5 @@ def make_sampler(name: str, spp: int = 16, resolution=None) -> Callable:
             return rng_mod.uniform(pixel_id, sample_idx, dim, seed)
         return sample
     raise NotImplementedError(
-        f"sampler {name!r}: ROADMAP queue 1 item 5 (only 'independent' "
+        f"sampler {name!r}: ROADMAP queue 1 item 8 (only 'independent' "
         "is ported)")

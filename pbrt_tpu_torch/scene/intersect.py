@@ -1,0 +1,155 @@
+"""Ray–scene intersection over the ported primitive families (port of the
+brute-force path of pbrt_tpu/scene/intersect.py).
+
+Counterpart of Scene::Intersect / IntersectP. Small scenes (no BVH, at
+most 4096 primitives) go through the brute-force kernel of
+ops/intersect.py: on a CUDA tensor the kernel, on a CPU tensor its twin.
+``finalize_hit`` turns the kernel's ``(t, prim)`` into a Hit record with
+normals, uvs and tangents. Scenes past the gate need the BVH traversal,
+which is not ported yet, and raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pbrt_tpu_torch.core import vecmath
+from pbrt_tpu_torch.core.vecmath import normalize
+from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.scene import shapes
+from pbrt_tpu_torch.scene.shapes import Hit
+
+
+def _closest(scene, o, d, tmax):
+    """(t, prim) of the closest hit, through the brute-force kernel. Not
+    differentiated: the estimator differentiates the integrand, not the
+    sampled hit distances."""
+    if scene.bvh is not None or scene.n_prims > ik.MAX_PRIMS:
+        raise NotImplementedError(
+            f"scenes with a BVH or more than {ik.MAX_PRIMS} primitives need "
+            "the BVH traversal: ROADMAP queue 1 item 6")
+    with torch.no_grad():
+        tri, sph, pln = ik.pack_scene(scene)
+        return ik.intersect_brute(
+            tri, sph, pln, o.detach().contiguous(), d.detach().contiguous(),
+            tmax.detach().contiguous(), scene.n_tri, scene.n_sph,
+            scene.n_pln)
+
+
+def intersect(scene, o, d, tmax) -> Hit:
+    """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...)."""
+    t, prim = _closest(scene, o, d, tmax)
+    return finalize_hit(scene, o, d, t, prim)
+
+
+def intersect_p(scene, o, d, tmax):
+    """Any-hit (shadow) query → occluded mask (R,)."""
+    return _closest(scene, o, d, tmax)[1] >= 0
+
+
+def finalize_hit(scene, o, d, t, prim_id) -> Hit:
+    """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id)."""
+    g = scene.geom
+    R = o.shape[0]
+    dev = o.device
+    prim_id = prim_id.long()   # the kernel's int32 ids index tables below
+    valid = prim_id >= 0
+    # park missed rays at their origin: a t of 1e30 would overflow squared
+    # distances downstream (inf → NaN in masked-lane gradients)
+    p = o + torch.where(valid, t, 0.0)[..., None] * d
+    ng = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(R, 3)
+    ns = ng
+    uv = torch.zeros((R, 2), device=dev)
+    dpdu = torch.tensor([1.0, 0.0, 0.0], device=dev).expand(R, 3)
+
+    nt, nsp, npl = scene.n_tri, scene.n_sph, scene.n_pln
+    if nt:
+        ti = prim_id.clamp(0, nt - 1)
+        is_tri = (valid & (prim_id < nt))[..., None]
+        hv0, hv1, hv2 = g.tri_v0[ti], g.tri_v1[ti], g.tri_v2[ti]
+        ngt = shapes.triangle_normal(hv0, hv1, hv2)
+        # barycentrics recomputed at the hit point (the kernel carries only
+        # t and the prim id): project onto the triangle basis
+        e1 = hv1 - hv0
+        e2 = hv2 - hv0
+        rp = p - hv0
+        d00 = vecmath.dot(e1, e1)
+        d01 = vecmath.dot(e1, e2)
+        d11 = vecmath.dot(e2, e2)
+        d20 = vecmath.dot(rp, e1)
+        d21 = vecmath.dot(rp, e2)
+        denom = torch.clamp_min(d00 * d11 - d01 * d01, 1e-20)
+        bu = torch.clamp((d11 * d20 - d01 * d21) / denom, 0.0, 1.0)
+        bv = torch.clamp((d00 * d21 - d01 * d20) / denom, 0.0, 1.0)
+        w = torch.clamp(1.0 - bu - bv, 0.0, 1.0)
+        nst = normalize(w[..., None] * g.tri_n0[ti]
+                        + bu[..., None] * g.tri_n1[ti]
+                        + bv[..., None] * g.tri_n2[ti])
+        uv0, uv1, uv2 = g.tri_uv0[ti], g.tri_uv1[ti], g.tri_uv2[ti]
+        uvt = w[..., None] * uv0 + bu[..., None] * uv1 + bv[..., None] * uv2
+        ng = torch.where(is_tri, ngt, ng)
+        ns = torch.where(is_tri, nst, ns)
+        uv = torch.where(is_tri, uvt, uv)
+        # ∂p/∂u, ∂p/∂v from the uv parameterization (triangle.cpp:157-168)
+        duv1 = uv1 - uv0
+        duv2 = uv2 - uv0
+        det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+        ok_uv = det.abs() > 1e-12
+        inv = torch.where(ok_uv, 1.0 / torch.where(ok_uv, det, 1.0), 0.0)
+        dpdu_t = (duv2[..., 1:2] * e1 - duv1[..., 1:2] * e2) * inv[..., None]
+        dpdv_t = (-duv2[..., 0:1] * e1 + duv1[..., 0:1] * e2) * inv[..., None]
+        # degenerate uvs → arbitrary in-plane tangents
+        t1_fb, t2_fb = vecmath.coordinate_system(ngt)
+        dpdu_t = torch.where(ok_uv[..., None], dpdu_t, t1_fb)
+        dpdv_t = torch.where(ok_uv[..., None], dpdv_t, t2_fb)
+        dpdu = torch.where(is_tri, dpdu_t, dpdu)
+    if nsp:
+        si = (prim_id - nt).clamp(0, nsp - 1)
+        is_sph = (valid & (prim_id >= nt) & (prim_id < nt + nsp))[..., None]
+        sph_c = g.sph_center[si]
+        nsph, uvs = shapes.sphere_normal_uv(p, sph_c, g.sph_radius[si])
+        ng = torch.where(is_sph, nsph, ng)
+        ns = torch.where(is_sph, nsph, ns)
+        uv = torch.where(is_sph, uvs, uv)
+        # ∂p/∂u = 2π·(−y, x, 0) in sphere-local coords (sphere.cpp:145)
+        pl = p - sph_c
+        dpdu_s = 2.0 * math.pi * torch.stack(
+            [-pl[..., 1], pl[..., 0], torch.zeros_like(pl[..., 0])], dim=-1)
+        t1_fbs, _ = vecmath.coordinate_system(nsph)
+        dpdu_s = torch.where(
+            (vecmath.length_squared(dpdu_s) > 1e-12)[..., None], dpdu_s,
+            t1_fbs)
+        dpdu = torch.where(is_sph, dpdu_s, dpdu)
+    if npl:
+        pi = (prim_id - nt - nsp).clamp(0, npl - 1)
+        is_pln = (valid & (prim_id >= nt + nsp)
+                  & (prim_id < nt + nsp + npl))[..., None]
+        npln = shapes.aaplane_normal(g.pln_ax[pi], g.pln_facing[pi])
+        ng = torch.where(is_pln, npln, ng)
+        ns = torch.where(is_pln, npln, ns)
+
+    # the geometric normal keeps its own orientation (as pbrt's); the
+    # shading normal is flipped to its side
+    ns = vecmath.face_forward(ns, ng)
+    # ∂p/∂v: exact for triangles, the frame-completing cross product for
+    # the analytic shapes
+    dpdv = vecmath.cross(ng, dpdu)
+    if nt:
+        dpdv = torch.where(is_tri, dpdv_t, dpdv)
+    return Hit(valid=valid, t=t, p=p, ng=ng, ns=ns, uv=uv,
+               prim_id=torch.where(valid, prim_id, -1), dpdu=dpdu,
+               dpdv=dpdv)
+
+
+def unoccluded(scene, p0, n0, p1):
+    """VisibilityTester::Unoccluded (core/light.cpp:56-62): segment test
+    between offset endpoints."""
+    d = p1 - p0
+    o = vecmath.offset_ray_origin(p0, n0, d)
+    dist = vecmath.length(d)
+    dn = d / torch.clamp_min(dist, 1e-12)[..., None]
+    # shorten to avoid re-hitting the light itself
+    tmax = dist * (1.0 - 1e-3)
+    return ~intersect_p(scene, o, dn, tmax)

@@ -1,14 +1,13 @@
-"""Scene container and host-side builder (port of the triangle + aaplane
-subset of pbrt_tpu/scene/types.py).
+"""Scene container and host-side builder (port of the triangle + sphere +
+aaplane subset of pbrt_tpu/scene/types.py).
 
-The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``
-first, then aaplanes. ``prim_mat`` / ``prim_light`` map a global prim to
-its material row and light row (−1 = not emissive).
+The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
+then spheres ``[nT, nT+nS)``, then aaplanes. ``prim_mat`` / ``prim_light``
+map a global prim to its material row and light row (−1 = not emissive).
 
-Spheres, disks, curves, instancing, media, textures, motion, shading
-normals and uvs, spectral rendering and the BVH belong to later slices
-and raise ``NotImplementedError``; ``Scene.bvh`` is always None (the
-fused kernel never reads it).
+Disks, curves, instancing, media, textures, motion, spectral rendering
+and the BVH belong to later slices and raise ``NotImplementedError``;
+``Scene.bvh`` is always None.
 """
 
 from __future__ import annotations
@@ -28,6 +27,14 @@ class Geometry:
     tri_v0: torch.Tensor      # (T,3)
     tri_v1: torch.Tensor
     tri_v2: torch.Tensor
+    tri_n0: torch.Tensor      # (T,3) shading normals (default: geometric)
+    tri_n1: torch.Tensor
+    tri_n2: torch.Tensor
+    tri_uv0: torch.Tensor     # (T,2)
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
+    sph_center: torch.Tensor  # (S,3)
+    sph_radius: torch.Tensor  # (S,)
     pln_lo: torch.Tensor      # (P,3)
     pln_hi: torch.Tensor      # (P,3)
     pln_ax: torch.Tensor      # (P,) int32
@@ -44,12 +51,29 @@ class Scene:
     world_lo: torch.Tensor    # (3,)
     world_hi: torch.Tensor    # (3,)
     n_tri: int
+    n_sph: int
     n_pln: int
     n_channels: int
     bvh: Any = None
     # fused-path kernel profile (ops/fused_path.py):
     # (axis, plane_facing, portal_facing, n_materials, mode) or None
     fused_profile: Optional[tuple] = None
+
+    @property
+    def n_prims(self) -> int:
+        return self.n_tri + self.n_sph + self.n_pln
+
+    def world_radius(self) -> torch.Tensor:
+        return 0.5 * torch.linalg.norm(self.world_hi - self.world_lo) + 1e-3
+
+    # per-ray primitive-table lookups; the index is clipped into range as
+    # pbrt_tpu's fastgather.gather_rows does (a miss carries −1)
+    def mat_at(self, prim_id: torch.Tensor) -> torch.Tensor:
+        return self.prim_mat[prim_id.clamp(0, self.prim_mat.shape[0] - 1)]
+
+    def light_at(self, prim_id: torch.Tensor) -> torch.Tensor:
+        return self.prim_light[prim_id.clamp(0,
+                                             self.prim_light.shape[0] - 1)]
 
 
 def to_device(obj, device):
@@ -61,6 +85,19 @@ def to_device(obj, device):
             f.name: to_device(getattr(obj, f.name), device)
             for f in dataclasses.fields(obj)})
     return obj
+
+
+def require_device(device) -> torch.device:
+    """The device an entry point runs on. The port's entry points default
+    to the card; they raise when asked for a CUDA device that is not
+    there, and never carry on on the CPU instead."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pbrt_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run the kernels' plain-torch "
+            "twins on the CPU")
+    return device
 
 
 def _unported(what: str, item: int):
@@ -75,7 +112,8 @@ class SceneBuilder:
         if n_channels != 3:
             _unported("spectral rendering (n_channels != 3)", 9)
         self.n_channels = n_channels
-        self.tris = []        # dicts: v0 v1 v2 mat light
+        self.tris = []        # dicts: v0 v1 v2 n0 n1 n2 uv0 uv1 uv2 mat light
+        self.spheres = []     # dicts: center radius mat light
         self.planes = []      # dicts: lo hi ax facing mat light
         self.materials = []   # parameter dicts (scene/materials.py)
         self.light_rows = []  # parameter dicts (scene/lights.py)
@@ -97,7 +135,7 @@ class SceneBuilder:
         raise ValueError(f"bad spectrum shape {v.shape}")
 
     def add_light(self, **params) -> int:
-        for key in ("L", "scale"):
+        for key in ("L", "I", "scale"):
             if key in params:
                 params[key] = self._to_spec(params[key])
         self.light_rows.append(params)
@@ -105,30 +143,43 @@ class SceneBuilder:
 
     # -- shapes ------------------------------------------------------------
     def add_triangle(self, v0, v1, v2, mat=0, light=-1, n0=None, n1=None,
-                     n2=None, uv0=None, uv1=None, uv2=None, med_in=-1,
+                     n2=None, uv0=(0, 0), uv1=(1, 0), uv2=(1, 1), med_in=-1,
                      med_out=-1, v0_e=None, v1_e=None, v2_e=None):
-        if any(x is not None for x in (n0, n1, n2, uv0, uv1, uv2)):
-            _unported("shading normals and uvs", 5)
         if med_in != -1 or med_out != -1:
             _unported("participating media", 9)
         if any(x is not None for x in (v0_e, v1_e, v2_e)):
             _unported("motion blur", 8)
-        self.tris.append(dict(v0=v0, v1=v1, v2=v2, mat=mat, light=light))
+        self.tris.append(dict(v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
+                              uv0=uv0, uv1=uv1, uv2=uv2, mat=mat,
+                              light=light))
         return len(self.tris) - 1
 
     def add_mesh(self, vertices, indices, mat=0, light=-1, normals=None,
                  uvs=None, med_in=-1, med_out=-1, vertices_end=None):
         """trianglemesh: vertices (V,3), indices (F,3)."""
-        if normals is not None or uvs is not None:
-            _unported("shading normals and uvs", 5)
         if vertices_end is not None:
             _unported("motion blur", 8)
         vertices = np.asarray(vertices, np.float32)
         indices = np.asarray(indices, np.int32).reshape(-1, 3)
-        return [self.add_triangle(vertices[f[0]], vertices[f[1]],
-                                  vertices[f[2]], mat, light,
-                                  med_in=med_in, med_out=med_out)
-                for f in indices]
+        ids = []
+        for f in indices:
+            kw = dict(med_in=med_in, med_out=med_out)
+            if normals is not None:
+                kw.update(n0=normals[f[0]], n1=normals[f[1]],
+                          n2=normals[f[2]])
+            if uvs is not None:
+                kw.update(uv0=uvs[f[0]], uv1=uvs[f[1]], uv2=uvs[f[2]])
+            ids.append(self.add_triangle(vertices[f[0]], vertices[f[1]],
+                                         vertices[f[2]], mat, light, **kw))
+        return ids
+
+    def add_sphere(self, center, radius, mat=0, light=-1, med_in=-1,
+                   med_out=-1):
+        if med_in != -1 or med_out != -1:
+            _unported("participating media", 9)
+        self.spheres.append(dict(center=center, radius=radius, mat=mat,
+                                 light=light))
+        return len(self.spheres) - 1
 
     def add_aaplane(self, lo, hi, axis, facing_fw=True, mat=0, light=-1,
                     med_in=-1, med_out=-1):
@@ -138,11 +189,8 @@ class SceneBuilder:
                                 mat=mat, light=light))
         return len(self.planes) - 1
 
-    def add_sphere(self, *args, **kw):
-        _unported("spheres", 5)
-
     def add_disk(self, *args, **kw):
-        _unported("disks", 5)
+        _unported("disks", 7)
 
     def add_curve(self, *args, **kw):
         _unported("curves", 8)
@@ -158,13 +206,14 @@ class SceneBuilder:
 
     # -- finalize ----------------------------------------------------------
     def prim_index(self, family: str, local_idx: int) -> int:
-        """Global primitive index for (family, local index). Only the
-        ported families exist, so planes follow triangles directly."""
-        base = {"tri": 0, "pln": len(self.tris)}[family]
+        """Global primitive index for (family, local index)."""
+        nt, ns = len(self.tris), len(self.spheres)
+        base = {"tri": 0, "sph": nt, "pln": nt + ns}[family]
         return base + local_idx
 
-    def build(self, device="cpu") -> Scene:
-        nt, npl = len(self.tris), len(self.planes)
+    def build(self, device="cuda") -> Scene:
+        device = require_device(device)
+        nt, ns, npl = len(self.tris), len(self.spheres), len(self.planes)
 
         def rows_f32(rows, key, shape):
             if not rows:
@@ -174,6 +223,19 @@ class SceneBuilder:
 
         tv = [rows_f32(self.tris, k, (max(nt, 1), 3))
               for k in ("v0", "v1", "v2")]
+        # default shading normals = geometric
+        gn = np.cross(tv[1] - tv[0], tv[2] - tv[0])
+        gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True),
+                             1e-12)
+        tn = [np.asarray([np.asarray(r[k], np.float32) if r[k] is not None
+                          else gn[i] for i, r in enumerate(self.tris)],
+                         np.float32).reshape(max(nt, 1), 3) if nt else gn
+              for k in ("n0", "n1", "n2")]
+        tuv = [rows_f32(self.tris, k, (max(nt, 1), 2))
+               for k in ("uv0", "uv1", "uv2")]
+        s_c = rows_f32(self.spheres, "center", (max(ns, 1), 3))
+        s_r = np.asarray([r["radius"] for r in self.spheres] or [0.0],
+                         np.float32)
         p_lo = rows_f32(self.planes, "lo", (max(npl, 1), 3))
         p_hi = rows_f32(self.planes, "hi", (max(npl, 1), 3))
 
@@ -182,6 +244,9 @@ class SceneBuilder:
 
         geom = Geometry(
             tri_v0=t(tv[0]), tri_v1=t(tv[1]), tri_v2=t(tv[2]),
+            tri_n0=t(tn[0]), tri_n1=t(tn[1]), tri_n2=t(tn[2]),
+            tri_uv0=t(tuv[0]), tri_uv1=t(tuv[1]), tri_uv2=t(tuv[2]),
+            sph_center=t(s_c), sph_radius=t(s_r),
             pln_lo=t(p_lo), pln_hi=t(p_hi),
             pln_ax=t(np.asarray([r["ax"] for r in self.planes] or [2],
                                 np.int32)),
@@ -189,23 +254,27 @@ class SceneBuilder:
                                     or [True], bool)))
 
         def ids(key):
-            a = np.asarray([r[key] for r in self.tris + self.planes],
-                           np.int32)
+            a = np.asarray([r[key] for r in self.tris + self.spheres
+                            + self.planes], np.int32)
             return a if a.size else np.full(1, 0 if key == "mat" else -1,
                                             np.int32)
 
         pts = [v[:nt] for v in tv]
+        if ns:
+            pts += [s_c - s_r[:, None], s_c + s_r[:, None]]
         if npl:
             pts += [p_lo, p_hi]
         allp = np.concatenate([p for p in pts if p.size]) \
             if any(p.size for p in pts) else np.zeros((1, 3), np.float32)
+        world_lo, world_hi = allp.min(0) - 1e-3, allp.max(0) + 1e-3
         scene = Scene(
             geom=geom, prim_mat=t(ids("mat")), prim_light=t(ids("light")),
             materials=mat_mod.make_material_table(
                 self.materials or [dict()], self.n_channels, device),
-            lights=lights_mod.build_light_table(self, device),
-            world_lo=t(allp.min(0) - 1e-3), world_hi=t(allp.max(0) + 1e-3),
-            n_tri=nt, n_pln=npl, n_channels=self.n_channels)
+            lights=lights_mod.build_light_table(self, world_lo, world_hi,
+                                                device),
+            world_lo=t(world_lo), world_hi=t(world_hi),
+            n_tri=nt, n_sph=ns, n_pln=npl, n_channels=self.n_channels)
         return dataclasses.replace(scene,
                                    fused_profile=self._fused_profile(scene))
 
@@ -219,13 +288,15 @@ class SceneBuilder:
           one portal parallel to the light plane, or
         - mode 0 ("area"): a plain diffuse area light (two-sample MIS).
 
-        The families pbrt_tpu's gate also rules out (spheres, disks,
-        curves, instances, motion, media, textures, SSS, Fourier) cannot
-        be built here at all. The triangle cap is the kernel's shared
+        The other families pbrt_tpu's gate rules out (disks, curves,
+        instances, motion, media, textures, SSS, Fourier) cannot be built
+        here at all. The triangle cap is the kernel's shared
         memory plan (fused_path.MAX_TRI). Returns (axis, plane_facing,
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 
+        if scene.n_sph:
+            return None
         if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > MAX_TRI:
             return None
         if scene.n_channels != 3 or len(self.materials) > MAX_MAT:

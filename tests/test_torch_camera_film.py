@@ -55,7 +55,8 @@ def test_camera_rays_match_jax(spp_offset):
                                               spp_offset=spp_offset)
     cfg = trender.RenderConfig(max_depth=4)
     rays_t, pid_t, sidx_t, w_t = trender.camera_rays(
-        entry._camera((RES, RES)), tfilm.make_filter("box"), cfg, RES, RES,
+        entry._camera((RES, RES), "cpu"), tfilm.make_filter("box"), cfg, RES,
+        RES,
         CHUNK, spp_offset, "cpu")
     np.testing.assert_array_equal(pid_t.numpy(), np.asarray(pid_j))
     np.testing.assert_array_equal(sidx_t.numpy(), np.asarray(sidx_j))
@@ -114,7 +115,7 @@ def test_unported_camera_filter_sampler_raise():
         make_sampler("sobol")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfilm.make_filter("gaussian")
-    cam = entry._camera((8, 8))
+    cam = entry._camera((8, 8), "cpu")
     cam.cam_type = tcam.ORTHOGRAPHIC
     with pytest.raises(NotImplementedError):
         tcam.generate_rays(cam, torch.zeros(4, 2), torch.zeros(4, 2),

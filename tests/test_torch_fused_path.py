@@ -30,15 +30,21 @@ import __graft_entry__ as ge
 import test_fused_path as ref
 from pbrt_tpu.ops import fused_path as jfp
 from pbrt_tpu_torch import entry
-from pbrt_tpu_torch.integrators.render import RenderConfig
+from pbrt_tpu_torch.integrators.render import RenderConfig, camera_rays
 from pbrt_tpu_torch.ops import fused_path as tfp
+from pbrt_tpu_torch.scene.film import make_filter
 
 SCENES = {
-    "portal": (ge._portal_scene, entry._portal_scene, 32),
-    "cornell_mode0": (ref._plain_cornell, entry._plain_cornell, 24),
-    "tessellated_portal": (lambda: ref._tessellated_portal(nseg=13),
-                           lambda: entry._tessellated_portal(nseg=13), 24),
+    "portal": (ge._portal_scene, lambda: entry._portal_scene("cpu"), 16),
+    "cornell_mode0": (ref._plain_cornell,
+                      lambda: entry._plain_cornell("cpu"), 16),
+    # nseg=7: 108 triangles, past the 64 of the cluster gate (4 clusters)
+    "tessellated_portal": (lambda: ref._tessellated_portal(nseg=7),
+                           lambda: entry._tessellated_portal(7, "cpu"), 16),
 }
+# pbrt_tpu's replay (what li_path_fused runs after its kernel), compiled
+# once for all cases instead of op by op
+_jax_replay = jax.jit(jfp.replay)
 
 
 def _inputs(js, res, max_depth):
@@ -80,8 +86,10 @@ def case(request):
                         pl_facing=plf, portal_facing=pof, n_mat=n_mat,
                         seed=0, rr_threshold=1.0, mode=mode, n_clu=n_clu,
                         interpret=True)
-    L_ref = jfp.li_path_fused(js, rays.o, rays.d, pid, sidx, jcfg,
-                              interpret=True)
+    # li_path_fused is pack_fused + _impl + replay (fused_path.py:728-746):
+    # replaying the residuals above gives its radiance without running
+    # the interpreter a second time
+    L_ref = _jax_replay(js.materials.kd, js.lights.emit[0], *ref_res)
     o, d, tpid, tsidx = _torch_rays(arrs)
     got = _twin(ts, o, d, tpid, tsidx, max_depth)
     L = tfp.li_path_fused(ts, o, d, tpid, tsidx,
@@ -153,10 +161,11 @@ def test_replay_of_zeroed_dead_lanes_is_unchanged(case):
 def test_culled_sweep_equals_flat_sweep():
     """Cluster culling is conservative: with n_clu forced to 0 the flat
     sweep gives bit-identical residuals (diff == 0.0)."""
-    ts = entry._tessellated_portal(nseg=13)
-    js = ref._tessellated_portal(nseg=13)
-    _, _, _, _, arrs = _inputs(js, 16, 4)
-    o, d, pid, sidx = _torch_rays(arrs)
+    ts = entry._tessellated_portal(7, "cpu")
+    rays, pid, sidx, _ = camera_rays(
+        entry._camera((16, 16), "cpu"), make_filter("box"),
+        RenderConfig(max_depth=4), 16, 16, 2, 0, "cpu")
+    o, d = rays.o, rays.d
     culled = _twin(ts, o, d, pid, sidx, 4)
     flat = _twin(ts, o, d, pid, sidx, 4, n_clu=0)
     assert tfp.pack_fused(ts, 1)[3] > 0
@@ -169,8 +178,8 @@ def test_replay_gradients_match_jax_grad():
     jax.grad of pbrt_tpu's li_path_fused (interpret mode); tolerances of
     tests/test_fused_path.py:89-93."""
     js = ge._portal_scene()
-    ts = entry._portal_scene()
-    rays, pid, sidx, jcfg, arrs = _inputs(js, 24, 4)
+    ts = entry._portal_scene("cpu")
+    rays, pid, sidx, jcfg, arrs = _inputs(js, 16, 4)
 
     def loss_jax(kd, emit):
         s = dc.replace(js, materials=dc.replace(js.materials, kd=kd),
@@ -197,7 +206,7 @@ def test_replay_gradients_match_jax_grad():
 
 
 def test_fused_bounce_rejects_other_devices():
-    ts = entry._portal_scene()
+    ts = entry._portal_scene("cpu")
     o = torch.zeros(4, 3, device="meta")
     with pytest.raises(NotImplementedError):
         _twin(ts, o, o, torch.zeros(4, dtype=torch.int32, device="meta"),

@@ -16,6 +16,7 @@ import textwrap
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import __graft_entry__ as ge
@@ -26,31 +27,42 @@ from pbrt_tpu_torch.scene import film as tfilm
 
 jrender = importlib.import_module("pbrt_tpu.integrators.render")
 
-RES = 32
+RES = 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_render_pass_matches_jax():
+@pytest.fixture(scope="module")
+def jax_passes():
+    """pbrt_tpu's two 2-spp passes (sample offsets 0 and 2) of the main
+    path's scene: one compiled program, run twice."""
     cfg_j = jrender.RenderConfig(integrator="path", max_depth=4)
-    want = np.asarray(jrender.render_pass(
-        ge._portal_scene(), ge._camera((RES, RES)), jfilm.make_filter("box"),
-        cfg_j, RES, RES, 2, jnp.asarray(0, jnp.uint32)))
+    scene, cam = ge._portal_scene(), ge._camera((RES, RES))
+    filt = jfilm.make_filter("box")
+    return [np.asarray(jrender.render_pass(
+        scene, cam, filt, cfg_j, RES, RES, 2, jnp.asarray(off, jnp.uint32)))
+        for off in (0, 2)]
+
+
+def test_render_pass_matches_jax(jax_passes):
+    want = jax_passes[0]
     got = trender.render_pass(
-        entry._portal_scene(), entry._camera((RES, RES)),
+        entry._portal_scene("cpu"), entry._camera((RES, RES), "cpu"),
         tfilm.make_filter("box"), trender.RenderConfig(max_depth=4), RES,
-        RES, 2, 0).numpy()
+        RES, 2, 0, "cpu").numpy()
     assert got.shape == want.shape == (RES, RES, 3)
     assert want.mean() > 0.05
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-def test_render_matches_jax_image_mean():
-    """render(spp=4, chunk_spp=2): two chunks, sample offsets 0 and 2."""
+def test_render_matches_jax_image_mean(jax_passes):
+    """render(spp=4, chunk_spp=2): two chunks, sample offsets 0 and 2;
+    pbrt_tpu's render is the sum of its two passes over spp
+    (integrators/render.py:476-484)."""
     kw = dict(spp=4, integrator="path", max_depth=4, chunk_spp=2)
-    want = np.asarray(jrender.render(ge._portal_scene(),
-                                     ge._camera((RES, RES)), **kw))
-    got = trender.render(entry._portal_scene(), entry._camera((RES, RES)),
-                         device="cpu", **kw).numpy()
+    want = (jax_passes[0] + jax_passes[1]) / np.float32(4)
+    got = trender.render(entry._portal_scene("cpu"),
+                         entry._camera((RES, RES), "cpu"), device="cpu",
+                         **kw).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got.mean(), want.mean(), rtol=1e-5)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
@@ -59,9 +71,11 @@ def test_render_matches_jax_image_mean():
 def test_render_chunking_is_exact():
     """Sample streams are keyed by absolute sample index, so one pass of
     4 spp equals two of 2 (up to float summation order)."""
-    scene, cam = entry._portal_scene(), entry._camera((16, 16))
-    a = trender.render(scene, cam, spp=4, max_depth=3, chunk_spp=4)
-    b = trender.render(scene, cam, spp=4, max_depth=3, chunk_spp=2)
+    scene, cam = entry._portal_scene("cpu"), entry._camera((16, 16), "cpu")
+    a = trender.render(scene, cam, spp=4, max_depth=3, chunk_spp=4,
+                       device="cpu")
+    b = trender.render(scene, cam, spp=4, max_depth=3, chunk_spp=2,
+                       device="cpu")
     torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
@@ -72,14 +86,23 @@ def test_port_renders_without_jax():
         # and check that the port imports no jax module of its own
         before = set(sys.modules)
         sys.modules["jax"] = None
+        import importlib, pkgutil
+        import pbrt_tpu_torch
+        for m in pkgutil.walk_packages(pbrt_tpu_torch.__path__,
+                                       "pbrt_tpu_torch."):
+            importlib.import_module(m.name)      # every module of the port
+        import chip_smoke
         import pbrt_tpu_torch.integrators.render as r
         import pbrt_tpu_torch.entry as e
-        import pbrt_tpu_torch.bridge
         import torch
-        img = r.render(e._portal_scene(), e._camera((8, 8)), spp=2,
-                       max_depth=3, device="cpu")
-        assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
-        assert float(img.mean()) > 0.0
+        cam = e._camera((8, 8), "cpu")
+        for scene, integ in ((e._portal_scene("cpu"), "path"),
+                             (e._sphere_cornell("cpu"), "path"),
+                             (e._portal_scene("cpu", "portal"), "direct")):
+            img = r.render(scene, cam, spp=2, integrator=integ, max_depth=3,
+                           device="cpu")
+            assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+            assert float(img.mean()) > 0.0
         assert not any(m.startswith(("jax.", "jaxlib", "pbrt_tpu."))
                        for m in set(sys.modules) - before)
         print("ok", float(img.mean()))
@@ -89,3 +112,22 @@ def test_port_renders_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """No ``device=``: the entry points run on the card, and on a machine
+    without one they raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry._portal_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry._sphere_cornell()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry._camera((8, 8))
+    scene, cam = entry._portal_scene("cpu"), entry._camera((8, 8), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trender.render(scene, cam, spp=1, max_depth=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trender.render_pass(scene, cam, tfilm.make_filter("box"),
+                            trender.RenderConfig(max_depth=2), 8, 8, 1, 0)

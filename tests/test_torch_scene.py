@@ -20,10 +20,11 @@ from pbrt_tpu_torch.ops import fused_path as tfp
 from pbrt_tpu_torch.scene.types import SceneBuilder
 
 SCENES = {
-    "portal": (ge._portal_scene, entry._portal_scene),
-    "cornell_mode0": (ref_scenes._plain_cornell, entry._plain_cornell),
+    "portal": (ge._portal_scene, lambda: entry._portal_scene("cpu")),
+    "cornell_mode0": (ref_scenes._plain_cornell,
+                      lambda: entry._plain_cornell("cpu")),
     "tessellated_portal": (lambda: ref_scenes._tessellated_portal(nseg=13),
-                           lambda: entry._tessellated_portal(nseg=13)),
+                           lambda: entry._tessellated_portal(13, "cpu")),
 }
 
 
@@ -102,24 +103,25 @@ def test_cluster_boundary_keeps_jax_gate():
         p = b.add_aaplane((0.3, 1, 0.3), (0.7, 1, 0.7), axis=1,
                           facing_fw=False, mat=m, light=li)
         b.light_rows[li]["prim"] = b.prim_index("pln", p)
-        scene = b.build()
+        scene = b.build("cpu")
         assert scene.fused_profile is not None
         tri_tab, _, clu, n_clu = tfp.pack_fused(scene, 0)
         assert n_clu == want_clu
         assert tri_tab.shape[0] == (n_clu * 32 if n_clu else 2 * n_strips)
 
 
-def test_non_matte_scene_gets_no_profile_or_raises():
-    """pbrt_tpu's rejection case (tests/test_fused_path.py:108-125): the
-    port cannot build the sphere at all; an Oren–Nayar (sigma > 0)
-    matte row builds but gets no fused profile, and rendering it raises
-    instead of falling back."""
+def test_non_matte_scene_gets_no_profile_or_raises(monkeypatch):
+    """pbrt_tpu's rejection case (tests/test_fused_path.py:108-125): a
+    plastic row cannot be built at all; a sphere, or an Oren–Nayar
+    (sigma > 0) matte row, builds but gets no fused profile, and `path`
+    then renders it through the generic wavefront loop, never through the
+    fused kernel."""
     b = SceneBuilder()
     m = b.add_material(type=0, kd=(0.5, 0.5, 0.5))
     with pytest.raises(NotImplementedError):
-        b.add_sphere((0.5, 0.5, 0.5), 0.2, mat=m)
-    with pytest.raises(NotImplementedError):
         b.add_material(type=3, kd=0.5, ks=0.2)
+    with pytest.raises(NotImplementedError):
+        b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
     rough = b.add_material(type=0, kd=0.5, sigma=20.0)
     b.add_mesh([(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],
                [(0, 1, 2), (0, 2, 3)], mat=rough)
@@ -129,11 +131,20 @@ def test_non_matte_scene_gets_no_profile_or_raises():
     p = b.add_aaplane((0.3, 1.2, 0.3), (0.7, 1.2, 0.7), axis=1,
                       facing_fw=False, mat=m, light=li)
     b.light_rows[li]["prim"] = b.prim_index("pln", p)
-    scene = b.build()
+    scene = b.build("cpu")
     assert scene.fused_profile is None
+    b.add_sphere((0.5, 0.5, 0.5), 0.2, mat=m)
+    with_sphere = b.build("cpu")
+    assert with_sphere.n_sph == 1 and with_sphere.fused_profile is None
     from pbrt_tpu_torch.integrators.render import render
-    with pytest.raises(NotImplementedError, match="_li_loop"):
-        render(scene, entry._camera((4, 4)), spp=1, max_depth=2)
+    from pbrt_tpu_torch.ops import intersect as ik
+    calls = []
+    monkeypatch.setattr(tfp, "fused_bounce",
+                        lambda *a, **k: calls.append(1))
+    img = render(with_sphere, entry._camera((4, 4), "cpu"), spp=1,
+                 max_depth=2, device="cpu")
+    assert not calls and ik.intersect_brute.launches == 0   # CPU: the twin
+    assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 
 
 def test_bridge_raises_on_unported_families():
@@ -141,14 +152,19 @@ def test_bridge_raises_on_unported_families():
     from pbrt_tpu.scene.types import SceneBuilder as JaxBuilder
     b = JaxBuilder(RGB)
     m = b.add_material(type=0, kd=0.5)
-    b.add_sphere((0.5, 0.5, 0.5), 0.2, mat=m)
+    b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_jax(b.build())
+    glossy = JaxBuilder(RGB)
+    glossy.add_material(type=3, kd=0.5, ks=0.2)
+    glossy.add_sphere((0.5, 0.5, 0.5), 0.2, mat=0)
+    with pytest.raises(NotImplementedError, match="matte"):
+        bridge.scene_from_jax(glossy.build())
 
 
 def test_scene_to_device_keeps_values():
     from pbrt_tpu_torch.scene.types import to_device
-    s = entry._portal_scene()
+    s = entry._portal_scene("cpu")
     moved = to_device(s, torch.device("cpu"))
     assert moved.fused_profile == s.fused_profile
     assert torch.equal(moved.geom.tri_v0, s.geom.tri_v0)
