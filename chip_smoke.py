@@ -4,9 +4,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the two kernels (csrc/fused_path.cu, csrc/intersect.cu) with
-   nvcc, both at once, into build/kernels/ and prints the card, its power
-   limit and the build times.
+1. Builds the three kernels (csrc/fused_path.cu, csrc/intersect.cu,
+   csrc/bvh_traverse.cu) with nvcc and the host BVH builder
+   (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
+   prints the card, its power limit and the build times.
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -34,6 +35,29 @@ Run from the root of a checkout, with no arguments:
    and the new scenes' passes and renders, and prints a JSON line of the
    kernels (with each kernel's roofline bound computed from this run's
    inputs), then {"ok": true, "device": {...}} as the last line.
+9. Holds the BVH traversal kernel against its plain-torch twin on three
+   trees (a 600-triangle soup, the 133,130-triangle heightfield cornell
+   built by the native SBVH builder, a 7,498-triangle tree built with
+   `hlbvh`), for camera rays and random rays with infinite and finite
+   tmax: closest hit with the index equal and t bit-equal, any-hit with
+   equal masks; and a scene of 2,188 primitives built with and without a
+   BVH through ``intersect`` (valid and t equal, prim equal but for exact
+   ties in t). Holds the brute-force kernel against its twin at the call
+   shape a BVH scene gives it (no triangles, the scene's one sphere and one
+   aaplane, tmax the traversal's closest hit): prim equal and t bit-equal.
+10. Renders the BVH slice at full width through ``render``:
+   ``_heightfield_cornell()``, 256² × 64 spp, `path`; checks the launch
+   counts the loop implies (traversal and brute-force kernels), that the
+   fused kernel is not launched, and, at 64² × 4 spp, pbrt_tpu's image
+   mean to rel 1e-3 (pbrt_tpu's CPU traversal is too slow for the full
+   size).
+11. Times 2,097,152-ray closest-hit and any-hit launches of the traversal
+   kernel on the big tree (camera rays, bounce rays and shadow rays with
+   finite tmax, in the callers' order and in the ray sort's), the sort,
+   the twin, the brute-force kernel and its twin at the BVH path's shape
+   on the same 2,097,152 rays, a 32-spp pass and the 64-spp render, the
+   tree build, and reads the kernels' share of a pass from torch.profiler.
+   (The JSON lines come after this.)
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
@@ -50,9 +74,12 @@ import torch
 from pbrt_tpu_torch import entry
 from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import _build
+from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import film as film_mod
+from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder
 
 W = H = 256
@@ -78,6 +105,12 @@ REF_LOOP_MEANS = {
     ("sphere_cornell", "ao", 64, 4): 0.8542355703393696,
     ("sphere_cornell", "mypath", 64, 4): 0.5735151737091652,
 }
+# pbrt_tpu's float32 image mean on the CPU backend for _heightfield_cornell()
+# (133,130 triangles), `path`, max_depth 4, at 64² × 4 spp, printed by
+# ``PYTHONPATH=. python tests/test_torch_bvh.py``. pbrt_tpu's CPU traversal
+# is too slow for 256² × 64 spp, so the mean is held at this size and the
+# full-width render is checked for its launches, shape and finiteness.
+REF_BVH_MEAN = {("heightfield_cornell", "path", 64, 4): 0.3574122070165071}
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts as
 # two, so code built without multiply-add contraction can reach half).
@@ -87,6 +120,9 @@ PEAK_FP32_PER_S = 67e12
 # fused_path.cu (multiplies, adds, subtracts, divides, sqrt, min/max;
 # compares and selects not counted)
 OPS_TRI, OPS_SPH, OPS_PLN = 46, 31, 8
+# one slab test of bvh_traverse.cu: 6 subtracts, 6 multiplies, 10 min/max,
+# the conservative scale
+OPS_SLAB = 23
 
 
 def check(ok, what):
@@ -192,12 +228,14 @@ def bound_ms(n_bytes, n_ops):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def intersect_bound(scene, n_rays):
+def intersect_bound(scene, n_rays, tris=True):
     """Each ray read once (o, d, tmax: 28 B) and written once (t, prim:
-    8 B), the tables read once; every ray tests every primitive."""
-    tabs = ik.pack_scene(scene)
+    8 B), the tables read once; every ray tests every primitive of the
+    tables (``tris=False``: the spheres and aaplanes only, as under a
+    BVH)."""
+    tabs = ik.pack_scene(scene, tris=tris)
     n_bytes = 36 * n_rays + sum(t.numel() * 4 for t in tabs)
-    n_ops = n_rays * (OPS_TRI * scene.n_tri + OPS_SPH * scene.n_sph
+    n_ops = n_rays * (OPS_TRI * scene.n_tri * tris + OPS_SPH * scene.n_sph
                       + OPS_PLN * scene.n_pln)
     return bound_ms(n_bytes, n_ops)
 
@@ -229,7 +267,7 @@ def cap_table(dev):
         b.add_sphere((0.55 + 0.04 * (i % 10), 0.03 + 0.045 * (i // 10), 0.8),
                      0.02, mat=white)
     entry._portal_light(b, black, "portal")
-    return b.build(dev)
+    return b.build(dev, use_bvh="never")   # the brute-force kernel's table
 
 
 def ray_sets(dev, n=8192):
@@ -328,6 +366,189 @@ def render_loop(key, scene, integrator, res, spp, want_launches):
     return n_i
 
 
+def soup_scene(dev, n_tri=600):
+    """A random soup of small triangles inside the unit box (seeded), with
+    a BVH from the native builder."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    c = torch.rand(n_tri, 3, generator=gen) * 0.8 + 0.1
+    offs = (torch.rand(n_tri, 2, 3, generator=gen) - 0.5) * 0.16
+    b = SceneBuilder()
+    m = b.add_material(type=0, kd=0.5)
+    for i in range(n_tri):
+        b.add_triangle(c[i].numpy(), (c[i] + offs[i, 0]).numpy(),
+                       (c[i] + offs[i, 1]).numpy(), mat=m)
+    return b.build(dev, use_bvh="always")
+
+
+def heightfield_scene(dev, n, n_phi=64, n_z=24, use_bvh="auto", split="sah"):
+    b = SceneBuilder()
+    b.bvh_split = split
+    entry._fill_heightfield_cornell(b, n, n_phi, n_z)
+    return b.build(dev, use_bvh=use_bvh)
+
+
+def check_traverse(name, bvh, dev):
+    """Traversal kernel vs twin on the three ray sets: closest hit with
+    the leaf index equal on every ray and t equal bit for bit; any-hit
+    with equal masks. Returns the largest |t_kernel − t_twin|."""
+    worst = 0.0
+    for rname, (o, d, tmax) in ray_sets(dev).items():
+        t, leaf = bk.bvh_traverse(bvh, o, d, tmax, False)
+        _, leaf_any = bk.bvh_traverse(bvh, o, d, tmax, True)
+        torch.cuda.synchronize()
+        t_ref, leaf_ref = bk._traverse_reference(bvh, o, d, tmax, False)
+        _, any_ref = bk._traverse_reference(bvh, o, d, tmax, True)
+        check(leaf.dtype == torch.int32 and t.dtype == torch.float32,
+              "output types")
+        n_leaf = int((leaf != leaf_ref).sum())
+        n_any = int(((leaf_any >= 0) != (any_ref >= 0)).sum())
+        err = float((t - t_ref).abs().max())
+        worst = max(worst, err)
+        hit = float((leaf >= 0).float().mean())
+        print(f"bvh_traverse kernel vs twin {name} ({bvh.lo.shape[0]} nodes, "
+              f"{bvh.prim_order.shape[0]} leaf triangles, {bvh.built_by}) "
+              f"{rname}: {n_leaf} index mismatches, t max err {err:.3g}, "
+              f"{n_any} any-hit mismatches, hit share {hit:.3f}")
+        check(n_leaf == 0, f"{n_leaf} index mismatches")
+        check(torch.equal(t, t_ref), f"t differs from the twin by {err}")
+        check(n_any == 0, f"{n_any} any-hit mismatches")
+        check(torch.equal(leaf_any >= 0, leaf >= 0),
+              "any-hit disagrees with closest hit")
+        check(hit > 0.05, f"hit share {hit}")
+    return worst
+
+
+def check_bvh_vs_brute(dev):
+    """One scene under the brute-force gate, built with and without a BVH,
+    the same rays through ``intersect``: valid and t equal on every ray;
+    prim equal except where two primitives tie in t exactly (brute force
+    keeps the first in table order, the BVH the first in leaf order)."""
+    with_bvh = heightfield_scene(dev, 32, 16, 8, use_bvh="always")
+    brute = heightfield_scene(dev, 32, 16, 8, use_bvh="never")
+    check(with_bvh.n_prims == brute.n_prims == 2188 and brute.bvh is None
+          and with_bvh.bvh is not None, "the 2,188-primitive pair")
+    for rname, (o, d, tmax) in ray_sets(dev).items():
+        h_b = isect_mod.intersect(with_bvh, o, d, tmax)
+        h_f = isect_mod.intersect(brute, o, d, tmax)
+        occ_b = isect_mod.intersect_p(with_bvh, o, d, tmax)
+        occ_f = isect_mod.intersect_p(brute, o, d, tmax)
+        torch.cuda.synchronize()
+        n_prim = int((h_b.prim_id != h_f.prim_id).sum())
+        print(f"BVH vs brute force (2,188 primitives) {rname}: valid equal "
+              f"{torch.equal(h_b.valid, h_f.valid)}, t equal "
+              f"{torch.equal(h_b.t, h_f.t)}, {n_prim} prim ties of "
+              f"{o.shape[0]}, any-hit equal {torch.equal(occ_b, occ_f)}")
+        check(torch.equal(h_b.valid, h_f.valid), "valid differs")
+        check(torch.equal(h_b.t, h_f.t), "t differs")
+        check(n_prim <= 1e-3 * o.shape[0], f"{n_prim} prim mismatches")
+        check(torch.equal(occ_b, occ_f), "any-hit differs")
+
+
+def check_brute_under_bvh(scene, rname, o, d, tmax, reps=0):
+    """The brute-force kernel against its twin at the call shape a scene
+    with a BVH gives it (scene/bvh.py::intersect_bvh): tables without
+    triangles, n_tri = 0, the scene's spheres and aaplanes, and as tmax
+    the per-ray closest triangle hit that the traversal kernel returned.
+    prim equal on every ray and t equal bit for bit. Returns
+    {err, ms, plain_ms} (times only with ``reps``)."""
+    tabs = ik.pack_scene(scene, tris=False)
+    counts = (0, scene.n_sph, scene.n_pln)
+    best_t, leaf = bk.bvh_traverse(scene.bvh, o, d,
+                                   torch.clamp_max(tmax, bk.BIG), False)
+
+    def kern_fn():
+        return ik.intersect_brute(*tabs, o, d, best_t, *counts)
+
+    def twin_fn():
+        return ik._intersect_reference(*tabs, o, d, best_t, *counts)
+
+    t, prim = kern_fn()
+    torch.cuda.synchronize()
+    t_ref, prim_ref = twin_fn()
+    n_prim = int((prim != prim_ref).sum())
+    err = float((t - t_ref).abs().max())
+    nearer = float((prim >= 0).float().mean())
+    print(f"intersect kernel vs twin under the BVH {counts} {rname} "
+          f"({o.shape[0]} rays, tmax = the traversal's t, finite on "
+          f"{float((leaf >= 0).float().mean()):.3f} of them): {n_prim} prim "
+          f"mismatches, t max err {err:.3g}, a sphere or aaplane is nearer "
+          f"on {nearer:.3f}")
+    check(prim.dtype == torch.int32 and t.dtype == torch.float32,
+          "output types")
+    check(n_prim == 0, f"{n_prim} prim mismatches")
+    check(torch.equal(t, t_ref), f"t differs from the twin by {err}")
+    check(torch.equal(t[prim < 0], best_t[prim < 0]),
+          "a ray with no nearer sphere or aaplane lost the traversal's t")
+    check(bool((t[prim >= 0] < best_t[prim >= 0]).all()), "t not below tmax")
+    check(0.0 < nearer < 1.0, f"share with a nearer sphere or aaplane "
+          f"{nearer}")
+    out = {"err": err}
+    if reps:
+        out["ms"] = sync_ms(kern_fn, reps)
+        out["plain_ms"] = sync_ms(twin_fn, 2)
+    return out
+
+
+def shadow_rays(o, dev):
+    """Shadow rays as next-event estimation sends them: from the origins
+    ``o`` to seeded uniform points on the heightfield cornell's light (the
+    aaplane y = 0.99, x in [0.3, 0.7], z in [0.35, 0.65]), tmax just short
+    of the light."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    u = torch.rand(o.shape[0], 2, generator=gen).to(dev)
+    target = torch.stack([0.3 + 0.4 * u[:, 0], torch.full_like(u[:, 0], 0.99),
+                          0.35 + 0.3 * u[:, 1]], dim=-1)
+    w = target - o
+    dist = w.norm(dim=-1)
+    return (w / dist[:, None]).contiguous(), (dist * (1.0 - 1e-3)).contiguous()
+
+
+def bounce_rays(scene, o, d, dev):
+    """Rays as a path's second bounce sends them: from the camera rays'
+    hit points (offset along the normal), in seeded random directions of
+    the normal's hemisphere. Lanes that missed keep their camera ray."""
+    inf = torch.full((o.shape[0],), math.inf, device=dev)
+    hit = isect_mod.intersect(scene, o, d, inf)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    w = torch.nn.functional.normalize(
+        torch.randn(o.shape[0], 3, generator=gen), dim=-1).to(dev)
+    n = torch.where((hit.ng * d).sum(-1, keepdim=True) > 0, -hit.ng, hit.ng)
+    w = torch.where((w * n).sum(-1, keepdim=True) < 0, -w, w)
+    o2 = torch.where(hit.valid[:, None], hit.p + 1e-3 * n, o)
+    d2 = torch.where(hit.valid[:, None], w, d)
+    return o2.contiguous(), d2.contiguous()
+
+
+def traverse_bound(bvh, n_rays, stats):
+    """Each ray read once (28 B) and written once (8 B), the packed tree
+    once; the slab and triangle tests this run's rays needed (counted by
+    the twin on the same rays)."""
+    n_bytes = 36 * n_rays + 4 * (bvh.pk_nodes.numel() + bvh.pk_tris.numel())
+    n_ops = OPS_SLAB * stats["slab_tests"] + OPS_TRI * stats["tri_tests"]
+    return bound_ms(n_bytes, n_ops)
+
+
+def kernel_share_of_pass(pass_fn):
+    """Device time by kernel over one pass, from torch.profiler: (total
+    ms, {kernel-name fragment: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pass_fn()
+        torch.cuda.synchronize()
+    total, by_name = 0.0, {"bvh_traverse_kernel": 0.0, "intersect_kernel": 0.0}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        total += us / 1e3
+        for frag in by_name:
+            if frag in evt.key:
+                by_name[frag] += us / 1e3
+    return total, by_name
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -336,11 +557,11 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.load_all(("fused_path", "intersect"))
-    print(f"kernel builds (in parallel) "
+    _build.load_all()
+    print(f"kernel and host-builder builds (in parallel) "
           f"{ {k: round(v, 1) for k, v in _build.load.build_seconds.items()} }"
           f" s (wall {time.perf_counter() - t0:.1f} s)")
-    for name in ("fused_path", "intersect"):
+    for name in _build.KERNELS:
         print(_build.load.ptxas_log.get(name, "").strip()[-1500:])
 
     # ---- 2. kernel vs twin on the card
@@ -360,6 +581,7 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
     t0 = time.perf_counter()
     img = render_mod.render(scene, cam, spp=SPP, integrator="path",
                             max_depth=MAX_DEPTH, chunk_spp=CHUNK,
@@ -368,8 +590,8 @@ def main():
     t_first = time.perf_counter() - t0
     launches = fp.fused_bounce.launches
     check(launches == SPP // CHUNK, f"{launches} kernel launches")
-    check(ik.intersect_brute.launches == 0,
-          "the main path launched the intersection kernel")
+    check(ik.intersect_brute.launches == 0 and bk.bvh_traverse.launches == 0,
+          "the main path launched an intersection kernel")
     check(img.shape == (H, W, 3) and img.device.type == "cuda",
           f"image {tuple(img.shape)} on {img.device}")
     check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -464,11 +686,13 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
     for key, sc in (("portal_portal", entry._portal_scene(strategy="portal")),
                     ("sphere_cornell", entry._sphere_cornell())):
         render_loop(key, sc, "path", W, SPP, per_pass[key] * (SPP // CHUNK))
     loop_launches = ik.intersect_brute.launches
-    check(fp.fused_bounce.launches == 0, "fused launches on the loop's path")
+    check(fp.fused_bounce.launches == 0 and bk.bvh_traverse.launches == 0,
+          "fused or traversal launches on the small scenes' loop path")
     loop_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     # one pass each: direct and whitted end after the first bounce (no
     # ported material has a specular lobe), ao traces a hit and a probe,
@@ -526,6 +750,168 @@ def main():
     print(f"peak memory of the generic loop's 64-spp renders "
           f"{loop_peak_mb:.1f} MiB")
 
+    # ---- 9. the BVH traversal kernel vs its twin, and BVH vs brute force
+    t0 = time.perf_counter()
+    hf = entry._heightfield_cornell(dev)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rebuilt = bvh_mod.build_bvh(hf)
+    t_tree = time.perf_counter() - t0
+    check(hf.n_tri == 133130 and hf.n_sph == 1 and hf.n_pln == 1,
+          f"heightfield cornell has {hf.n_tri} triangles")
+    check(hf.bvh.built_by == "native-sbvh" == rebuilt.built_by,
+          f"the tree was built by {hf.bvh.built_by}, not the native builder")
+    check(torch.equal(rebuilt.pk_nodes, hf.bvh.pk_nodes), "rebuild differs")
+    check(hf.fused_profile is None, "the BVH scene is in the fused profile")
+    print(f"heightfield cornell: {hf.n_tri} triangles, {hf.bvh.lo.shape[0]} "
+          f"nodes, {hf.bvh.prim_order.shape[0]} leaf triangles, stack need "
+          f"{hf.bvh.stack_need} of {bk.STACK}; scene build {t_scene:.2f} s, "
+          f"of it tree build + pack {t_tree:.2f} s ({hf.bvh.built_by})")
+    hl = heightfield_scene(dev, 48, split="hlbvh")
+    check(hl.bvh.built_by == "numpy-hlbvh" and hl.n_tri == 7498, "hlbvh tree")
+    trees = {"soup_600": soup_scene(dev).bvh, "heightfield_cornell": hf.bvh,
+             "hlbvh_7498": hl.bvh}
+    before = bk.bvh_traverse.launches
+    for name, tree in trees.items():
+        check_traverse(name, tree, dev)
+    check(bk.bvh_traverse.launches == before + 18, "traversal launches")
+    check_bvh_vs_brute(dev)
+    for rname, (o, d, tmax) in ray_sets(dev).items():
+        check_brute_under_bvh(hf, rname, o, d, tmax)
+
+    # ---- 10. the BVH slice at full width, through render
+    per_pass_bvh = MAX_DEPTH * 3 + 1     # as the sphere cornell: 13 queries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
+    t0 = time.perf_counter()
+    img = render_mod.render(entry._heightfield_cornell(), entry._camera((W, H)),
+                            spp=SPP, integrator="path", max_depth=MAX_DEPTH,
+                            chunk_spp=CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    t_bvh_first = time.perf_counter() - t0
+    bvh_launches = bk.bvh_traverse.launches
+    bvh_brute_launches = ik.intersect_brute.launches
+    bvh_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    mean_full = float(img.double().mean())
+    print(f"BVH slice heightfield_cornell path {W}² × {SPP} spp: mean "
+          f"{mean_full!r}, {bvh_launches} traversal launches, "
+          f"{bvh_brute_launches} brute-force launches, "
+          f"{fp.fused_bounce.launches} fused launches, scene build + render "
+          f"{t_bvh_first:.2f} s, peak memory {bvh_peak_mb:.1f} MiB")
+    check(img.shape == (H, W, 3) and img.device.type == "cuda",
+          f"image {tuple(img.shape)} on {img.device}")
+    check(bool(torch.isfinite(img).all()), "non-finite image")
+    check(mean_full > 0.05, "the scene does not light up")
+    want = per_pass_bvh * (SPP // CHUNK)
+    check(bvh_launches == want and bvh_brute_launches == want,
+          f"{bvh_launches} traversal and {bvh_brute_launches} brute-force "
+          f"launches, the loop implies {want} each")
+    check(fp.fused_bounce.launches == 0, "fused launches on the BVH path")
+    key = ("heightfield_cornell", "path", 64, 4)
+    img_s = render_mod.render(hf, entry._camera((64, 64)), spp=4,
+                              integrator="path", max_depth=MAX_DEPTH,
+                              chunk_spp=CHUNK, device="cuda")
+    mean_s = float(img_s.double().mean())
+    rel = abs(mean_s - REF_BVH_MEAN[key]) / REF_BVH_MEAN[key]
+    print(f"BVH slice heightfield_cornell path 64² × 4 spp: mean {mean_s!r} "
+          f"vs pbrt_tpu {REF_BVH_MEAN[key]!r} (rel {rel:.3g}); the 256² × 64 "
+          f"spp mean differs from it by rel "
+          f"{abs(mean_full - mean_s) / mean_s:.3g}")
+    check(rel < 1e-3, f"image mean off by rel {rel}")
+
+    # ---- 11. timings of the traversal kernel and the BVH pass
+    tree = hf.bvh
+    n_m = o_m.shape[0]
+    o_b, d_b = bounce_rays(hf, o_m, d_m, dev)
+    d_sh, tmax_sh = shadow_rays(o_b, dev)
+    tms, tstats, under = {}, {}, {}
+    for rname, (o_r, d_r, tmax_r) in (("camera", (o_m, d_m, inf_m)),
+                                      ("bounce", (o_b, d_b, inf_m)),
+                                      ("shadow", (o_b, d_sh, tmax_sh))):
+        perm = bvh_mod._ray_sort_order(o_r, d_r)
+        o_s, d_s, tmax_s = (x[perm].contiguous() for x in (o_r, d_r, tmax_r))
+
+        def sort_fn():
+            p = bvh_mod._ray_sort_order(o_r, d_r)
+            return o_r[p], d_r[p], tmax_r[p]
+
+        sort_fn()
+        tms[f"sort_{rname}"] = sync_ms(sort_fn, 3)
+        for order, (oo, dd, tt) in (("unsorted", (o_r, d_r, tmax_r)),
+                                    ("sorted", (o_s, d_s, tmax_s))):
+            for mode, any_hit in (("closest", False), ("any", True)):
+                def tk_fn():
+                    return bk.bvh_traverse(tree, oo, dd, tt, any_hit)
+
+                tk_fn()
+                tms[f"kernel_{mode}_{rname}_{order}"] = sync_ms(tk_fn, 5)
+        # the twin, on every lane for the camera rays (in the ray sort's
+        # order, as the render hands them over) and on every 16th lane for
+        # the bounce and shadow rays; shadow rays as the any-hit query
+        step = 1 if rname == "camera" else 16
+        any_hit = rname == "shadow"
+        o_t, d_t, tmax_t = (x[::step].contiguous()
+                            for x in (o_s, d_s, tmax_s))
+        got = bk.bvh_traverse(tree, o_t, d_t, tmax_t, any_hit)
+        torch.cuda.synchronize()
+        stats = {}
+        t0 = time.perf_counter()
+        want = bk._traverse_reference(tree, o_t, d_t, tmax_t, any_hit,
+                                      stats=stats)
+        torch.cuda.synchronize()
+        mode = "any" if any_hit else "closest"
+        tms[f"twin_{mode}_{rname}_{o_t.shape[0]}_lanes"] = \
+            1e3 * (time.perf_counter() - t0)
+        check(torch.equal(got[1] >= 0, want[1] >= 0)
+              and (any_hit or (torch.equal(got[1], want[1])
+                               and torch.equal(got[0], want[0]))),
+              f"traversal kernel differs from the twin at {o_t.shape[0]} "
+              f"{rname} rays")
+        tstats[rname] = {k: v * step for k, v in stats.items()}
+        if rname == "camera":
+            traverse_err = float((got[0] - want[0]).abs().max())
+            twin_ms = tms[f"twin_closest_camera_{n_m}_lanes"]
+        if rname != "shadow":
+            # the brute-force kernel as the BVH path calls it on these rays
+            under[rname] = check_brute_under_bvh(hf, rname, o_r, d_r, tmax_r,
+                                                 reps=5)
+    under_bound = intersect_bound(hf, n_m, tris=False)
+    tbound = {r: traverse_bound(tree, n_m, st) for r, st in tstats.items()}
+    cfg_b = render_mod.RenderConfig(max_depth=MAX_DEPTH)
+
+    def bpass_fn():
+        return render_mod.render_pass(hf, cam_d, filt, cfg_b, W, H, CHUNK, 0,
+                                      dev)
+
+    def brender_fn():
+        return render_mod.render(hf, cam_d, spp=SPP, max_depth=MAX_DEPTH,
+                                 chunk_spp=CHUNK, device=dev)
+
+    bpass_fn()
+    tms["pass_32spp_heightfield_cornell"] = sync_ms(bpass_fn, 3)
+    tms["render_64spp_heightfield_cornell"] = sync_ms(brender_fn, 2)
+    dev_ms, by_kernel = kernel_share_of_pass(bpass_fn)
+    print(f"traversal and BVH-pass times (ms, CUDA events; twin: host clock "
+          f"around one run; {n_m} rays per launch, {tree.lo.shape[0]} nodes): "
+          + json.dumps({k: round(v, 4) for k, v in tms.items()}))
+    print("traversal tests per launch (counted by the twin; bounce rays: "
+          "every 16th lane, scaled): " + json.dumps(tstats))
+    print("traversal bounds (ms, by): " + json.dumps(
+        {k: [round(v[0], 5), v[1]] for k, v in tbound.items()}))
+    print(f"intersect kernel under the BVH (0 triangles, {hf.n_sph} sphere, "
+          f"{hf.n_pln} aaplane; {n_m} rays per launch; ms, CUDA events): "
+          + json.dumps({k: {m: round(v[m], 4) for m in ("ms", "plain_ms")}
+                        for k, v in under.items()})
+          + f", bound {under_bound[0]:.5f} ms by {under_bound[1]}")
+    print(f"one 32-spp BVH pass under torch.profiler: device time "
+          f"{dev_ms:.3f} ms, of it " + json.dumps(
+              {k: round(v, 4) for k, v in by_kernel.items()}))
+    check(dev_ms > 0.0 and by_kernel["bvh_traverse_kernel"] > 0.0,
+          "the profiler saw no traversal kernel in the pass")
+
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_path", "route": "cuda",
@@ -542,7 +928,22 @@ def main():
         "ms": ims["kernel_sphere_cornell"],
         "plain_ms": ims["twin_sphere_cornell"],
         "bound_ms": ibound["sphere_cornell"][0],
-        "bound_by": ibound["sphere_cornell"][1], "library_ms": None}]}))
+        "bound_by": ibound["sphere_cornell"][1], "library_ms": None,
+        # the same kernel at the BVH path's call shape (no triangles, one
+        # sphere, one aaplane, tmax from the traversal; bounce rays)
+        "bvh_path": {"launches": bvh_brute_launches,
+                     "max_abs_err": under["bounce"]["err"],
+                     "ms": under["bounce"]["ms"],
+                     "plain_ms": under["bounce"]["plain_ms"],
+                     "bound_ms": under_bound[0],
+                     "bound_by": under_bound[1]}}, {
+        "name": "bvh_traverse", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "pbrt_tpu/ops/bvh_pallas.py:98",
+        "launches": bvh_launches, "max_abs_err": traverse_err,
+        "ms": tms["kernel_closest_camera_sorted"], "plain_ms": twin_ms,
+        "bound_ms": tbound["camera"][0], "bound_by": tbound["camera"][1],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

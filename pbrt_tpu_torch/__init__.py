@@ -2,8 +2,10 @@
 
 The JAX package ``pbrt_tpu`` is the reference; this package mirrors its
 module names so each module's counterpart is easy to find. It imports
-``torch`` and never ``jax``. The slice ported so far is the renderer's
-main path: ``integrators.render.render`` with ``integrator="path"`` on
-scenes that carry a fused profile, which run the hand-written CUDA kernel
-``csrc/fused_path.cu`` on a GPU and its plain-torch twin on the CPU.
+``torch`` and never ``jax``. Ported so far: ``integrators.render.render``
+with the integrators path, mypath, direct, whitted and ao on scenes of
+triangles, spheres and aaplanes. Three hand-written CUDA kernels carry it
+on a GPU, each with a plain-torch twin for the CPU: ``csrc/fused_path.cu``
+(scenes inside the fused profile), ``csrc/intersect.cu`` (brute-force
+closest hits) and ``csrc/bvh_traverse.cu`` (scenes with a BVH).
 """

@@ -7,10 +7,12 @@ module never imports jax itself; static fields (the primitive counts,
 ``n_channels``, ``fused_profile``, the light table's ``present`` and
 ``has_portals``) carry over as they are. Only what the port models is
 carried: a scene with other shape families, material types, light types,
-media, textures or motion raises. A BVH is left behind (``Scene.bvh`` is
-None here): the port's intersection gate goes by the primitive count. This is the tests' tool for
-feeding both packages one scene, so it defaults to the CPU, where JAX runs
-there; the port's own entry points default to the card.
+media, textures or motion raises. A BVH carries over as its flat node
+arrays and leaf-ordered triangles, repacked by the port into its own
+traversal layouts (pbrt_tpu's packet-kernel tables are left behind), so
+both packages walk the same tree; a kd-tree raises. This is the tests'
+tool for feeding both packages one scene, so it defaults to the CPU, where
+JAX runs there; the port's own entry points default to the card.
 """
 
 from __future__ import annotations
@@ -23,11 +25,28 @@ from pbrt_tpu_torch.scene.camera import PERSPECTIVE, Camera
 from pbrt_tpu_torch.scene.film import Filter
 from pbrt_tpu_torch.scene.lights import AREA, LightTable
 from pbrt_tpu_torch.scene.materials import MATTE, MaterialTable
+from pbrt_tpu_torch.scene.bvh import _finish_flat
 from pbrt_tpu_torch.scene.types import Geometry, Scene
 
 
 def _t(x, device):
     return torch.as_tensor(np.array(np.asarray(x)), device=device)
+
+
+def bvh_from_jax(bvh, device="cpu"):
+    """pbrt_tpu's FlatBVH (or None) as the port's."""
+    if bvh is None:
+        return None
+    if type(bvh).__name__ != "FlatBVH":
+        raise NotImplementedError(
+            f"bridge: accelerator {type(bvh).__name__} is not ported "
+            "(scene/kdtree.py: ROADMAP queue 1 item 6)")
+    if np.asarray(bvh.tri9).shape[-1] != 9:
+        raise NotImplementedError("bridge: a motion-blur BVH is not ported "
+                                  "(ROADMAP queue 1 item 8)")
+    return _finish_flat(*(np.asarray(getattr(bvh, k)) for k in (
+        "lo", "hi", "right", "count", "axis", "prim_order", "v0", "v1",
+        "v2")), device=device, built_by="bridge")
 
 
 def scene_from_jax(scene, device="cpu") -> Scene:
@@ -70,6 +89,7 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         world_hi=_t(scene.world_hi, device),
         n_tri=int(scene.n_tri), n_sph=int(scene.n_sph),
         n_pln=int(scene.n_pln), n_channels=int(scene.n_channels),
+        bvh=bvh_from_jax(scene.bvh, device),
         fused_profile=scene.fused_profile)
 
 

@@ -11,6 +11,13 @@ import torch
 
 INF = math.inf
 SHADOW_EPS = 1e-3  # conservative ray-offset epsilon (vecmath.SHADOW_EPS)
+MACHINE_EPS = 2.0 ** -24  # half the float32 epsilon (pbrt.h MachineEpsilon)
+
+
+def gamma(n: int) -> float:
+    """pbrt's gamma(n) floating-point error bound (core/pbrt.h)."""
+    g = n * MACHINE_EPS
+    return g / (1.0 - g)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,6 +83,18 @@ def offset_ray_origin(p: torch.Tensor, n: torch.Tensor,
     nf = face_forward(n, w)
     scale = SHADOW_EPS * torch.clamp_min(p.abs().amax(dim=-1), 1.0)
     return p + scale[..., None] * nf
+
+
+def bounds_intersect_p(lo: torch.Tensor, hi: torch.Tensor, o: torch.Tensor,
+                       inv_d: torch.Tensor, tmax: torch.Tensor) -> torch.Tensor:
+    """Slab test, batched (Bounds3::IntersectP, geometry.h:1388+): lo, hi,
+    o, inv_d (...,3), tmax (...). The far distance is scaled by
+    1 + 2·gamma(3) for conservative traversal. Returns a bool mask."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    t_enter = torch.minimum(t0, t1).amax(dim=-1)
+    t_exit = torch.maximum(t0, t1).amin(dim=-1) * (1.0 + 2.0 * gamma(3))
+    return (t_enter <= t_exit) & (t_exit > 0.0) & (t_enter < tmax)
 
 
 @dataclasses.dataclass

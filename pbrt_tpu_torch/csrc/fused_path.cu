@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_tri.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
@@ -120,24 +122,9 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ r, int i,
                                          float rox, float roy, float roz,
                                          float rdx, float rdy, float rdz,
                                          Hit& h) {
-  const float v0x = r[0], v0y = r[1], v0z = r[2];
-  const float e1x = r[3], e1y = r[4], e1z = r[5];
-  const float e2x = r[6], e2y = r[7], e2z = r[8];
-  const float px = rdy * e2z - rdz * e2y;
-  const float py = rdz * e2x - rdx * e2z;
-  const float pz = rdx * e2y - rdy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool okd = fabsf(det) > 1e-12f;
-  const float inv_det = okd ? 1.0f / det : 0.0f;
-  const float rx = rox - v0x, ry = roy - v0y, rz = roz - v0z;
-  const float u = (rx * px + ry * py + rz * pz) * inv_det;
-  const float qx = ry * e1z - rz * e1y;
-  const float qy = rz * e1x - rx * e1z;
-  const float qz = rx * e1y - ry * e1x;
-  const float v = (rdx * qx + rdy * qy + rdz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  if (okd && u >= 0.f && v >= 0.f && u + v <= 1.0f && t > 1e-4f &&
-      t < h.t) {
+  float t;
+  if (ray_tri_hit(rox, roy, roz, rdx, rdy, rdz, r[0], r[1], r[2], r[3], r[4],
+                  r[5], r[6], r[7], r[8], h.t, t)) {
     h.t = t;
     h.p = i;
     if (ATTRS) {

@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ray_tri.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
@@ -75,32 +77,16 @@ __global__ void __launch_bounds__(kBlock)
     best_t = fminf(tmax[r], kBig);
   }
 
-  // ---- triangles: Moeller-Trumbore
+  // ---- triangles: Moeller-Trumbore (ray_tri.cuh)
   for (int base = 0; base < n_tri; base += kTriTile) {
     const int n = min(kTriTile, n_tri - base);
     load_tile(tile, tri + 9 * base, 9 * n);
     for (int i = 0; i < n; ++i) {
       const float* row = tile + 9 * i;
-      const float v0x = row[0], v0y = row[1], v0z = row[2];
-      const float e1x = row[3], e1y = row[4], e1z = row[5];
-      const float e2x = row[6], e2y = row[7], e2z = row[8];
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const bool okd = fabsf(det) > 1e-12f;
-      const float inv_det = okd ? 1.0f / det : 0.0f;
-      const float rx = ox - v0x;
-      const float ry = oy - v0y;
-      const float rz = oz - v0z;
-      const float u = (rx * px + ry * py + rz * pz) * inv_det;
-      const float qx = ry * e1z - rz * e1y;
-      const float qy = rz * e1x - rx * e1z;
-      const float qz = rx * e1y - ry * e1x;
-      const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      const bool hit = okd && (u >= 0.0f) && (v >= 0.0f) &&
-                       (u + v <= 1.0f) && (t > 1e-4f) && (t < best_t);
+      float t;
+      const bool hit = ray_tri_hit(ox, oy, oz, dx, dy, dz, row[0], row[1],
+                                   row[2], row[3], row[4], row[5], row[6],
+                                   row[7], row[8], best_t, t);
       best_t = hit ? t : best_t;
       best_p = hit ? base + i : best_p;
     }

@@ -15,6 +15,11 @@
   Oren–Nayar) and a point light beside the area light: the generic
   loop's scene with all three shape families, a delta light and light
   selection over two lights.
+- ``_heightfield_cornell``: the cornell walls around a 256×256 heightfield
+  floor (130,050 triangles), a tessellated cone standing on it and a
+  sphere above it, under a plain area light: 133,130 triangles, so the
+  scene gets a BVH and renders through the BVH traversal kernel, with the
+  sphere and the light's aaplane through the brute-force kernel.
 
 The makers build on the card unless the caller asks for ``device="cpu"``.
 """
@@ -25,6 +30,7 @@ import numpy as np
 
 from pbrt_tpu_torch.core import transform
 from pbrt_tpu_torch.scene import camera as cam_mod
+from pbrt_tpu_torch.scene import tessellate
 from pbrt_tpu_torch.scene.types import SceneBuilder, require_device
 
 _WHITE = (0.73, 0.73, 0.73)
@@ -159,6 +165,57 @@ def _tessellated_portal(nseg=13, device="cuda"):
     white, black = _box_with_opening(b)
     _add_sphere_mesh(b, (0.35, 0.22, 0.45), 0.22, white, nseg)
     _portal_light(b, black)
+    return b.build(device)
+
+
+def _floor_heights(n):
+    """Heights of the n×n heightfield floor over [0,1]²: a closed-form sum
+    of sines between 0.01 and 0.09 (no random numbers)."""
+    x, z = np.meshgrid(np.linspace(0.0, 1.0, n), np.linspace(0.0, 1.0, n))
+    tau = 2.0 * np.pi
+    return (0.05 + 0.02 * np.sin(3 * tau * x) * np.sin(2 * tau * z)
+            + 0.012 * np.sin(7 * tau * x + 1.3)
+            + 0.008 * np.sin(11 * tau * z + 0.4))
+
+
+def _fill_heightfield_cornell(b, n=256, n_phi=64, n_z=24):
+    """Add the heightfield cornell scene to builder ``b``: back, left and
+    right walls and a ceiling, a plain area light under it, an n×n
+    heightfield floor (2·(n−1)² triangles), a cone of 2·n_phi·n_z
+    triangles with shading normals standing on the floor, and a sphere.
+    The tessellators work in z-up object space; (x, y, z) there is
+    (x, z, y) here."""
+    white = b.add_material(type=0, kd=_WHITE)
+    red = b.add_material(type=0, kd=_RED)
+    green = b.add_material(type=0, kd=_GREEN)
+    black = b.add_material(type=0, kd=0.0)
+    sand = b.add_material(type=0, kd=(0.55, 0.5, 0.35))
+    blue = b.add_material(type=0, kd=(0.3, 0.4, 0.7))
+    for verts, m in zip(_WALLS[1:], (white, red, green)):
+        b.add_mesh(verts, _QUAD, mat=m)
+    b.add_mesh([(0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1)], _QUAD,
+               mat=white)
+    li = b.add_light(type="area", L=(15.0, 13.0, 9.0), prim=-1)
+    pid = b.add_aaplane((0.3, 0.99, 0.35), (0.7, 0.99, 0.65), axis=1,
+                        facing_fw=False, mat=black, light=li)
+    b.light_rows[li]["prim"] = ("pln", pid)
+
+    verts, faces, _ = tessellate.tessellate_heightfield(n, n,
+                                                        _floor_heights(n))
+    b.add_mesh(verts[:, [0, 2, 1]], faces, mat=sand)
+    verts, faces, norms = tessellate.tessellate_cone(
+        radius=0.12, height=0.35, n_phi=n_phi, n_z=n_z)
+    base = np.asarray([0.68, 0.03, 0.55], np.float32)
+    b.add_mesh(verts[:, [0, 2, 1]] + base, faces, mat=blue,
+               normals=norms[:, [0, 2, 1]])
+    b.add_sphere((0.32, 0.25, 0.45), 0.13, mat=white)
+
+
+def _heightfield_cornell(device="cuda", n=256):
+    """The BVH slice's scene: 2·(n−1)² + 3,080 triangles (133,130 at the
+    default n = 256), one sphere, one aaplane light."""
+    b = SceneBuilder()
+    _fill_heightfield_cornell(b, n)
     return b.build(device)
 
 

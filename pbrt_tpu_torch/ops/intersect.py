@@ -4,7 +4,8 @@ pbrt_tpu/ops/intersect_pallas.py).
 For every ray it tests every triangle, sphere and aaplane of a scene with
 no BVH and returns ``(t, prim)``: the closest hit distance and the global
 primitive index, −1 on a miss. It carries every integrator but the fused
-path on such scenes (scene/intersect.py holds the gate).
+path on such scenes (scene/intersect.py holds the gate), and the spheres
+and aaplanes of a scene whose triangles sit in a BVH (scene/bvh.py).
 
 ``intersect_brute`` dispatches on the device of its tensors: a CUDA tensor
 launches ``csrc/intersect.cu``; a CPU tensor runs ``_intersect_reference``,
@@ -24,14 +25,19 @@ BIG = 1e30
 MAX_PRIMS = 4096      # the gate of scene/intersect.py, as pbrt_tpu's
 
 
-def pack_scene(scene):
+def pack_scene(scene, tris=True):
     """Pack the primitive tables into the kernel's layouts: tri (T,9) =
     v0, e1, e2; sph (S,4) = center, radius; pln (P,8) = lo, hi, axis, pad.
     A family with no primitive keeps its one padding row, which the
-    kernel never reads (its count is 0)."""
+    kernel never reads (its count is 0). ``tris=False`` leaves the
+    triangles out (one padding row): a scene with a BVH sends only its
+    spheres and aaplanes through this kernel."""
     g = scene.geom
-    tri = torch.cat([g.tri_v0, g.tri_v1 - g.tri_v0, g.tri_v2 - g.tri_v0],
-                    dim=-1)
+    if tris:
+        tri = torch.cat([g.tri_v0, g.tri_v1 - g.tri_v0, g.tri_v2 - g.tri_v0],
+                        dim=-1)
+    else:
+        tri = g.tri_v0.new_zeros((1, 9))
     sph = torch.cat([g.sph_center, g.sph_radius[:, None]], dim=-1)
     pln = torch.cat([g.pln_lo, g.pln_hi,
                      g.pln_ax[:, None].to(torch.float32),

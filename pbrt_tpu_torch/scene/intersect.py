@@ -1,12 +1,19 @@
-"""Ray–scene intersection over the ported primitive families (port of the
-brute-force path of pbrt_tpu/scene/intersect.py).
+"""Ray–scene intersection over the ported primitive families (port of
+pbrt_tpu/scene/intersect.py).
 
-Counterpart of Scene::Intersect / IntersectP. Small scenes (no BVH, at
-most 4096 primitives) go through the brute-force kernel of
-ops/intersect.py: on a CUDA tensor the kernel, on a CPU tensor its twin.
-``finalize_hit`` turns the kernel's ``(t, prim)`` into a Hit record with
-normals, uvs and tangents. Scenes past the gate need the BVH traversal,
-which is not ported yet, and raise.
+Counterpart of Scene::Intersect / IntersectP. Two paths, chosen as
+pbrt_tpu chooses them:
+
+- **BVH**: a scene that carries one (``Scene.bvh``, built by
+  ``SceneBuilder.build`` for more than 256 triangles) sends its triangle
+  queries through the traversal kernel of ops/bvh.py and its spheres and
+  aaplanes through the brute-force kernel (scene/bvh.py).
+- **Brute force**: a scene without one, of at most 4096 primitives, goes
+  through the brute-force kernel of ops/intersect.py as a whole.
+
+On a CUDA tensor these are the kernels, on a CPU tensor their twins.
+``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
+and tangents. A kd-tree accelerator is not ported and raises.
 """
 
 from __future__ import annotations
@@ -18,18 +25,30 @@ import torch
 from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.vecmath import normalize
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import shapes
 from pbrt_tpu_torch.scene.shapes import Hit
+
+
+def _has_bvh(scene) -> bool:
+    if scene.bvh is None:
+        return False
+    if not isinstance(scene.bvh, bvh_mod.FlatBVH):
+        raise NotImplementedError(
+            f"accelerator {type(scene.bvh).__name__}: only the BVH is "
+            "ported (scene/kdtree.py: ROADMAP queue 1 item 6)")
+    return True
 
 
 def _closest(scene, o, d, tmax):
     """(t, prim) of the closest hit, through the brute-force kernel. Not
     differentiated: the estimator differentiates the integrand, not the
     sampled hit distances."""
-    if scene.bvh is not None or scene.n_prims > ik.MAX_PRIMS:
+    if scene.n_prims > ik.MAX_PRIMS:
         raise NotImplementedError(
-            f"scenes with a BVH or more than {ik.MAX_PRIMS} primitives need "
-            "the BVH traversal: ROADMAP queue 1 item 6")
+            f"a scene of more than {ik.MAX_PRIMS} primitives without a BVH "
+            "(only triangles go into one; instancing: ROADMAP queue 1 item "
+            "6)")
     with torch.no_grad():
         tri, sph, pln = ik.pack_scene(scene)
         return ik.intersect_brute(
@@ -40,12 +59,16 @@ def _closest(scene, o, d, tmax):
 
 def intersect(scene, o, d, tmax) -> Hit:
     """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...)."""
+    if _has_bvh(scene):
+        return bvh_mod.intersect_bvh(scene, o, d, tmax)
     t, prim = _closest(scene, o, d, tmax)
     return finalize_hit(scene, o, d, t, prim)
 
 
 def intersect_p(scene, o, d, tmax):
     """Any-hit (shadow) query → occluded mask (R,)."""
+    if _has_bvh(scene):
+        return bvh_mod.intersect_p_bvh(scene, o, d, tmax)
     return _closest(scene, o, d, tmax)[1] >= 0
 
 

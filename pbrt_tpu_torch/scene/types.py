@@ -5,9 +5,11 @@ The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
 then spheres ``[nT, nT+nS)``, then aaplanes. ``prim_mat`` / ``prim_light``
 map a global prim to its material row and light row (−1 = not emissive).
 
-Disks, curves, instancing, media, textures, motion, spectral rendering
-and the BVH belong to later slices and raise ``NotImplementedError``;
-``Scene.bvh`` is always None.
+``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
+``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
+pbrt_tpu does. Disks, curves, instancing, media, textures, motion, spectral
+rendering and the kd-tree belong to later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ class SceneBuilder:
         if n_channels != 3:
             _unported("spectral rendering (n_channels != 3)", 9)
         self.n_channels = n_channels
+        self.bvh_split = "sah"  # BVH SplitMethod (bvh.h:58)
         self.tris = []        # dicts: v0 v1 v2 n0 n1 n2 uv0 uv1 uv2 mat light
         self.spheres = []     # dicts: center radius mat light
         self.planes = []      # dicts: lo hi ax facing mat light
@@ -211,7 +214,13 @@ class SceneBuilder:
         base = {"tri": 0, "sph": nt, "pln": nt + ns}[family]
         return base + local_idx
 
-    def build(self, device="cuda") -> Scene:
+    def build(self, device="cuda", use_bvh: str = "auto") -> Scene:
+        """The scene's tensors on ``device``. ``use_bvh``: "auto" builds a
+        BVH over the triangles when there are more than 256 (pbrt_tpu's
+        rule), "always" and "never" force it; ``self.bvh_split`` picks
+        the split method."""
+        if use_bvh not in ("auto", "always", "never"):
+            raise ValueError(f"use_bvh={use_bvh!r}")
         device = require_device(device)
         nt, ns, npl = len(self.tris), len(self.spheres), len(self.planes)
 
@@ -275,6 +284,11 @@ class SceneBuilder:
                                                 device),
             world_lo=t(world_lo), world_hi=t(world_hi),
             n_tri=nt, n_sph=ns, n_pln=npl, n_channels=self.n_channels)
+        if use_bvh == "always" or (use_bvh == "auto" and nt > 256):
+            from pbrt_tpu_torch.scene import bvh as bvh_mod
+            scene = dataclasses.replace(
+                scene, bvh=bvh_mod.build_bvh(scene,
+                                             split_method=self.bvh_split))
         return dataclasses.replace(scene,
                                    fused_profile=self._fused_profile(scene))
 
@@ -290,8 +304,10 @@ class SceneBuilder:
 
         The other families pbrt_tpu's gate rules out (disks, curves,
         instances, motion, media, textures, SSS, Fourier) cannot be built
-        here at all. The triangle cap is the kernel's shared
-        memory plan (fused_path.MAX_TRI). Returns (axis, plane_facing,
+        here at all. A built BVH does not disqualify: the fused kernel
+        reads the builder-order triangles and culls by its own clusters.
+        The triangle cap is the kernel's shared memory plan
+        (fused_path.MAX_TRI). Returns (axis, plane_facing,
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 

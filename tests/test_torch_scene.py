@@ -48,13 +48,19 @@ def test_scene_tables_equal_jax_build(scene_pair):
     name, _, bridged, built = scene_pair
     got = dict(_fields(built))
     for key, want in _fields(bridged):
+        if key in ("bvh.built_by", "bvh._threaded"):
+            continue    # who built it; a cache filled on first CPU query
         have = got[key]
         if isinstance(want, torch.Tensor):
             assert have.dtype == want.dtype, key
             assert torch.equal(have, want), key
         else:
             assert have == want, key
-    assert built.bvh is None
+    # pbrt_tpu's rule: a BVH for more than 256 triangles, and then the
+    # port's native build gives pbrt_tpu's tree (compared field by field
+    # above, through the bridge)
+    assert (built.bvh is not None) == (built.n_tri > 256) \
+        == ("bvh.lo" in got)
 
 
 def test_fused_profile_and_counts(scene_pair):
