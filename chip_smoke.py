@@ -4,10 +4,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the three kernels (csrc/fused_path.cu, csrc/intersect.cu,
-   csrc/bvh_traverse.cu) with nvcc and the host BVH builder
-   (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
-   prints the card, its power limit and the build times.
+1. Builds the five kernels (csrc/fused_path.cu, csrc/intersect.cu,
+   csrc/bvh_traverse.cu, csrc/kexp_traverse.cu, csrc/smem_probe.cu) with
+   nvcc and the host BVH builder (csrc/bvh_builder.cpp) with g++, all at
+   once, into build/kernels/ and prints the card, its power limit and the
+   build times.
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -57,7 +58,30 @@ Run from the root of a checkout, with no arguments:
    the twin, the brute-force kernel and its twin at the BVH path's shape
    on the same 2,097,152 rays, a 32-spp pass and the 64-spp render, the
    tree build, and reads the kernels' share of a pass from torch.profiler.
-   (The JSON lines come after this.)
+12. Probes the shared memory a launch gets (csrc/smem_probe.cu): 48, 100,
+   164 and 227 KB are granted and the result equals the plain version,
+   228 KB raises; prints the largest size granted and the time of
+   torch.add, the library call that computes the same function.
+13. Holds the wide-BVH traversal kernel (csrc/kexp_traverse.cu) against
+   its plain-torch twin on the three trees of phase 9 × the three ray sets
+   × {variant 1, 2, 3 on wide 4 / leaf 16, variant 2 on wide 8 / leaf 8,
+   variant 5 on the dual-leaf layout} × {closest, any-hit}: index equal
+   and t bit-equal; count mode's step codes equal; staging none or as many
+   nodes as fit in shared memory gives identical results; against the
+   binary kernel of phase 9 valid and t equal, index equal but for ties.
+   Once more at 2,097,152 camera rays, where kernel and twin are timed
+   and the twin's counts give the bound.
+14. Drives the kernel-experiment harness at full width through
+   pbrt_tpu_torch.tools.kexp_prep and kexp_run: the 133,130-triangle
+   heightfield tree and a 100,000-triangle irregular soup, 2,097,152 rays
+   per set (primary, random, sorted random, bounce, shadow), experiments
+   `baseline`, `variant 1|2|3` (variant 1 and 2 also with 256 and with as
+   many nodes as fit staged in shared memory), `dual`, `pack` 8 8,
+   4 8 and 4 4, `count`, `smem_probe`, and blocks of 64 / 128 / 256 threads
+   for the fastest variant; prints the matrix in ms, the steps per ray and
+   the agreement with the binary twin, and checks that each kernel was
+   launched exactly as often as the experiments imply. (The JSON lines
+   come after this.)
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
@@ -81,6 +105,8 @@ from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder
+from pbrt_tpu_torch.tools import kexp_kernels as kk
+from pbrt_tpu_torch.tools import kexp_prep, kexp_run
 
 W = H = 256
 SPP = 64
@@ -489,36 +515,6 @@ def check_brute_under_bvh(scene, rname, o, d, tmax, reps=0):
     return out
 
 
-def shadow_rays(o, dev):
-    """Shadow rays as next-event estimation sends them: from the origins
-    ``o`` to seeded uniform points on the heightfield cornell's light (the
-    aaplane y = 0.99, x in [0.3, 0.7], z in [0.35, 0.65]), tmax just short
-    of the light."""
-    gen = torch.Generator(device="cpu").manual_seed(5)
-    u = torch.rand(o.shape[0], 2, generator=gen).to(dev)
-    target = torch.stack([0.3 + 0.4 * u[:, 0], torch.full_like(u[:, 0], 0.99),
-                          0.35 + 0.3 * u[:, 1]], dim=-1)
-    w = target - o
-    dist = w.norm(dim=-1)
-    return (w / dist[:, None]).contiguous(), (dist * (1.0 - 1e-3)).contiguous()
-
-
-def bounce_rays(scene, o, d, dev):
-    """Rays as a path's second bounce sends them: from the camera rays'
-    hit points (offset along the normal), in seeded random directions of
-    the normal's hemisphere. Lanes that missed keep their camera ray."""
-    inf = torch.full((o.shape[0],), math.inf, device=dev)
-    hit = isect_mod.intersect(scene, o, d, inf)
-    gen = torch.Generator(device="cpu").manual_seed(3)
-    w = torch.nn.functional.normalize(
-        torch.randn(o.shape[0], 3, generator=gen), dim=-1).to(dev)
-    n = torch.where((hit.ng * d).sum(-1, keepdim=True) > 0, -hit.ng, hit.ng)
-    w = torch.where((w * n).sum(-1, keepdim=True) < 0, -w, w)
-    o2 = torch.where(hit.valid[:, None], hit.p + 1e-3 * n, o)
-    d2 = torch.where(hit.valid[:, None], w, d)
-    return o2.contiguous(), d2.contiguous()
-
-
 def traverse_bound(bvh, n_rays, stats):
     """Each ray read once (28 B) and written once (8 B), the packed tree
     once; the slab and triangle tests this run's rays needed (counted by
@@ -549,10 +545,195 @@ def kernel_share_of_pass(pass_fn):
     return total, by_name
 
 
+def check_probe(dev):
+    """The shared-memory probe against its plain version at four sizes a
+    block may ask for (one launch each); one KB past the documented limit
+    must raise. Returns {err, ms, plain_ms, library_ms, limit_kb}."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(8, kk.LANES, generator=gen).to(dev)
+    want = kk._probe_reference(x)
+    worst = 0.0
+    for kb in (48, 100, 164, kk.SMEM_DOCUMENTED_KB):
+        err, msg, out = kk._probe_launch(x, kb)
+        torch.cuda.synchronize()
+        check(err == 0, f"smem_probe at {kb} KB: CUDA error {err} ({msg})")
+        worst = max(worst, float((out - want).abs().max()))
+        check(bool(torch.isfinite(out).all()) and torch.equal(out, want),
+              f"smem_probe at {kb} KB differs from the plain version")
+    refused = None
+    try:
+        kk.smem_probe(kk.SMEM_DOCUMENTED_KB + 1, dev, x)
+    except RuntimeError as exc:
+        refused = str(exc)
+    check(refused is not None and "CUDA error" in refused,
+          f"{kk.SMEM_DOCUMENTED_KB + 1} KB was not refused")
+    limit_kb = kk.smem_limit_kb(dev)
+    check(limit_kb >= 48, f"largest size granted {limit_kb} KB")
+    top = min(limit_kb, kk.SMEM_DOCUMENTED_KB)
+    ms = sync_ms(lambda: kk._probe_launch(x, top), 20)
+    plain_ms = sync_ms(lambda: kk._probe_reference(x), 20)
+    # the one library call that computes the same function
+    check(torch.equal(torch.add(x, x[0, 1]), want), "torch.add differs")
+    library_ms = sync_ms(lambda: torch.add(x, x[0, 1]), 20)
+    print(f"smem_probe: 48, 100, 164, {kk.SMEM_DOCUMENTED_KB} KB granted and "
+          f"equal to the plain version (max err {worst:.3g}); "
+          f"{kk.SMEM_DOCUMENTED_KB + 1} KB raised: {refused}; largest size a "
+          f"launch got: {limit_kb} KB; one launch at {top} KB {ms:.4f} ms, "
+          f"plain version {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms")
+    return {"err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "limit_kb": limit_kb}
+
+
+# name -> (wide, leaf_max, dual, variant)
+WIDE_CONFIGS = {"v1_w4_l16": (4, 16, False, 1), "v2_w4_l16": (4, 16, False, 2),
+                "v3_w4_l16": (4, 16, False, 3), "v2_w8_l8": (8, 8, False, 2),
+                "v5_dual": (4, 16, True, 5)}
+
+
+def check_wide(name, bvh, dev, limit_kb):
+    """The wide-BVH kernel against its twin, and against the binary kernel,
+    on the three ray sets, for every configuration. Returns the largest
+    |t_kernel - t_twin|."""
+    z = kexp_prep.tree_arrays(bvh)
+    worst = 0.0
+    for cname, (wide, leaf_max, dual, variant) in WIDE_CONFIGS.items():
+        lay = kexp_run.layout_of(z, dev, wide, leaf_max, dual)
+        n_smem = kk.max_smem_nodes(lay, limit_kb)
+        n_idx = n_any = n_cnt = n_smem_diff = ties = 0
+        for rname, (o, d, tmax) in ray_sets(dev).items():
+            for any_hit in (False, True):
+                t, i = kk.traverse(lay, o, d, tmax, any_hit=any_hit,
+                                   variant=variant)
+                t_s, i_s = kk.traverse(lay, o, d, tmax, any_hit=any_hit,
+                                       variant=variant, smem_nodes=n_smem,
+                                       block=256 if any_hit else 64)
+                torch.cuda.synchronize()
+                t_ref, i_ref = kk._traverse_wide_reference(
+                    lay, o, d, tmax, any_hit=any_hit, variant=variant)
+                check(i.dtype == torch.int32 and t.dtype == torch.float32,
+                      "output types")
+                n_smem_diff += int((i_s != i).sum()) + int((t_s != t).sum())
+                if any_hit:
+                    n_any += int(((i >= 0) != (i_ref >= 0)).sum())
+                    continue
+                n_idx += int((i != i_ref).sum())
+                worst = max(worst, float((t - t_ref).abs().max()))
+                check(torch.equal(t, t_ref), f"{name} {cname} {rname}: t "
+                      "differs from the twin")
+                t_b, i_b = bk.bvh_traverse(bvh, o, d, tmax, False)
+                check(torch.equal(t_b, t) and torch.equal(i_b >= 0, i >= 0),
+                      f"{name} {cname} {rname}: differs from the binary "
+                      "kernel")
+                # one triangle sits in several leaves under spatial splits:
+                # compare the triangles the leaf slots stand for
+                order = bvh.prim_order.long()
+                hit = i >= 0
+                ties += int((order[i_b[hit].long()]
+                             != order[i[hit].long()]).sum())
+            if rname == "camera":
+                _, code = kk.traverse(lay, o, d, tmax, any_hit=False,
+                                      variant=variant + 10)
+                _, code_ref = kk._traverse_wide_reference(
+                    lay, o, d, tmax, any_hit=False, variant=variant + 10)
+                n_cnt += int((code != code_ref).sum())
+        print(f"kexp_traverse kernel vs twin {name} {cname} ({lay.n_nodes} "
+              f"wide nodes, stack need {lay.stack_need}): {n_idx} index "
+              f"mismatches, {n_any} any-hit mismatches, {n_cnt} count-code "
+              f"mismatches, {n_smem_diff} differences with {n_smem} nodes in "
+              f"shared memory; vs the binary kernel t and valid equal, "
+              f"{ties} rays name another triangle (ties)")
+        check(n_idx == 0 and n_any == 0 and n_cnt == 0 and n_smem_diff == 0,
+              f"{name} {cname}: kernel and twin disagree")
+        check(ties <= 1e-3 * 3 * 8192, f"{ties} rays name another triangle")
+    return worst
+
+
+def wide_bound(layout, variant, n_rays, stats):
+    """As ``traverse_bound``: each ray read and written once, the tables the
+    variant reads once; the slab tests (non-empty slots) and triangle tests
+    this run's rays needed, counted by the twin."""
+    n_bytes = 36 * n_rays + layout.table_bytes(variant)
+    n_ops = OPS_SLAB * stats["slab_tests"] + OPS_TRI * stats["tri_tests"]
+    return bound_ms(n_bytes, n_ops)
+
+
+# label -> (experiment, arguments, smem_nodes)
+HARNESS = {
+    "baseline": ("baseline", [], 0),
+    "v1": ("variant", ["1"], 0), "v1_smem256": ("variant", ["1"], 256),
+    "v1_smem_max": ("variant", ["1"], "max"),
+    "v2": ("variant", ["2"], 0), "v2_smem256": ("variant", ["2"], 256),
+    "v2_smem_max": ("variant", ["2"], "max"),
+    "v3": ("variant", ["3"], 0), "dual": ("dual", [], 0),
+    "pack_8_8": ("pack", ["8", "8"], 0),
+    "pack_4_8": ("pack", ["4", "8"], 0), "pack_4_4": ("pack", ["4", "4"], 0)}
+HARNESS_SETS = ("primary", "random", "sorted", "bounce", "shadow")
+
+
+def run_harness(scenes, n_rays, res, dev):
+    """kexp_prep, then every experiment of HARNESS through kexp_run, on
+    each scene. Returns (matrix of ms, steps per ray, agreement, the
+    launches of the wide kernel, the binary kernel and the probe that this
+    implies)."""
+    matrix, steps, agree = {}, {}, {}
+    # an experiment: one launch for the agreement, then a warm-up and REPS
+    # timed launches per ray set; count mode: one launch per ray set
+    per_exp = 1 + len(HARNESS_SETS) * (kexp_run.REPS + 1)
+    n_wide = n_binary = 0
+    for name, scene in scenes.items():
+        path = f"{kexp_prep.OUT_DIR}/{name}.npz"
+        t0 = time.perf_counter()
+        kexp_prep.prep(scene, n_rays=n_rays, res=res, device=dev, out=path)
+        z = kexp_run.load(path)
+        t_prep = time.perf_counter() - t0
+        check(z["o_p"].shape == (n_rays, 3) and z["t_x"].shape == (16384,),
+              "the harness file's shapes")
+        matrix[name], agree[name] = {}, {}
+        t0 = time.perf_counter()
+        for label, (exp, args, smem) in HARNESS.items():
+            out = kexp_run.run(exp, args, z, dev, smem)
+            matrix[name][label] = {k: out[k + "_ms"] for k in HARNESS_SETS}
+            if exp == "baseline":
+                # prep's bounce rays took one intersection more
+                n_binary += per_exp + 1
+            else:
+                n_wide += per_exp
+            if "smem_nodes" in out:
+                matrix[name][label]["smem_nodes"] = out["smem_nodes"]
+            agree[name][label] = [out["prim_agreement"], out["max_abs_dt"]]
+            # the same triangles through the same formula as the binary
+            # twin: t bit-equal, the triangle equal but for exact ties
+            check(out["max_abs_dt"] == 0.0 and out["prim_agreement"] > 0.999,
+                  f"{name} {label}: {agree[name][label]}")
+        wide = {k: v for k, v in matrix[name].items()
+                if k != "baseline" and "smem" not in k}
+        best = min(wide, key=lambda k: wide[k]["primary"] + wide[k]["bounce"])
+        for block in (64, 128, 256):
+            exp, args, smem = HARNESS[best]
+            out = kexp_run.run(exp, args + [str(block)], z, dev, smem)
+            matrix[name][f"{best}_block{block}"] = {
+                k: out[k + "_ms"] for k in HARNESS_SETS}
+            n_wide += per_exp
+        steps[name] = {
+            "v2_w4_l16": kexp_run.exp_count(z, 2, dev),
+            "v3_w4_l16": kexp_run.exp_count(z, 3, dev),
+            "v2_w8_l8": kexp_run.exp_count(z, 2, dev, wide=8, leaf_max=8),
+            "v2_w4_l4": kexp_run.exp_count(z, 2, dev, wide=4, leaf_max=4)}
+        n_wide += len(steps[name]) * len(HARNESS_SETS)
+        print(f"harness {name}: {z['v0'].shape[0]} leaf triangles, "
+              f"{z['lo'].shape[0]} binary nodes, prep + load {t_prep:.1f} s, "
+              f"experiments {time.perf_counter() - t0:.1f} s, fastest wide "
+              f"variant on primary + bounce rays: {best}")
+    probe = kexp_run.run("smem_probe", [str(kk.SMEM_DOCUMENTED_KB)], {}, dev)
+    check(probe == {"kb": kk.SMEM_DOCUMENTED_KB, "ok": True}, f"{probe}")
+    return matrix, steps, agree, (n_wide, n_binary, 1)
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -825,8 +1006,8 @@ def main():
     # ---- 11. timings of the traversal kernel and the BVH pass
     tree = hf.bvh
     n_m = o_m.shape[0]
-    o_b, d_b = bounce_rays(hf, o_m, d_m, dev)
-    d_sh, tmax_sh = shadow_rays(o_b, dev)
+    o_b, d_b = kexp_prep.bounce_rays(hf, o_m, d_m)
+    d_sh, tmax_sh = kexp_prep.shadow_rays(hf, o_b)
     tms, tstats, under = {}, {}, {}
     for rname, (o_r, d_r, tmax_r) in (("camera", (o_m, d_m, inf_m)),
                                       ("bounce", (o_b, d_b, inf_m)),
@@ -912,6 +1093,83 @@ def main():
     check(dev_ms > 0.0 and by_kernel["bvh_traverse_kernel"] > 0.0,
           "the profiler saw no traversal kernel in the pass")
 
+    # ---- 12. the shared-memory probe
+    probe = check_probe(dev)
+
+    # ---- 13. the wide-BVH kernel vs its twin and vs the binary kernel
+    before = kk.traverse.launches
+    kexp_err = 0.0
+    for name, tree_n in trees.items():
+        kexp_err = max(kexp_err, check_wide(name, tree_n, dev,
+                                            probe["limit_kb"]))
+    check(kk.traverse.launches == before + 3 * len(WIDE_CONFIGS) * 13,
+          "wide-kernel launches")
+    lay_full = kexp_run.layout_of(kexp_prep.tree_arrays(tree), dev)
+    def wide_fn():
+        return kk.traverse(lay_full, o_m, d_m, inf_m, any_hit=False,
+                           variant=2)
+
+    got = wide_fn()
+    kexp_ms = sync_ms(wide_fn, 5)
+    wstats, want = {}, []
+    kexp_twin_ms = sync_ms(lambda: want.extend(kk._traverse_wide_reference(
+        lay_full, o_m, d_m, inf_m, any_hit=False, variant=2, stats=wstats)),
+        1)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"wide kernel differs from the twin at {n_m} camera rays")
+    kexp_err = max(kexp_err, float((got[0] - want[0]).abs().max()))
+    kexp_bound = wide_bound(lay_full, 2, n_m, wstats)
+    print(f"kexp_traverse variant 2, wide 4 / leaf 16, {n_m} camera rays of "
+          f"the heightfield tree: equal to the twin; kernel {kexp_ms:.4f} ms "
+          f"(CUDA events, 5 launches), twin {kexp_twin_ms:.1f} ms (CUDA "
+          f"events, one run); tests counted by the twin "
+          + json.dumps(wstats)
+          + f"; bound {kexp_bound[0]:.5f} ms by {kexp_bound[1]}")
+
+    # ---- 14. the kernel-experiment harness at full width
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
+    kk.traverse.launches = 0
+    kk.smem_probe.launches = 0
+    check(kk.smem_limit_kb(dev) == probe["limit_kb"], "the cached limit")
+    check(kk.smem_probe.launches == 0, "the limit was probed again")
+    t0 = time.perf_counter()
+    soup = entry._triangle_soup()
+    check(soup.n_tri == 100000 and soup.bvh.built_by.startswith("native-"),
+          f"the soup: {soup.n_tri} triangles, {soup.bvh.built_by}")
+    print(f"triangle soup: {soup.n_tri} triangles, {soup.bvh.lo.shape[0]} "
+          f"nodes, {soup.bvh.prim_order.shape[0]} leaf triangles, stack need "
+          f"{soup.bvh.stack_need}, {soup.bvh.built_by}, scene build "
+          f"{time.perf_counter() - t0:.2f} s")
+    matrix, steps, agree, expected = run_harness(
+        {"heightfield": hf, "soup": soup}, W * H * CHUNK, W, dev)
+    torch.cuda.synchronize()
+    kexp_launches = kk.traverse.launches
+    probe_launches = kk.smem_probe.launches
+    harness_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"harness ms per {W * H * CHUNK}-ray launch (CUDA events; closest "
+          "hit, shadow rays any-hit): " + json.dumps(matrix))
+    print("harness Mrays/s: " + json.dumps(
+        {sc: {lab: {k: round(W * H * CHUNK / v / 1e3, 1)
+                    for k, v in row.items() if k in HARNESS_SETS}
+              for lab, row in rows.items()} for sc, rows in matrix.items()}))
+    print("harness steps per ray (count mode): " + json.dumps(steps))
+    print("harness [prim_agreement, max_abs_dt] against the binary twin: "
+          + json.dumps(agree))
+    print(f"harness launches: {kexp_launches} of the wide kernel, "
+          f"{bk.bvh_traverse.launches} of the binary kernel, "
+          f"{probe_launches} of the probe; peak memory "
+          f"{harness_peak_mb:.1f} MiB; builds "
+          f"{ {k: round(v, 1) for k, v in _build.load.build_seconds.items()} }"
+          " s")
+    check((kexp_launches, bk.bvh_traverse.launches, probe_launches)
+          == expected, f"harness launches, expected {expected}")
+    check(fp.fused_bounce.launches == 0, "fused launches in the harness")
+
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_path", "route": "cuda",
@@ -943,7 +1201,25 @@ def main():
         "launches": bvh_launches, "max_abs_err": traverse_err,
         "ms": tms["kernel_closest_camera_sorted"], "plain_ms": twin_ms,
         "bound_ms": tbound["camera"][0], "bound_by": tbound["camera"][1],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        # variant 2 on wide 4 / leaf 16, no nodes staged: kernel, twin and
+        # bound all on the 2,097,152 camera rays of the heightfield tree
+        # (phase 13, whose largest error this is); the other variants are
+        # in the matrix
+        "name": "kexp_traverse", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/kexp_traverse.cu",
+        "replaces": "tools/kexp_kernels.py:207",
+        "launches": kexp_launches, "max_abs_err": kexp_err,
+        "ms": kexp_ms, "plain_ms": kexp_twin_ms, "bound_ms": kexp_bound[0],
+        "bound_by": kexp_bound[1], "library_ms": None}, {
+        "name": "smem_probe", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/smem_probe.cu",
+        "replaces": "tools/kexp_run.py:88",
+        "launches": probe_launches, "max_abs_err": probe["err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        # one (8,128) float32 read and one written
+        "bound_ms": bound_ms(2 * 4 * 8 * kk.LANES, 8 * kk.LANES)[0],
+        "bound_by": "bytes", "library_ms": probe["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

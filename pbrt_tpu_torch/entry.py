@@ -20,6 +20,10 @@
   sphere above it, under a plain area light: 133,130 triangles, so the
   scene gets a BVH and renders through the BVH traversal kernel, with the
   sphere and the light's aaplane through the brute-force kernel.
+- ``_triangle_soup``: about 100,000 triangles of irregular size thrown
+  into the unit box under the same area light: the kernel-experiment
+  harness's second tree (tools/kexp_prep.py), a less regular mesh than the
+  heightfield.
 
 The makers build on the card unless the caller asks for ``device="cpu"``.
 """
@@ -216,6 +220,40 @@ def _heightfield_cornell(device="cuda", n=256):
     default n = 256), one sphere, one aaplane light."""
     b = SceneBuilder()
     _fill_heightfield_cornell(b, n)
+    return b.build(device)
+
+
+def _fill_triangle_soup(b, n=100_000, seed=11):
+    """Add an irregular triangle soup to builder ``b``: ``n`` triangles
+    with centres uniform in [0.05, 0.95]³, each spanned by two edges of
+    random direction whose lengths are log-uniform over two decades, from
+    a numpy seed, as one mesh; and the plain area light of the cornell
+    scenes under the ceiling. The decades are 0.0005 to 0.05 at 100,000
+    triangles and scale with 1/sqrt(n) (up to 0.005 to 0.5), so the soup's
+    total area, and with it the share of rays that hit, does not depend
+    on n."""
+    rng = np.random.RandomState(seed)
+    shortest = 0.0005 * min(10.0, (100_000 / n) ** 0.5)
+    white = b.add_material(type=0, kd=_WHITE)
+    black = b.add_material(type=0, kd=0.0)
+    li = b.add_light(type="area", L=(15.0, 13.0, 9.0), prim=-1)
+    pid = b.add_aaplane((0.3, 0.99, 0.35), (0.7, 0.99, 0.65), axis=1,
+                        facing_fw=False, mat=black, light=li)
+    b.light_rows[li]["prim"] = ("pln", pid)
+    c = rng.uniform(0.05, 0.95, (n, 1, 3))
+    edge = rng.randn(n, 2, 3)
+    edge /= np.linalg.norm(edge, axis=-1, keepdims=True)
+    edge *= shortest * 100.0 ** rng.uniform(0.0, 1.0, (n, 2, 1))
+    verts = np.concatenate([c, c + edge], axis=1).astype(np.float32)
+    b.add_mesh(verts.reshape(3 * n, 3), np.arange(3 * n).reshape(n, 3),
+               mat=white)
+
+
+def _triangle_soup(device="cuda", n=100_000, seed=11):
+    """The harness's irregular tree: ``n`` triangles (a BVH for more than
+    256) and one aaplane light."""
+    b = SceneBuilder()
+    _fill_triangle_soup(b, n, seed)
     return b.build(device)
 
 

@@ -93,6 +93,54 @@ def pack_bvh(lo, hi, right, count, axis, v0, v1, v2):
     return nodes, tris, need
 
 
+def _collapse_tree(lo, hi, right, count, axis, max_leaf=16):
+    """Collapse subtrees of at most ``max_leaf`` triangles into single
+    leaves, giving a new flat DFS tree (host, numpy; pbrt_tpu's
+    ops/bvh_pallas.py::_collapse_tree). The BVH build's DFS leaf order makes
+    every subtree's triangles one contiguous range, so a collapsed leaf is
+    just (start, count). Returns lo, hi (float32) and right, count, axis
+    (int64) of the new tree. The wide-node packers of
+    tools/kexp_kernels.py start from it."""
+    n = right.shape[0]
+    start = np.zeros(n, np.int64)
+    end = np.zeros(n, np.int64)
+    # children come after their parent in DFS order, so a reverse sweep
+    # sees them first
+    for i in range(n - 1, -1, -1):
+        if count[i] > 0:
+            start[i] = right[i]
+            end[i] = right[i] + count[i]
+        else:
+            start[i] = start[i + 1]
+            end[i] = end[right[i]]
+    out = dict(lo=[], hi=[], right=[], count=[], axis=[])
+    # an explicit stack in place of recursion: (node, parent to patch)
+    todo = [(0, -1)]
+    while todo:
+        i, patch = todo.pop()
+        me = len(out["lo"])
+        if patch >= 0:
+            out["right"][patch] = me      # second child: after the first's
+        out["lo"].append(lo[i])           # whole subtree
+        out["hi"].append(hi[i])
+        sub = end[i] - start[i]
+        if count[i] > 0 or sub <= max_leaf:
+            out["right"].append(int(start[i]))
+            out["count"].append(int(sub))
+            out["axis"].append(0)
+            continue
+        out["right"].append(-1)
+        out["count"].append(0)
+        out["axis"].append(int(axis[i]))
+        todo.append((int(right[i]), me))
+        todo.append((i + 1, -1))
+    return (np.asarray(out["lo"], np.float32),
+            np.asarray(out["hi"], np.float32),
+            np.asarray(out["right"], np.int64),
+            np.asarray(out["count"], np.int64),
+            np.asarray(out["axis"], np.int64))
+
+
 # ---------------------------------------------------------------------------
 # plain-torch twin of the kernel: its per-octant threaded layout (host, built
 # on first use) and the walk over it
