@@ -4,11 +4,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the five kernels (csrc/fused_path.cu, csrc/intersect.cu,
-   csrc/bvh_traverse.cu, csrc/kexp_traverse.cu, csrc/smem_probe.cu) with
-   nvcc and the host BVH builder (csrc/bvh_builder.cpp) with g++, all at
-   once, into build/kernels/ and prints the card, its power limit and the
-   build times.
+1. Builds the six kernels (csrc/fused_path.cu, csrc/intersect.cu,
+   csrc/bvh_traverse.cu, csrc/bvh_binary.cu, csrc/kexp_traverse.cu,
+   csrc/smem_probe.cu) with nvcc and the host BVH builder
+   (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
+   prints the card, its power limit and the build times.
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -33,60 +33,73 @@ Run from the root of a checkout, with no arguments:
    launch counts the loop implies, that the fused kernel is not launched,
    and pbrt_tpu's image means to rel 1e-3.
 8. Times the intersection kernel and its twin on 2,097,152-ray launches
-   and the new scenes' passes and renders, and prints a JSON line of the
-   kernels (with each kernel's roofline bound computed from this run's
-   inputs), then {"ok": true, "device": {...}} as the last line.
-9. Holds the BVH traversal kernel against its plain-torch twin on three
-   trees (a 600-triangle soup, the 133,130-triangle heightfield cornell
-   built by the native SBVH builder, a 7,498-triangle tree built with
-   `hlbvh`), for camera rays and random rays with infinite and finite
-   tmax: closest hit with the index equal and t bit-equal, any-hit with
-   equal masks; and a scene of 2,188 primitives built with and without a
-   BVH through ``intersect`` (valid and t equal, prim equal but for exact
-   ties in t). Holds the brute-force kernel against its twin at the call
-   shape a BVH scene gives it (no triangles, the scene's one sphere and one
+   and the new scenes' passes and renders.
+9. Holds the BVH traversal kernels against their plain-torch twins on
+   three trees (a 600-triangle soup, the 133,130-triangle heightfield
+   cornell built by the native SBVH builder, a 7,498-triangle tree built
+   with `hlbvh`), for camera rays and random rays with infinite and finite
+   tmax: the 4-wide kernel (csrc/bvh_traverse.cu) on its plain grid, its
+   persistent grid and under the harness's L2 window, closest hit and
+   any-hit, index and t bit-equal, count mode's step codes equal; the
+   binary kernel (csrc/bvh_binary.cu) index and t bit-equal, any-hit masks
+   equal, its count mode's pops equal to the twin's slab tests; for both,
+   the any-hit mask equal to the closest hit's and more than 5% of the rays
+   hitting; against each other t bit-equal and the triangle equal through
+   ``prim_order`` but for exact ties. Then a scene of 2,188 primitives built with and without a BVH
+   through ``intersect`` (valid and t equal, prim equal but for exact ties
+   in t), and the brute-force kernel against its twin at the call shape a
+   BVH scene gives it (no triangles, the scene's one sphere and one
    aaplane, tmax the traversal's closest hit): prim equal and t bit-equal.
 10. Renders the BVH slice at full width through ``render``:
    ``_heightfield_cornell()``, 256² × 64 spp, `path`; checks the launch
-   counts the loop implies (traversal and brute-force kernels), that the
-   fused kernel is not launched, and, at 64² × 4 spp, pbrt_tpu's image
-   mean to rel 1e-3 (pbrt_tpu's CPU traversal is too slow for the full
-   size).
-11. Times 2,097,152-ray closest-hit and any-hit launches of the traversal
-   kernel on the big tree (camera rays, bounce rays and shadow rays with
-   finite tmax, in the callers' order and in the ray sort's), the sort,
-   the twin, the brute-force kernel and its twin at the BVH path's shape
-   on the same 2,097,152 rays, a 32-spp pass and the 64-spp render, the
-   tree build, and reads the kernels' share of a pass from torch.profiler.
+   counts the loop implies (13 of the 4-wide kernel and of the brute-force
+   kernel per pass), that no ray sort ran and neither the binary nor the
+   fused kernel was launched, and, at 64² × 4 spp, pbrt_tpu's image mean
+   to rel 1e-3 (pbrt_tpu's CPU traversal is too slow for the full size).
+11. Times 2,097,152-ray closest-hit and any-hit launches on the big tree
+   (camera rays, bounce rays and shadow rays with finite tmax): the binary
+   kernel and the 4-wide kernel's plain and persistent grids in turns, in
+   the callers' order, the binary kernel in the ray sort's order, and the
+   sort; the twins (whose test counts give the bounds); the brute-force
+   kernel and its twin at the BVH path's shape; the 32-spp pass and the
+   64-spp render against the path before the 4-wide kernel (sort + binary
+   kernel), in turns; and, by torch.profiler, the 4-wide kernel's device
+   time per launch inside a pass for both grids with the harness's L2
+   window on and off, and the old path's device time by kernel.
 12. Probes the shared memory a launch gets (csrc/smem_probe.cu): 48, 100,
    164 and 227 KB are granted and the result equals the plain version,
-   228 KB raises; prints the largest size granted and the time of
-   torch.add, the library call that computes the same function.
-13. Holds the wide-BVH traversal kernel (csrc/kexp_traverse.cu) against
+   228 KB raises; checks that repeated launches at one size set no
+   attribute; times the probe and torch.add, the library call that
+   computes the same function, by CUDA events around back-to-back calls
+   and by the profiler's device time per launch.
+13. Holds the wide-BVH experiment kernel (csrc/kexp_traverse.cu) against
    its plain-torch twin on the three trees of phase 9 × the three ray sets
    × {variant 1, 2, 3 on wide 4 / leaf 16, variant 2 on wide 8 / leaf 8,
    variant 5 on the dual-leaf layout} × {closest, any-hit}: index equal
    and t bit-equal; count mode's step codes equal; staging none or as many
    nodes as fit in shared memory gives identical results; against the
-   binary kernel of phase 9 valid and t equal, index equal but for ties.
-   Once more at 2,097,152 camera rays, where kernel and twin are timed
-   and the twin's counts give the bound.
+   binary kernel valid and t equal, index equal but for ties. Once more at
+   2,097,152 camera rays, where kernel and twin are timed and the twin's
+   counts give the bound.
 14. Drives the kernel-experiment harness at full width through
    pbrt_tpu_torch.tools.kexp_prep and kexp_run: the 133,130-triangle
    heightfield tree and a 100,000-triangle irregular soup, 2,097,152 rays
    per set (primary, random, sorted random, bounce, shadow), experiments
-   `baseline`, `variant 1|2|3` (variant 1 and 2 also with 256 and with as
-   many nodes as fit staged in shared memory), `dual`, `pack` 8 8,
-   4 8 and 4 4, `count`, `smem_probe`, and blocks of 64 / 128 / 256 threads
-   for the fastest variant; prints the matrix in ms, the steps per ray and
-   the agreement with the binary twin, and checks that each kernel was
-   launched exactly as often as the experiments imply. (The JSON lines
-   come after this.)
+   `binary`, `baseline`, `grid plain|persistent` (in turns), `variant
+   1|2|3` (1 and 2 also with 256 nodes staged, 2 with as many as fit),
+   `pack` 4 8 and 4 4, `count`, `smem_probe`, and the warp efficiency of
+   the 4-wide and the binary kernel from count mode; prints the matrix in
+   ms, the steps per ray and the agreement with the binary twin, and
+   checks that each kernel was launched exactly as often as the
+   experiments imply. Then prints a JSON line of the kernels (with each
+   kernel's roofline bound computed from this run's inputs) and
+   {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -99,6 +112,7 @@ from pbrt_tpu_torch import entry
 from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import bvh as bk
+from pbrt_tpu_torch.ops import bvh_binary as bb
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as bvh_mod
@@ -413,35 +427,175 @@ def heightfield_scene(dev, n, n_phi=64, n_z=24, use_bvh="auto", split="sah"):
     return b.build(dev, use_bvh=use_bvh)
 
 
-def check_traverse(name, bvh, dev):
-    """Traversal kernel vs twin on the three ray sets: closest hit with
-    the leaf index equal on every ray and t equal bit for bit; any-hit
-    with equal masks. Returns the largest |t_kernel − t_twin|."""
+def check_binary(name, bvh, dev):
+    """The binary kernel (the harness's yardstick) vs its twin on the three
+    ray sets: closest hit with the leaf index equal on every ray and t
+    equal bit for bit; any-hit with equal masks, and equal to the closest
+    hit's; count mode's nodes popped add up to the twin's slab tests; more
+    than 5% of the rays hit. Returns the largest |t_kernel − t_twin|."""
     worst = 0.0
     for rname, (o, d, tmax) in ray_sets(dev).items():
-        t, leaf = bk.bvh_traverse(bvh, o, d, tmax, False)
-        _, leaf_any = bk.bvh_traverse(bvh, o, d, tmax, True)
+        t, leaf = bb.bvh_traverse_binary(bvh, o, d, tmax, False)
+        _, leaf_any = bb.bvh_traverse_binary(bvh, o, d, tmax, True)
+        _, code = bb.bvh_traverse_binary(bvh, o, d, tmax, False,
+                                         count_mode=True)
         torch.cuda.synchronize()
-        t_ref, leaf_ref = bk._traverse_reference(bvh, o, d, tmax, False)
-        _, any_ref = bk._traverse_reference(bvh, o, d, tmax, True)
+        stats = {}
+        t_ref, leaf_ref = bb._traverse_reference(bvh, o, d, tmax, False,
+                                                 stats=stats)
+        _, any_ref = bb._traverse_reference(bvh, o, d, tmax, True)
         check(leaf.dtype == torch.int32 and t.dtype == torch.float32,
               "output types")
         n_leaf = int((leaf != leaf_ref).sum())
         n_any = int(((leaf_any >= 0) != (any_ref >= 0)).sum())
-        err = float((t - t_ref).abs().max())
-        worst = max(worst, err)
+        n_pop = int((code.long() >> 16).sum())
         hit = float((leaf >= 0).float().mean())
-        print(f"bvh_traverse kernel vs twin {name} ({bvh.lo.shape[0]} nodes, "
-              f"{bvh.prim_order.shape[0]} leaf triangles, {bvh.built_by}) "
-              f"{rname}: {n_leaf} index mismatches, t max err {err:.3g}, "
-              f"{n_any} any-hit mismatches, hit share {hit:.3f}")
-        check(n_leaf == 0, f"{n_leaf} index mismatches")
-        check(torch.equal(t, t_ref), f"t differs from the twin by {err}")
-        check(n_any == 0, f"{n_any} any-hit mismatches")
+        print(f"bvh_binary kernel vs twin {name} ({bvh.lo.shape[0]} nodes) "
+              f"{rname}: {n_leaf} index mismatches, t max err "
+              f"{float((t - t_ref).abs().max()):.3g}, {n_any} any-hit "
+              f"mismatches, {n_pop} nodes popped (twin: "
+              f"{stats['slab_tests']} slab tests), hit share {hit:.3f}")
+        check(n_leaf == 0 and torch.equal(t, t_ref) and n_any == 0,
+              f"{name} {rname}: the binary kernel differs from its twin")
         check(torch.equal(leaf_any >= 0, leaf >= 0),
-              "any-hit disagrees with closest hit")
-        check(hit > 0.05, f"hit share {hit}")
+              f"{name} {rname}: the binary kernel's any-hit disagrees with "
+              "its closest hit")
+        check(n_pop == stats["slab_tests"], "count mode's pops")
+        check(hit > 0.05, f"{name} {rname}: hit share {hit}")
+        worst = max(worst, float((t - t_ref).abs().max()))
     return worst
+
+
+def check_traverse(name, bvh, dev):
+    """The 4-wide traversal kernel vs its twin on the three ray sets,
+    closest hit and any-hit, on the plain grid, the persistent grid (the
+    render path's) and the persistent grid under the harness's L2 window:
+    index and t equal bit for bit, count mode's step codes equal, the
+    any-hit mask equal to the closest hit's, more than 5% of the rays hit.
+    Against the binary kernel: t bit-equal, hit masks equal, the triangle
+    equal through ``prim_order`` but for exact ties in t. Returns (largest
+    |t_kernel − t_twin|, rays that name another triangle than the binary
+    kernel, rays compared)."""
+    worst, ties, n_cmp = 0.0, 0, 0
+    order = bvh.prim_order.long()
+    for rname, (o, d, tmax) in ray_sets(dev).items():
+        masks = []
+        for any_hit in (False, True):
+            runs = [bk.bvh_traverse(bvh, o, d, tmax, any_hit,
+                                    persistent=False),
+                    bk.bvh_traverse(bvh, o, d, tmax, any_hit)]
+            with kk.l2_window(bvh, True):
+                runs.append(bk.bvh_traverse(bvh, o, d, tmax, any_hit))
+            t, i = runs[1]
+            masks.append(i >= 0)
+            t_b, i_b = bb.bvh_traverse_binary(bvh, o, d, tmax, any_hit)
+            torch.cuda.synchronize()
+            t_ref, i_ref = bk.traverse_reference(bvh, o, d, tmax, any_hit)
+            check(i.dtype == torch.int32 and t.dtype == torch.float32,
+                  "output types")
+            mode = "any" if any_hit else "closest"
+            check(all(torch.equal(tt, t_ref) and torch.equal(ii, i_ref)
+                      for tt, ii in runs),
+                  f"{name} {rname} {mode}: the kernel (plain grid, "
+                  "persistent grid or L2 window) differs from its twin")
+            worst = max(worst, float((t - t_ref).abs().max()))
+            check(torch.equal(i >= 0, i_b >= 0),
+                  f"{name} {rname} {mode}: hit masks differ from the binary "
+                  "kernel")
+            if any_hit:
+                continue
+            check(torch.equal(t, t_b), f"{name} {rname}: t differs from the "
+                  "binary kernel")
+            hit = i >= 0
+            ties += int((order[i[hit].long()] != order[i_b[hit].long()]).sum())
+            n_cmp += o.shape[0]
+        _, code = bk.bvh_traverse(bvh, o, d, tmax, False, count_mode=True)
+        torch.cuda.synchronize()
+        _, code_ref = bk.traverse_reference(bvh, o, d, tmax, False,
+                                            count_mode=True)
+        check(torch.equal(code, code_ref), f"{name} {rname}: step codes")
+        check(torch.equal(masks[0], masks[1]), f"{name} {rname}: any-hit "
+              "disagrees with closest hit")
+        hit = float(masks[0].float().mean())
+        print(f"bvh_traverse kernel vs twin {name} ({bvh.nodes.shape[0]} "
+              f"wide nodes, {bvh.prim_order.shape[0]} leaf triangles, stack "
+              f"need {bvh.stack_need}, {bvh.built_by}) {rname}: equal (plain "
+              "grid, persistent grid, L2 window; closest, any-hit, count "
+              f"mode); t equal to the binary kernel; hit share {hit:.3f}")
+        check(hit > 0.05, f"{name} {rname}: hit share {hit}")
+    check(ties <= 1e-3 * n_cmp, f"{ties} rays name another triangle than "
+          "the binary kernel")
+    return worst, ties, n_cmp
+
+
+@contextlib.contextmanager
+def counting_sorts(calls):
+    """Appends the batch size of every ray sort made inside the block."""
+    real = bvh_mod._ray_sort_order
+
+    def counted(o, d):
+        calls.append(o.shape[0])
+        return real(o, d)
+
+    bvh_mod._ray_sort_order = counted
+    try:
+        yield
+    finally:
+        bvh_mod._ray_sort_order = real
+
+
+@contextlib.contextmanager
+def old_bvh_path():
+    """Inside the block the BVH queries run as the render path ran them
+    before the 4-wide kernel: every batch (of 4,096 rays or more, as every
+    batch of a 256² pass) in the ray sort's order through the binary
+    kernel, the results put back in the callers' order."""
+    def sorted_binary(bvh, o, d, tmax, any_hit):
+        perm = bvh_mod._ray_sort_order(o, d)
+        t_s, i_s = bb.bvh_traverse_binary(bvh, o[perm], d[perm], tmax[perm],
+                                          any_hit)
+        t, leaf_i = torch.empty_like(t_s), torch.empty_like(i_s)
+        t[perm] = t_s
+        leaf_i[perm] = i_s
+        return t, leaf_i
+
+    def tris(bvh, o, d, tmax):
+        t, leaf_i = sorted_binary(bvh, o, d, tmax, False)
+        hit = leaf_i >= 0
+        return t, torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)],
+                              -1), hit
+
+    def p_tris(bvh, o, d, tmax):
+        return sorted_binary(bvh, o, d, tmax, True)[1] >= 0
+
+    saved = bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris
+    bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris = tris, p_tris
+    try:
+        yield
+    finally:
+        bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris = saved
+
+
+@contextlib.contextmanager
+def plain_grid():
+    """Inside the block the render path's BVH queries launch the 4-wide
+    kernel on its plain grid (one thread per ray) in place of the
+    persistent one."""
+    def tris(bvh, o, d, tmax):
+        t, leaf_i = bk.bvh_traverse(bvh, o, d, tmax, False, persistent=False)
+        hit = leaf_i >= 0
+        return t, torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)],
+                              -1), hit
+
+    def p_tris(bvh, o, d, tmax):
+        return bk.bvh_traverse(bvh, o, d, tmax, True, persistent=False)[1] >= 0
+
+    saved = bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris
+    bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris = tris, p_tris
+    try:
+        yield
+    finally:
+        bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris = saved
 
 
 def check_bvh_vs_brute(dev):
@@ -515,40 +669,48 @@ def check_brute_under_bvh(scene, rname, o, d, tmax, reps=0):
     return out
 
 
-def traverse_bound(bvh, n_rays, stats):
-    """Each ray read once (28 B) and written once (8 B), the packed tree
-    once; the slab and triangle tests this run's rays needed (counted by
-    the twin on the same rays)."""
-    n_bytes = 36 * n_rays + 4 * (bvh.pk_nodes.numel() + bvh.pk_tris.numel())
-    n_ops = OPS_SLAB * stats["slab_tests"] + OPS_TRI * stats["tri_tests"]
+def traverse_bound(table_bytes, n_rays, *stats):
+    """Each ray read once (28 B) and written once (8 B), the tree's tables
+    once; the slab and triangle tests this run's rays needed: of the walks
+    counted on the same rays (the 4-wide and the binary twin's, which give
+    the same answers), the one with fewer operations."""
+    n_bytes = 36 * n_rays + table_bytes
+    n_ops = min(OPS_SLAB * st["slab_tests"] + OPS_TRI * st["tri_tests"]
+                for st in stats)
     return bound_ms(n_bytes, n_ops)
 
 
-def kernel_share_of_pass(pass_fn):
-    """Device time by kernel over one pass, from torch.profiler: (total
-    ms, {kernel-name fragment: ms})."""
+def device_ms_by_kernel(fn, frags):
+    """Device time by kernel over one run of ``fn``, from torch.profiler:
+    (total ms, {kernel-name fragment: [ms, launches]})."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pass_fn()
+        fn()
         torch.cuda.synchronize()
-    total, by_name = 0.0, {"bvh_traverse_kernel": 0.0, "intersect_kernel": 0.0}
+    total, by_name = 0.0, {frag: [0.0, 0] for frag in frags}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
         total += us / 1e3
-        for frag in by_name:
-            if frag in evt.key:
-                by_name[frag] += us / 1e3
+        for frag in frags:
+            if frag in evt.key and us > 0:
+                by_name[frag][0] += us / 1e3
+                by_name[frag][1] += evt.count
     return total, by_name
 
 
 def check_probe(dev):
     """The shared-memory probe against its plain version at four sizes a
     block may ask for (one launch each); one KB past the documented limit
-    must raise. Returns {err, ms, plain_ms, library_ms, limit_kb}."""
+    must raise. The size is set only when it changes: the timed launches
+    at one size make no attribute call. Times the probe and torch.add, the
+    library call that computes the same function, by CUDA events around
+    back-to-back calls and by the profiler's kernel time per launch.
+    Returns {err, ms, plain_ms, library_ms, device_ms, library_device_ms,
+    limit_kb, sets}."""
     gen = torch.Generator(device="cpu").manual_seed(9)
     x = torch.randn(8, kk.LANES, generator=gen).to(dev)
     want = kk._probe_reference(x)
@@ -570,18 +732,39 @@ def check_probe(dev):
     limit_kb = kk.smem_limit_kb(dev)
     check(limit_kb >= 48, f"largest size granted {limit_kb} KB")
     top = min(limit_kb, kk.SMEM_DOCUMENTED_KB)
+    kk._probe_launch(x, top)
+    sets = kk._probe_sizes.sets
     ms = sync_ms(lambda: kk._probe_launch(x, top), 20)
+    check(kk._probe_sizes.sets == sets, "the timed launches set the size")
     plain_ms = sync_ms(lambda: kk._probe_reference(x), 20)
     # the one library call that computes the same function
     check(torch.equal(torch.add(x, x[0, 1]), want), "torch.add differs")
     library_ms = sync_ms(lambda: torch.add(x, x[0, 1]), 20)
+
+    def twenty(fn):
+        return lambda: [fn() for _ in range(20)]
+
+    _, k_dev = device_ms_by_kernel(twenty(lambda: kk._probe_launch(x, top)),
+                                   ["smem_probe_kernel"])
+    _, a_dev = device_ms_by_kernel(twenty(lambda: torch.add(x, x[0, 1])),
+                                   ["add"])
+    device_ms = k_dev["smem_probe_kernel"][0] / max(
+        k_dev["smem_probe_kernel"][1], 1)
+    library_device_ms = a_dev["add"][0] / max(a_dev["add"][1], 1)
+    check(kk._probe_sizes.sets == sets, "the profiled launches set the size")
     print(f"smem_probe: 48, 100, 164, {kk.SMEM_DOCUMENTED_KB} KB granted and "
           f"equal to the plain version (max err {worst:.3g}); "
           f"{kk.SMEM_DOCUMENTED_KB + 1} KB raised: {refused}; largest size a "
-          f"launch got: {limit_kb} KB; one launch at {top} KB {ms:.4f} ms, "
-          f"plain version {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms")
+          f"launch got: {limit_kb} KB; {kk._probe_sizes.sets} attribute "
+          f"calls in all, none in the 60 launches at {top} KB; per launch "
+          f"(CUDA events, back to back) {ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, torch.add {library_ms:.4f} ms; device time "
+          f"per launch (torch.profiler) {device_ms:.5f} ms, torch.add "
+          f"{library_device_ms:.5f} ms")
     return {"err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "limit_kb": limit_kb}
+            "library_ms": library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms, "limit_kb": limit_kb,
+            "sets": kk._probe_sizes.sets}
 
 
 # name -> (wide, leaf_max, dual, variant)
@@ -620,7 +803,7 @@ def check_wide(name, bvh, dev, limit_kb):
                 worst = max(worst, float((t - t_ref).abs().max()))
                 check(torch.equal(t, t_ref), f"{name} {cname} {rname}: t "
                       "differs from the twin")
-                t_b, i_b = bk.bvh_traverse(bvh, o, d, tmax, False)
+                t_b, i_b = bb.bvh_traverse_binary(bvh, o, d, tmax, False)
                 check(torch.equal(t_b, t) and torch.equal(i_b >= 0, i >= 0),
                       f"{name} {cname} {rname}: differs from the binary "
                       "kernel")
@@ -657,33 +840,57 @@ def wide_bound(layout, variant, n_rays, stats):
     return bound_ms(n_bytes, n_ops)
 
 
-# label -> (experiment, arguments, smem_nodes)
+# label -> (experiment, arguments, smem_nodes); the 4-wide kernel's two
+# grids and the binary kernel run in turns (a, b, b, a) around the rest
 HARNESS = {
-    "baseline": ("baseline", [], 0),
+    "binary": ("binary", [], 0), "baseline": ("baseline", [], 0),
+    "grid_plain": ("grid", ["plain"], 0),
+    "grid_persistent": ("grid", ["persistent"], 0),
     "v1": ("variant", ["1"], 0), "v1_smem256": ("variant", ["1"], 256),
-    "v1_smem_max": ("variant", ["1"], "max"),
     "v2": ("variant", ["2"], 0), "v2_smem256": ("variant", ["2"], 256),
     "v2_smem_max": ("variant", ["2"], "max"),
-    "v3": ("variant", ["3"], 0), "dual": ("dual", [], 0),
-    "pack_8_8": ("pack", ["8", "8"], 0),
-    "pack_4_8": ("pack", ["4", "8"], 0), "pack_4_4": ("pack", ["4", "4"], 0)}
+    "v3": ("variant", ["3"], 0),
+    "pack_4_8": ("pack", ["4", "8"], 0), "pack_4_4": ("pack", ["4", "4"], 0),
+    "grid_persistent_again": ("grid", ["persistent"], 0),
+    "grid_plain_again": ("grid", ["plain"], 0),
+    "binary_again": ("binary", [], 0)}
 HARNESS_SETS = ("primary", "random", "sorted", "bounce", "shadow")
+# ray sets of the harness file: origins, directions, tmax, any-hit
+RAY_KEYS = {name: (ok, dk, tk, any_hit)
+            for name, ok, dk, tk, any_hit in kexp_run.RAY_SETS}
+
+
+def warp_efficiencies(z, dev):
+    """Count mode of the 4-wide and the binary kernel on every ray set of
+    the harness file: {kernel: {set: warp efficiency}}."""
+    tree = kexp_run.tree_of(z, dev)
+    out = {"bvh_traverse": {}, "bvh_binary": {}}
+    for name in HARNESS_SETS:
+        ok, dk, tk, any_hit = RAY_KEYS[name]
+        o, d, tmax = (kexp_run._dev(z, k, dev) for k in (ok, dk, tk))
+        for kname, fn in (("bvh_traverse", bk.bvh_traverse),
+                          ("bvh_binary", bb.bvh_traverse_binary)):
+            _, code = fn(tree, o, d, tmax, any_hit, count_mode=True)
+            out[kname][name] = round(kexp_run.warp_efficiency(code), 4)
+    return out
 
 
 def run_harness(scenes, n_rays, res, dev):
     """kexp_prep, then every experiment of HARNESS through kexp_run, on
-    each scene. Returns (matrix of ms, steps per ray, agreement, the
-    launches of the wide kernel, the binary kernel and the probe that this
-    implies)."""
-    matrix, steps, agree = {}, {}, {}
+    each scene, and the two production kernels' warp efficiency. Returns
+    (matrix of ms, steps per ray, agreement, warp efficiency, the launches
+    of the kexp kernel, the 4-wide kernel, the binary kernel and the probe
+    that this implies)."""
+    matrix, steps, agree, warp = {}, {}, {}, {}
     # an experiment: one launch for the agreement, then a warm-up and REPS
     # timed launches per ray set; count mode: one launch per ray set
     per_exp = 1 + len(HARNESS_SETS) * (kexp_run.REPS + 1)
-    n_wide = n_binary = 0
+    n_kexp = n_new = n_binary = 0
     for name, scene in scenes.items():
         path = f"{kexp_prep.OUT_DIR}/{name}.npz"
         t0 = time.perf_counter()
         kexp_prep.prep(scene, n_rays=n_rays, res=res, device=dev, out=path)
+        n_new += 1                  # prep's bounce rays: one intersection
         z = kexp_run.load(path)
         t_prep = time.perf_counter() - t0
         check(z["o_p"].shape == (n_rays, 3) and z["t_x"].shape == (16384,),
@@ -693,11 +900,12 @@ def run_harness(scenes, n_rays, res, dev):
         for label, (exp, args, smem) in HARNESS.items():
             out = kexp_run.run(exp, args, z, dev, smem)
             matrix[name][label] = {k: out[k + "_ms"] for k in HARNESS_SETS}
-            if exp == "baseline":
-                # prep's bounce rays took one intersection more
-                n_binary += per_exp + 1
+            if exp == "binary":
+                n_binary += per_exp
+            elif exp in ("baseline", "grid"):
+                n_new += per_exp
             else:
-                n_wide += per_exp
+                n_kexp += per_exp
             if "smem_nodes" in out:
                 matrix[name][label]["smem_nodes"] = out["smem_nodes"]
             agree[name][label] = [out["prim_agreement"], out["max_abs_dt"]]
@@ -705,28 +913,21 @@ def run_harness(scenes, n_rays, res, dev):
             # twin: t bit-equal, the triangle equal but for exact ties
             check(out["max_abs_dt"] == 0.0 and out["prim_agreement"] > 0.999,
                   f"{name} {label}: {agree[name][label]}")
-        wide = {k: v for k, v in matrix[name].items()
-                if k != "baseline" and "smem" not in k}
-        best = min(wide, key=lambda k: wide[k]["primary"] + wide[k]["bounce"])
-        for block in (64, 128, 256):
-            exp, args, smem = HARNESS[best]
-            out = kexp_run.run(exp, args + [str(block)], z, dev, smem)
-            matrix[name][f"{best}_block{block}"] = {
-                k: out[k + "_ms"] for k in HARNESS_SETS}
-            n_wide += per_exp
         steps[name] = {
             "v2_w4_l16": kexp_run.exp_count(z, 2, dev),
             "v3_w4_l16": kexp_run.exp_count(z, 3, dev),
             "v2_w8_l8": kexp_run.exp_count(z, 2, dev, wide=8, leaf_max=8),
             "v2_w4_l4": kexp_run.exp_count(z, 2, dev, wide=4, leaf_max=4)}
-        n_wide += len(steps[name]) * len(HARNESS_SETS)
+        n_kexp += len(steps[name]) * len(HARNESS_SETS)
+        warp[name] = warp_efficiencies(z, dev)
+        n_new += len(HARNESS_SETS)
+        n_binary += len(HARNESS_SETS)
         print(f"harness {name}: {z['v0'].shape[0]} leaf triangles, "
               f"{z['lo'].shape[0]} binary nodes, prep + load {t_prep:.1f} s, "
-              f"experiments {time.perf_counter() - t0:.1f} s, fastest wide "
-              f"variant on primary + bounce rays: {best}")
+              f"experiments {time.perf_counter() - t0:.1f} s")
     probe = kexp_run.run("smem_probe", [str(kk.SMEM_DOCUMENTED_KB)], {}, dev)
     check(probe == {"kb": kk.SMEM_DOCUMENTED_KB, "ok": True}, f"{probe}")
-    return matrix, steps, agree, (n_wide, n_binary, 1)
+    return matrix, steps, agree, warp, (n_kexp, n_new, n_binary, 1)
 
 
 def main():
@@ -763,6 +964,7 @@ def main():
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
     bk.bvh_traverse.launches = 0
+    bb.bvh_traverse_binary.launches = 0
     t0 = time.perf_counter()
     img = render_mod.render(scene, cam, spp=SPP, integrator="path",
                             max_depth=MAX_DEPTH, chunk_spp=CHUNK,
@@ -771,7 +973,8 @@ def main():
     t_first = time.perf_counter() - t0
     launches = fp.fused_bounce.launches
     check(launches == SPP // CHUNK, f"{launches} kernel launches")
-    check(ik.intersect_brute.launches == 0 and bk.bvh_traverse.launches == 0,
+    check(ik.intersect_brute.launches == 0 and bk.bvh_traverse.launches == 0
+          and bb.bvh_traverse_binary.launches == 0,
           "the main path launched an intersection kernel")
     check(img.shape == (H, W, 3) and img.device.type == "cuda",
           f"image {tuple(img.shape)} on {img.device}")
@@ -868,11 +1071,13 @@ def main():
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
     bk.bvh_traverse.launches = 0
+    bb.bvh_traverse_binary.launches = 0
     for key, sc in (("portal_portal", entry._portal_scene(strategy="portal")),
                     ("sphere_cornell", entry._sphere_cornell())):
         render_loop(key, sc, "path", W, SPP, per_pass[key] * (SPP // CHUNK))
     loop_launches = ik.intersect_brute.launches
-    check(fp.fused_bounce.launches == 0 and bk.bvh_traverse.launches == 0,
+    check(fp.fused_bounce.launches == 0 and bk.bvh_traverse.launches == 0
+          and bb.bvh_traverse_binary.launches == 0,
           "fused or traversal launches on the small scenes' loop path")
     loop_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     # one pass each: direct and whitted end after the first bounce (no
@@ -931,7 +1136,7 @@ def main():
     print(f"peak memory of the generic loop's 64-spp renders "
           f"{loop_peak_mb:.1f} MiB")
 
-    # ---- 9. the BVH traversal kernel vs its twin, and BVH vs brute force
+    # ---- 9. the traversal kernels vs their twins, and BVH vs brute force
     t0 = time.perf_counter()
     hf = entry._heightfield_cornell(dev)
     t_scene = time.perf_counter() - t0
@@ -942,20 +1147,38 @@ def main():
           f"heightfield cornell has {hf.n_tri} triangles")
     check(hf.bvh.built_by == "native-sbvh" == rebuilt.built_by,
           f"the tree was built by {hf.bvh.built_by}, not the native builder")
-    check(torch.equal(rebuilt.pk_nodes, hf.bvh.pk_nodes), "rebuild differs")
+    # bit for bit: an empty slot of a 4-wide record holds −1, a NaN's bits
+    check(torch.equal(rebuilt.nodes.view(torch.int32),
+                      hf.bvh.nodes.view(torch.int32))
+          and torch.equal(rebuilt.tris, hf.bvh.tris), "rebuild differs")
     check(hf.fused_profile is None, "the BVH scene is in the fused profile")
     print(f"heightfield cornell: {hf.n_tri} triangles, {hf.bvh.lo.shape[0]} "
-          f"nodes, {hf.bvh.prim_order.shape[0]} leaf triangles, stack need "
-          f"{hf.bvh.stack_need} of {bk.STACK}; scene build {t_scene:.2f} s, "
-          f"of it tree build + pack {t_tree:.2f} s ({hf.bvh.built_by})")
+          f"binary nodes, {hf.bvh.nodes.shape[0]} 4-wide nodes, "
+          f"{hf.bvh.prim_order.shape[0]} leaf triangles, stack need "
+          f"{hf.bvh.stack_need} of {bk.STACK} (binary walk "
+          f"{bb.binary_layout(hf.bvh, dev)[2]} of {bb.STACK}); scene build "
+          f"{t_scene:.2f} s, of it tree build + pack {t_tree:.2f} s "
+          f"({hf.bvh.built_by})")
     hl = heightfield_scene(dev, 48, split="hlbvh")
     check(hl.bvh.built_by == "numpy-hlbvh" and hl.n_tri == 7498, "hlbvh tree")
     trees = {"soup_600": soup_scene(dev).bvh, "heightfield_cornell": hf.bvh,
              "hlbvh_7498": hl.bvh}
-    before = bk.bvh_traverse.launches
+    before = (bk.bvh_traverse.launches, bb.bvh_traverse_binary.launches)
+    traverse_err = binary_err = 0.0
+    ties = n_cmp = 0
     for name, tree in trees.items():
-        check_traverse(name, tree, dev)
-    check(bk.bvh_traverse.launches == before + 18, "traversal launches")
+        binary_err = max(binary_err, check_binary(name, tree, dev))
+        err, tie, n = check_traverse(name, tree, dev)
+        traverse_err, ties, n_cmp = max(traverse_err, err), ties + tie, \
+            n_cmp + n
+    # per tree and ray set: the binary check 3 launches of the binary
+    # kernel; the 4-wide check 2 × 3 + 1 of the 4-wide kernel, 2 binary
+    check((bk.bvh_traverse.launches, bb.bvh_traverse_binary.launches)
+          == (before[0] + 3 * 3 * 7, before[1] + 3 * 3 * 5),
+          "traversal launches")
+    print(f"4-wide kernel against the binary kernel on {n_cmp} closest-hit "
+          f"rays: t bit-equal, {ties} rays name another triangle (exact "
+          "ties)")
     check_bvh_vs_brute(dev)
     for rname, (o, d, tmax) in ray_sets(dev).items():
         check_brute_under_bvh(hf, rname, o, d, tmax)
@@ -967,21 +1190,26 @@ def main():
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
     bk.bvh_traverse.launches = 0
+    bb.bvh_traverse_binary.launches = 0
+    sort_calls = []
     t0 = time.perf_counter()
-    img = render_mod.render(entry._heightfield_cornell(), entry._camera((W, H)),
-                            spp=SPP, integrator="path", max_depth=MAX_DEPTH,
-                            chunk_spp=CHUNK, device="cuda")
-    torch.cuda.synchronize()
+    with counting_sorts(sort_calls):
+        img = render_mod.render(entry._heightfield_cornell(),
+                                entry._camera((W, H)), spp=SPP,
+                                integrator="path", max_depth=MAX_DEPTH,
+                                chunk_spp=CHUNK, device="cuda")
+        torch.cuda.synchronize()
     t_bvh_first = time.perf_counter() - t0
     bvh_launches = bk.bvh_traverse.launches
     bvh_brute_launches = ik.intersect_brute.launches
     bvh_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     mean_full = float(img.double().mean())
     print(f"BVH slice heightfield_cornell path {W}² × {SPP} spp: mean "
-          f"{mean_full!r}, {bvh_launches} traversal launches, "
-          f"{bvh_brute_launches} brute-force launches, "
-          f"{fp.fused_bounce.launches} fused launches, scene build + render "
-          f"{t_bvh_first:.2f} s, peak memory {bvh_peak_mb:.1f} MiB")
+          f"{mean_full!r}, {bvh_launches} launches of the 4-wide kernel, "
+          f"{bb.bvh_traverse_binary.launches} of the binary kernel, "
+          f"{len(sort_calls)} ray sorts, {bvh_brute_launches} brute-force "
+          f"launches, {fp.fused_bounce.launches} fused launches, scene build "
+          f"+ render {t_bvh_first:.2f} s, peak memory {bvh_peak_mb:.1f} MiB")
     check(img.shape == (H, W, 3) and img.device.type == "cuda",
           f"image {tuple(img.shape)} on {img.device}")
     check(bool(torch.isfinite(img).all()), "non-finite image")
@@ -990,6 +1218,8 @@ def main():
     check(bvh_launches == want and bvh_brute_launches == want,
           f"{bvh_launches} traversal and {bvh_brute_launches} brute-force "
           f"launches, the loop implies {want} each")
+    check(bb.bvh_traverse_binary.launches == 0 and not sort_calls,
+          "the render sorted rays or launched the binary kernel")
     check(fp.fused_bounce.launches == 0, "fused launches on the BVH path")
     key = ("heightfield_cornell", "path", 64, 4)
     img_s = render_mod.render(hf, entry._camera((64, 64)), spp=4,
@@ -1003,12 +1233,16 @@ def main():
           f"{abs(mean_full - mean_s) / mean_s:.3g}")
     check(rel < 1e-3, f"image mean off by rel {rel}")
 
-    # ---- 11. timings of the traversal kernel and the BVH pass
+    # ---- 11. timings of the traversal kernels and the BVH pass
     tree = hf.bvh
     n_m = o_m.shape[0]
     o_b, d_b = kexp_prep.bounce_rays(hf, o_m, d_m)
     d_sh, tmax_sh = kexp_prep.shadow_rays(hf, o_b)
-    tms, tstats, under = {}, {}, {}
+    tms, tstats, bstats, under = {}, {}, {}, {}
+    kernels = {
+        "binary": lambda *a: bb.bvh_traverse_binary(tree, *a),
+        "plain": lambda *a: bk.bvh_traverse(tree, *a, persistent=False),
+        "persistent": lambda *a: bk.bvh_traverse(tree, *a)}
     for rname, (o_r, d_r, tmax_r) in (("camera", (o_m, d_m, inf_m)),
                                       ("bounce", (o_b, d_b, inf_m)),
                                       ("shadow", (o_b, d_sh, tmax_sh))):
@@ -1021,46 +1255,69 @@ def main():
 
         sort_fn()
         tms[f"sort_{rname}"] = sync_ms(sort_fn, 3)
-        for order, (oo, dd, tt) in (("unsorted", (o_r, d_r, tmax_r)),
-                                    ("sorted", (o_s, d_s, tmax_s))):
-            for mode, any_hit in (("closest", False), ("any", True)):
-                def tk_fn():
-                    return bk.bvh_traverse(tree, oo, dd, tt, any_hit)
+        for mode, any_hit in (("closest", False), ("any", True)):
+            # in turns: binary, plain, persistent, persistent, plain, binary
+            for kname in ("binary", "plain", "persistent", "persistent",
+                          "plain", "binary"):
+                def tk_fn(fn=kernels[kname]):
+                    return fn(o_r, d_r, tmax_r, any_hit)
 
                 tk_fn()
-                tms[f"kernel_{mode}_{rname}_{order}"] = sync_ms(tk_fn, 5)
-        # the twin, on every lane for the camera rays (in the ray sort's
-        # order, as the render hands them over) and on every 16th lane for
-        # the bounce and shadow rays; shadow rays as the any-hit query
+                key_ms = f"{kname}_{mode}_{rname}"
+                tms[key_ms] = tms.get(key_ms, 0.0) + sync_ms(tk_fn, 5) / 2
+
+            def sorted_fn():
+                return bb.bvh_traverse_binary(tree, o_s, d_s, tmax_s, any_hit)
+
+            sorted_fn()
+            tms[f"binary_{mode}_{rname}_sorted"] = sync_ms(sorted_fn, 5)
+        # the twins, in the callers' order, on every lane for the camera
+        # rays and on every 16th lane for the bounce and shadow rays;
+        # shadow rays as the any-hit query
         step = 1 if rname == "camera" else 16
         any_hit = rname == "shadow"
-        o_t, d_t, tmax_t = (x[::step].contiguous()
-                            for x in (o_s, d_s, tmax_s))
-        got = bk.bvh_traverse(tree, o_t, d_t, tmax_t, any_hit)
-        torch.cuda.synchronize()
-        stats = {}
-        t0 = time.perf_counter()
-        want = bk._traverse_reference(tree, o_t, d_t, tmax_t, any_hit,
-                                      stats=stats)
-        torch.cuda.synchronize()
         mode = "any" if any_hit else "closest"
-        tms[f"twin_{mode}_{rname}_{o_t.shape[0]}_lanes"] = \
-            1e3 * (time.perf_counter() - t0)
-        check(torch.equal(got[1] >= 0, want[1] >= 0)
-              and (any_hit or (torch.equal(got[1], want[1])
-                               and torch.equal(got[0], want[0]))),
-              f"traversal kernel differs from the twin at {o_t.shape[0]} "
-              f"{rname} rays")
-        tstats[rname] = {k: v * step for k, v in stats.items()}
-        if rname == "camera":
-            traverse_err = float((got[0] - want[0]).abs().max())
-            twin_ms = tms[f"twin_closest_camera_{n_m}_lanes"]
+        o_t, d_t, tmax_t = (x[::step].contiguous()
+                            for x in (o_r, d_r, tmax_r))
+        for kname, kern_fn, twin_fn, st in (
+                ("bvh_traverse", bk.bvh_traverse, bk.traverse_reference,
+                 tstats),
+                ("bvh_binary", bb.bvh_traverse_binary, bb._traverse_reference,
+                 bstats)):
+            got = kern_fn(tree, o_t, d_t, tmax_t, any_hit)
+            torch.cuda.synchronize()
+            stats = {}
+            t0 = time.perf_counter()
+            want_t = twin_fn(tree, o_t, d_t, tmax_t, any_hit, stats=stats)
+            torch.cuda.synchronize()
+            tms[f"twin_{kname}_{mode}_{rname}_{o_t.shape[0]}_lanes"] = \
+                1e3 * (time.perf_counter() - t0)
+            check(torch.equal(got[1] >= 0, want_t[1] >= 0)
+                  and (any_hit or (torch.equal(got[1], want_t[1])
+                                   and torch.equal(got[0], want_t[0]))),
+                  f"{kname} differs from its twin at {o_t.shape[0]} {rname} "
+                  "rays")
+            st[rname] = {k: v * step for k, v in stats.items()}
+            if rname == "camera":
+                err = float((got[0] - want_t[0]).abs().max())
+                if kname == "bvh_traverse":
+                    traverse_err = max(traverse_err, err)
+                else:
+                    binary_err = max(binary_err, err)
         if rname != "shadow":
             # the brute-force kernel as the BVH path calls it on these rays
             under[rname] = check_brute_under_bvh(hf, rname, o_r, d_r, tmax_r,
                                                  reps=5)
+    twin_ms = tms[f"twin_bvh_traverse_closest_camera_{n_m}_lanes"]
+    binary_twin_ms = tms[f"twin_bvh_binary_closest_camera_{n_m}_lanes"]
     under_bound = intersect_bound(hf, n_m, tris=False)
-    tbound = {r: traverse_bound(tree, n_m, st) for r, st in tstats.items()}
+    wide_bytes = 4 * (tree.nodes.numel() + tree.tris.numel())
+    bin_nodes, bin_tris, _ = bb.binary_layout(tree, dev)
+    bin_bytes = 4 * (bin_nodes.numel() + bin_tris.numel())
+    tbound = {r: traverse_bound(wide_bytes, n_m, tstats[r], bstats[r])
+              for r in tstats}
+    bbound = {r: traverse_bound(bin_bytes, n_m, tstats[r], bstats[r])
+              for r in bstats}
     cfg_b = render_mod.RenderConfig(max_depth=MAX_DEPTH)
 
     def bpass_fn():
@@ -1071,27 +1328,69 @@ def main():
         return render_mod.render(hf, cam_d, spp=SPP, max_depth=MAX_DEPTH,
                                  chunk_spp=CHUNK, device=dev)
 
-    bpass_fn()
-    tms["pass_32spp_heightfield_cornell"] = sync_ms(bpass_fn, 3)
-    tms["render_64spp_heightfield_cornell"] = sync_ms(brender_fn, 2)
-    dev_ms, by_kernel = kernel_share_of_pass(bpass_fn)
-    print(f"traversal and BVH-pass times (ms, CUDA events; twin: host clock "
-          f"around one run; {n_m} rays per launch, {tree.lo.shape[0]} nodes): "
+    # the render path as it is against the one before the 4-wide kernel
+    # (the ray sort, then the binary kernel), in turns: old, new, new, old
+    img_new = bpass_fn()
+    with old_bvh_path():
+        img_old = bpass_fn()
+    n_diff = int(((img_new - img_old).abs().amax(-1) > 1e-4).sum())
+    rel_old = abs(float(img_new.mean() - img_old.mean())) / float(
+        img_old.mean())
+    check(rel_old < 1e-4, f"old and new BVH paths differ by rel {rel_old}")
+    for label, reps_p, reps_r in (("old", 3, 2), ("new", 3, 2),
+                                  ("new", 3, 2), ("old", 3, 2)):
+        with old_bvh_path() if label == "old" else contextlib.nullcontext():
+            for key_ms, fn, reps in (
+                    (f"pass_32spp_{label}", bpass_fn, reps_p),
+                    (f"render_64spp_{label}", brender_fn, reps_r)):
+                tms[key_ms] = tms.get(key_ms, 0.0) + sync_ms(fn, reps) / 2
+    # the kernel's device time per launch inside a pass, by torch.profiler:
+    # the grid and the harness's L2 window each way (on a stream of its own
+    # either way), in turns, then the old path
+    frags = ["bvh_traverse_kernel", "bvh_binary_kernel", "intersect_kernel"]
+    in_pass = {}
+    for persistent, window in ((False, False), (False, True),
+                               (True, False), (True, True), (True, True),
+                               (True, False), (False, True), (False, False)):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(kk.l2_window(hf.bvh, window))
+            if not persistent:
+                stack.enter_context(plain_grid())
+            dev_ms, by_kernel = device_ms_by_kernel(bpass_fn, frags)
+        ms_k, n_k = by_kernel["bvh_traverse_kernel"]
+        check(n_k == per_pass_bvh, f"{n_k} traversal launches in a pass")
+        label = (f"{'persistent' if persistent else 'plain'}_"
+                 f"l2_{'on' if window else 'off'}")
+        in_pass.setdefault(label, []).append(
+            {"pass_device_ms": round(dev_ms, 3),
+             "traverse_ms_per_launch": round(ms_k / n_k, 5)})
+    with old_bvh_path():
+        dev_old, by_old = device_ms_by_kernel(bpass_fn, frags)
+    in_pass["old_path"] = {"pass_device_ms": round(dev_old, 3), **{
+        k: [round(v[0], 4), v[1]] for k, v in by_old.items()}}
+    print(f"traversal and BVH-pass times (ms, CUDA events; twins: host clock "
+          f"around one run; {n_m} rays per launch, {tree.nodes.shape[0]} "
+          f"4-wide nodes, {tree.lo.shape[0]} binary nodes): "
           + json.dumps({k: round(v, 4) for k, v in tms.items()}))
-    print("traversal tests per launch (counted by the twin; bounce rays: "
-          "every 16th lane, scaled): " + json.dumps(tstats))
+    print(f"old (ray sort + binary kernel) vs new BVH pass: {n_diff} pixels "
+          f"differ by more than 1e-4, means rel {rel_old:.3g}")
+    print("traversal tests per launch (counted by the twins; bounce and "
+          "shadow rays: every 16th lane, scaled): " + json.dumps(
+              {"bvh_traverse": tstats, "bvh_binary": bstats}))
     print("traversal bounds (ms, by): " + json.dumps(
-        {k: [round(v[0], 5), v[1]] for k, v in tbound.items()}))
+        {"bvh_traverse": {k: [round(v[0], 5), v[1]] for k, v in
+                          tbound.items()},
+         "bvh_binary": {k: [round(v[0], 5), v[1]] for k, v in
+                        bbound.items()}}))
     print(f"intersect kernel under the BVH (0 triangles, {hf.n_sph} sphere, "
           f"{hf.n_pln} aaplane; {n_m} rays per launch; ms, CUDA events): "
           + json.dumps({k: {m: round(v[m], 4) for m in ("ms", "plain_ms")}
                         for k, v in under.items()})
           + f", bound {under_bound[0]:.5f} ms by {under_bound[1]}")
-    print(f"one 32-spp BVH pass under torch.profiler: device time "
-          f"{dev_ms:.3f} ms, of it " + json.dumps(
-              {k: round(v, 4) for k, v in by_kernel.items()}))
-    check(dev_ms > 0.0 and by_kernel["bvh_traverse_kernel"] > 0.0,
-          "the profiler saw no traversal kernel in the pass")
+    print("one 32-spp BVH pass under torch.profiler (device ms; 4-wide "
+          "kernel per launch), by launch choice, in the order run; then the "
+          "old path's device ms and [ms, launches] by kernel: "
+          + json.dumps(in_pass))
 
     # ---- 12. the shared-memory probe
     probe = check_probe(dev)
@@ -1105,6 +1404,7 @@ def main():
     check(kk.traverse.launches == before + 3 * len(WIDE_CONFIGS) * 13,
           "wide-kernel launches")
     lay_full = kexp_run.layout_of(kexp_prep.tree_arrays(tree), dev)
+
     def wide_fn():
         return kk.traverse(lay_full, o_m, d_m, inf_m, any_hit=False,
                            variant=2)
@@ -1132,6 +1432,7 @@ def main():
     fp.fused_bounce.launches = 0
     ik.intersect_brute.launches = 0
     bk.bvh_traverse.launches = 0
+    bb.bvh_traverse_binary.launches = 0
     kk.traverse.launches = 0
     kk.smem_probe.launches = 0
     check(kk.smem_limit_kb(dev) == probe["limit_kb"], "the cached limit")
@@ -1141,14 +1442,16 @@ def main():
     check(soup.n_tri == 100000 and soup.bvh.built_by.startswith("native-"),
           f"the soup: {soup.n_tri} triangles, {soup.bvh.built_by}")
     print(f"triangle soup: {soup.n_tri} triangles, {soup.bvh.lo.shape[0]} "
-          f"nodes, {soup.bvh.prim_order.shape[0]} leaf triangles, stack need "
+          f"binary nodes, {soup.bvh.nodes.shape[0]} 4-wide nodes, "
+          f"{soup.bvh.prim_order.shape[0]} leaf triangles, stack need "
           f"{soup.bvh.stack_need}, {soup.bvh.built_by}, scene build "
           f"{time.perf_counter() - t0:.2f} s")
-    matrix, steps, agree, expected = run_harness(
+    matrix, steps, agree, warp, expected = run_harness(
         {"heightfield": hf, "soup": soup}, W * H * CHUNK, W, dev)
     torch.cuda.synchronize()
-    kexp_launches = kk.traverse.launches
-    probe_launches = kk.smem_probe.launches
+    harness_launches = (kk.traverse.launches, bk.bvh_traverse.launches,
+                        bb.bvh_traverse_binary.launches,
+                        kk.smem_probe.launches)
     harness_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     print(f"harness ms per {W * H * CHUNK}-ray launch (CUDA events; closest "
           "hit, shadow rays any-hit): " + json.dumps(matrix))
@@ -1157,16 +1460,19 @@ def main():
                     for k, v in row.items() if k in HARNESS_SETS}
               for lab, row in rows.items()} for sc, rows in matrix.items()}))
     print("harness steps per ray (count mode): " + json.dumps(steps))
+    print("harness warp efficiency (count mode; steps over 32 × the longest "
+          "walk of each 32 consecutive rays): " + json.dumps(warp))
     print("harness [prim_agreement, max_abs_dt] against the binary twin: "
           + json.dumps(agree))
-    print(f"harness launches: {kexp_launches} of the wide kernel, "
-          f"{bk.bvh_traverse.launches} of the binary kernel, "
-          f"{probe_launches} of the probe; peak memory "
+    print(f"harness launches: {harness_launches[0]} of the kexp kernel, "
+          f"{harness_launches[1]} of the 4-wide kernel, "
+          f"{harness_launches[2]} of the binary kernel, "
+          f"{harness_launches[3]} of the probe; peak memory "
           f"{harness_peak_mb:.1f} MiB; builds "
           f"{ {k: round(v, 1) for k, v in _build.load.build_seconds.items()} }"
           " s")
-    check((kexp_launches, bk.bvh_traverse.launches, probe_launches)
-          == expected, f"harness launches, expected {expected}")
+    check(harness_launches == expected, f"harness launches, expected "
+          f"{expected}")
     check(fp.fused_bounce.launches == 0, "fused launches in the harness")
 
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
@@ -1195,12 +1501,25 @@ def main():
                      "plain_ms": under["bounce"]["plain_ms"],
                      "bound_ms": under_bound[0],
                      "bound_by": under_bound[1]}}, {
+        # the render path's kernel as the render launches it; camera rays
+        # of the heightfield tree in the callers' order (bounce and shadow
+        # rays, the other grid and the L2 window in the lines above)
         "name": "bvh_traverse", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/bvh_traverse.cu",
         "replaces": "pbrt_tpu/ops/bvh_pallas.py:98",
         "launches": bvh_launches, "max_abs_err": traverse_err,
-        "ms": tms["kernel_closest_camera_sorted"], "plain_ms": twin_ms,
-        "bound_ms": tbound["camera"][0], "bound_by": tbound["camera"][1],
+        "ms": tms["persistent_closest_camera"],
+        "plain_ms": twin_ms, "bound_ms": tbound["camera"][0],
+        "bound_by": tbound["camera"][1], "library_ms": None}, {
+        # the render path's kernel before the 4-wide one, now the harness's
+        # yardstick
+        # (its launches: the harness run's); the same camera rays
+        "name": "bvh_binary", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/bvh_binary.cu",
+        "replaces": "pbrt_tpu/ops/bvh_pallas.py:98",
+        "launches": harness_launches[2], "max_abs_err": binary_err,
+        "ms": tms["binary_closest_camera"], "plain_ms": binary_twin_ms,
+        "bound_ms": bbound["camera"][0], "bound_by": bbound["camera"][1],
         "library_ms": None}, {
         # variant 2 on wide 4 / leaf 16, no nodes staged: kernel, twin and
         # bound all on the 2,097,152 camera rays of the heightfield tree
@@ -1209,17 +1528,21 @@ def main():
         "name": "kexp_traverse", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/kexp_traverse.cu",
         "replaces": "tools/kexp_kernels.py:207",
-        "launches": kexp_launches, "max_abs_err": kexp_err,
+        "launches": harness_launches[0], "max_abs_err": kexp_err,
         "ms": kexp_ms, "plain_ms": kexp_twin_ms, "bound_ms": kexp_bound[0],
         "bound_by": kexp_bound[1], "library_ms": None}, {
+        # ms and library_ms: CUDA events around 20 back-to-back calls;
+        # device_ms and library_device_ms: the profiler's kernel time
         "name": "smem_probe", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/smem_probe.cu",
         "replaces": "tools/kexp_run.py:88",
-        "launches": probe_launches, "max_abs_err": probe["err"],
+        "launches": harness_launches[3], "max_abs_err": probe["err"],
         "ms": probe["ms"], "plain_ms": probe["plain_ms"],
         # one (8,128) float32 read and one written
         "bound_ms": bound_ms(2 * 4 * 8 * kk.LANES, 8 * kk.LANES)[0],
-        "bound_by": "bytes", "library_ms": probe["library_ms"]}]}))
+        "bound_by": "bytes", "library_ms": probe["library_ms"],
+        "device_ms": probe["device_ms"],
+        "library_device_ms": probe["library_device_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

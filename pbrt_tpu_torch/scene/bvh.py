@@ -9,14 +9,12 @@ tensors. The BVH covers the triangles only; the handful of spheres and
 aaplanes of a scene stay brute force.
 
 Closest-hit and any-hit queries go through the traversal kernel of
-ops/bvh.py: on a CUDA tensor ``csrc/bvh_traverse.cu`` (one ray per thread
-with its own stack), on a CPU tensor the kernel's twin, pbrt_tpu's
-threaded stackless walk (``_octant_links``, ``_pack_threaded`` and
-``_traverse_batch`` there live beside the kernel's wrapper here, as
-ops/bvh.py's ``_octant_links``, ``_pack_threaded`` and
-``_traverse_reference``). The flat node arrays stay on the host; only what
-a query reads goes to the scene's device: the kernel's packed layout and
-``prim_order`` at build time, the twin's layout when the twin first runs.
+ops/bvh.py in the callers' ray order: on a CUDA tensor
+``csrc/bvh_traverse.cu`` (one ray per thread with its own stack, 4-wide
+nodes over the builder's ≤ 4-triangle leaves), on a CPU tensor the
+kernel's twin, which walks the same records in the same order. The flat
+node arrays stay on the host; only what a query reads goes to the scene's
+device: the 4-wide layout and ``prim_order`` at build time.
 
 Motion blur (tri rows 18 wide) is not ported and raises.
 """
@@ -35,7 +33,6 @@ from pbrt_tpu_torch.ops import intersect as ik
 
 LEAF_MAX = bvh_ops.LEAF_MAX
 N_BUCKETS = 12
-SORT_MIN_RAYS = 4096   # ray batches this large are sorted before traversal
 
 
 @dataclasses.dataclass
@@ -52,27 +49,12 @@ class FlatBVH:
     # on the scene's device
     prim_order: torch.Tensor  # (P,) triangle index per leaf slot; under
     #                           spatial splits P > n_tri (duplicates)
-    pk_nodes: torch.Tensor    # (N,8) float32, the traversal kernel's layout
-    pk_tris: torch.Tensor     # (max(P,1),12) float32 (ops/bvh.py::pack_bvh)
+    # the traversal kernel's layout (ops/bvh.py::pack_wide)
+    nodes: torch.Tensor       # (Nw,32) float32 4-wide node records
+    tris: torch.Tensor        # (max(P,1),12) float32 triangle records
+    cnt_bits: int = 3         # bits of a slot encoding that hold a count
     stack_need: int = 1       # stack entries the per-ray walk needs
     built_by: str = ""        # native-sbvh | native-sah | numpy-<method>
-    _threaded: dict = dataclasses.field(default_factory=dict, repr=False,
-                                        compare=False)
-
-    def threaded(self, device):
-        """The twin's layout on ``device``, packed and uploaded at the first
-        call: ``nodes8`` (8N,10) float32, per direction octant o the row
-        o*N+i = [lo, hi, first_if_hit, next_if_miss_or_done, off, cnt] with
-        the int fields bitcast, and ``tri9`` (P+4,9) [v0|v1|v2] with
-        LEAF_MAX degenerate rows of padding."""
-        key = str(device)
-        if key not in self._threaded:
-            rows = bvh_ops._pack_threaded(*(x.numpy() for x in (
-                self.lo, self.hi, self.right, self.count, self.axis, self.v0,
-                self.v1, self.v2)))
-            self._threaded[key] = tuple(torch.tensor(a, device=device)
-                                        for a in rows)
-        return self._threaded[key]
 
 
 def build_bvh(scene, split_method: str = "sah") -> FlatBVH:
@@ -224,14 +206,13 @@ def _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order, v0, v1, v2,
     """Assemble the FlatBVH from numpy node arrays and the LEAF-ORDERED
     vertices ``v0, v1, v2`` (the BVH build's ``v[order]``; the tree of
     another package carries over through this too): the tree itself as host
-    tensors, the kernel's layout and ``prim_order`` on ``device``."""
+    tensors, the kernel's 4-wide layout and ``prim_order`` on ``device``."""
     lo_a, hi_a = (np.ascontiguousarray(x, np.float32) for x in (lo_a, hi_a))
     right_a, count_a, axis_a = (np.ascontiguousarray(x, np.int32)
                                 for x in (right_a, count_a, axis_a))
     v0, v1, v2 = (np.ascontiguousarray(x, np.float32) for x in (v0, v1, v2))
-    pk_nodes, pk_tris, need = bvh_ops.pack_bvh(lo_a, hi_a, right_a, count_a,
-                                               axis_a, v0, v1, v2)
-
+    nodes, tris, cnt_bits, need = bvh_ops.pack_wide(
+        lo_a, hi_a, right_a, count_a, axis_a, v0, v1, v2)
     def t(a, device="cpu"):
         return torch.tensor(a, device=device)   # a copy: `a` may be read-only
 
@@ -239,7 +220,7 @@ def _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order, v0, v1, v2,
         lo=t(lo_a), hi=t(hi_a), right=t(right_a), count=t(count_a),
         axis=t(axis_a), v0=t(v0), v1=t(v1), v2=t(v2),
         prim_order=t(np.asarray(order, np.int32), device),
-        pk_nodes=t(pk_nodes, device), pk_tris=t(pk_tris, device),
+        nodes=t(nodes, device), tris=t(tris, device), cnt_bits=cnt_bits,
         stack_need=need, built_by=built_by)
 
 
@@ -318,7 +299,9 @@ def _ray_sort_order(o, d):
     """The permutation that sorts rays by direction octant, then by the
     30-bit Morton code of their origin (pbrt_tpu's ``_packet_traverse``
     key), as one stable sort of an int64 key (torch's CPU uint32 has no
-    shifts)."""
+    shifts). The render path does not sort: rays are independent in a
+    per-ray kernel, and on the H100 the sort cost more than it saved
+    (PERF.md). chip_smoke.py times the sorted order with it."""
     neg = (d < 0).to(torch.int64)
     octant = neg[:, 0] * 4 + neg[:, 1] * 2 + neg[:, 2]
     lo = o.amin(dim=0)
@@ -330,34 +313,17 @@ def _ray_sort_order(o, d):
     return torch.sort(key, stable=True).indices
 
 
-def _sorted_traverse(bvh: FlatBVH, o, d, tmax, any_hit: bool):
-    """The traversal kernel behind pbrt_tpu's ray sort
-    (``_packet_traverse``, bvh.py:575-619): batches of ``SORT_MIN_RAYS`` or
-    more are traversed in octant + origin-Morton order and the results put
-    back in the callers' order. Rays are independent in a per-ray kernel,
-    so the sort changes no result, only how coherent a warp's rays are."""
-    if o.shape[0] < SORT_MIN_RAYS:
-        return bvh_ops.bvh_traverse(bvh, o, d, tmax, any_hit)
-    perm = _ray_sort_order(o, d)
-    t_s, i_s = bvh_ops.bvh_traverse(bvh, o[perm], d[perm], tmax[perm],
-                                    any_hit)
-    t = torch.empty_like(t_s)
-    leaf_i = torch.empty_like(i_s)
-    t[perm] = t_s
-    leaf_i[perm] = i_s
-    return t, leaf_i
-
-
 def bvh_intersect_tris(bvh: FlatBVH, o, d, tmax):
-    """Closest triangle hit via BVH. Returns (t, global_tri_idx, hit)."""
-    t, leaf_i = _sorted_traverse(bvh, o, d, tmax, False)
+    """Closest triangle hit via BVH, in the callers' ray order. Returns (t,
+    global_tri_idx, hit)."""
+    t, leaf_i = bvh_ops.bvh_traverse(bvh, o, d, tmax, False)
     hit = leaf_i >= 0
     tri_idx = torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)], -1)
     return t, tri_idx, hit
 
 
 def bvh_intersect_p_tris(bvh: FlatBVH, o, d, tmax):
-    return _sorted_traverse(bvh, o, d, tmax, True)[1] >= 0
+    return bvh_ops.bvh_traverse(bvh, o, d, tmax, True)[1] >= 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,9 @@ to leaves of at most ``leaf_max`` triangles and merges two or three binary
 levels into 4- or 8-wide nodes; ``pack_dual_leaf`` does the same with leaf
 blocks of two sizes. Both return pbrt_tpu's tables (``meta``, ``nbs``,
 ``blocks``), which ``make_layout`` turns into what the CUDA kernel reads.
+The merge into wide nodes (``_wide_nodes``), their breadth-first records
+and the twin's walk are ops/bvh.py's, which builds the render path's
+4-wide layout with them; the harness adds its own leaf formats.
 
 Variants, as in pbrt_tpu's experiment kernel:
 
@@ -31,11 +34,16 @@ tensor runs ``_traverse_wide_reference``, the plain-torch twin that walks
 the same nodes and triangles in the same order with the same arithmetic.
 Nothing falls back from one to the other. ``smem_probe`` launches
 ``csrc/smem_probe.cu``: one block that asks for ``kb`` KB of dynamic shared
-memory, writes both ends of it and returns ``x + x[0, 1]``.
+memory, writes both ends of it and returns ``x + x[0, 1]``; the size the
+kernel may ask for is set only when it differs from the last one granted
+(``_ProbeSizes``). ``l2_window`` is the harness's L2 experiment on the
+render path's kernel (ops/bvh.py::bvh_traverse): an access-policy window
+over its tree on a stream of the experiment's own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -43,7 +51,10 @@ import functools
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.ops.bvh import GSCALE, _collapse_tree
+from pbrt_tpu_torch.ops import bvh as bvh_ops
+from pbrt_tpu_torch.ops.bvh import (GSCALE, NODE_WORDS, STACK, _bfs_records,
+                                    _collapse_tree, _wide_nodes,
+                                    wide_stack_need)
 from pbrt_tpu_torch.ops.intersect import _check
 from pbrt_tpu_torch.scene.types import require_device
 
@@ -51,9 +62,6 @@ LANES = 128            # floats per leaf row
 TRI_F = 10             # floats per triangle in a leaf row: v0 e1 e2 index
 TRIS_PER_LEAF_ROW = 12
 REC_F = 12             # floats per 48-byte triangle record
-STACK = 96             # entries of a thread's stack (kStack)
-BIG = 1e30
-NODE_WORDS = {4: 32, 8: 64}   # a wide node: 7·wide + 1 words, padded
 BLOCKS = (64, 128, 256)       # threads per block the kernel takes
 VARIANTS = (1, 2, 3, 5)
 DUAL_PP = dict(wide=4, leaf_max=16, cnt_bits=5, block_rows=2,
@@ -85,72 +93,14 @@ def _fill_rows(blocks, row, base, tri, v0, e1, e2):
     blocks[row, base + 9] = tri.astype(np.float32)
 
 
-def _wide_nodes(lo, hi, right, count, axis, wide, leaf_target, cnt_bits):
-    """Merge binary levels into ``wide``-wide nodes, numbered in pre-order
-    from the root. A slot's encoding is ``target << cnt_bits | count``: the
-    leaf's block (``leaf_target[node]``) and triangle count, a wide node's
-    id with count 0, or −1 for an empty slot. Returns meta (wide+1, Nw)
-    int32 (the encodings, then the parent's split axis) and nbs (6·wide,
-    Nw) float32 (per slot lo.xyz, hi.xyz)."""
-    right_l, count_l = right.tolist(), count.tolist()
-    levels = {8: 3, 4: 2}[wide]
-    wmeta, wslots = [], []
-
-    def expand(i, depth):
-        if depth == 0 or count_l[i] > 0:
-            return [i]
-        return expand(i + 1, depth - 1) + expand(right_l[i], depth - 1)
-
-    # pre-order numbering with an explicit stack: (binary node, the wide
-    # node and slot that point at it)
-    todo = [(0, -1, -1)]
-    while todo:
-        b, parent, slot = todo.pop()
-        wid = len(wmeta)
-        if parent >= 0:
-            wmeta[parent][slot] = wid << cnt_bits
-        slots = [b] if count_l[b] > 0 else (
-            expand(b + 1, levels - 1) + expand(right_l[b], levels - 1))
-        row = [-1] * wide + [int(axis[b])]
-        inner = []
-        for k, si in enumerate(slots):
-            if count_l[si] > 0:
-                row[k] = int(leaf_target[si]) << cnt_bits | count_l[si]
-            else:
-                inner.append((si, wid, k))
-        wmeta.append(row)
-        wslots.append(slots + [-1] * (wide - len(slots)))
-        todo.extend(reversed(inner))      # the first slot's subtree first
-    top = max(max(r[:wide]) for r in wmeta)
-    if top >= 2 ** 31:
-        raise ValueError(
-            f"a slot encoding ({top}) does not fit 32 bits: {len(wmeta)} "
-            f"wide nodes and the leaf targets shifted by cnt_bits={cnt_bits}")
-    meta = np.asarray(wmeta, np.int32).T.copy()
-    slots = np.asarray(wslots, np.int64)                    # (Nw, wide)
-    used = slots >= 0
-    bounds = np.zeros((len(wmeta), wide, 6), np.float32)
-    bounds[..., 0:3][used] = lo[slots[used]]
-    bounds[..., 3:6][used] = hi[slots[used]]
-    nbs = np.ascontiguousarray(bounds.reshape(len(wmeta), wide * 6).T)
-    return meta, nbs
-
-
-def _collapsed(lo, hi, right, count, axis, leaf_max):
-    return _collapse_tree(
-        np.asarray(lo), np.asarray(hi), np.asarray(right, np.int64),
-        np.asarray(count, np.int64), np.asarray(axis, np.int64),
-        max_leaf=leaf_max)
-
-
 def pack_params(lo, hi, right, count, axis, v0, v1, v2, *, wide=4,
                 leaf_max=16):
     """Parametrized host packer: binary flat tree → (meta (W+1, Nw) int32,
     nbs (6W, Nw) float32, leaf blocks (n_leaf·block_rows, 128) float32,
     pp). A leaf block holds its triangles as 10-float records (v0, e1, e2,
     leaf-ordered index), 12 to a row."""
-    lo, hi, right, count, axis = _collapsed(lo, hi, right, count, axis,
-                                            leaf_max)
+    lo, hi, right, count, axis = _collapse_tree(lo, hi, right, count, axis,
+                                                max_leaf=leaf_max)
     v0, e1, e2 = np.asarray(v0), v1 - v0, v2 - v0
     tris_per_row = LANES // TRI_F
     block_rows = (leaf_max * TRI_F + LANES - 1) // LANES
@@ -173,8 +123,8 @@ def pack_dual_leaf(lo, hi, right, count, axis, v0, v1, v2, *, leaf_max=16):
     ROW, and a leaf of at most 8 triangles takes ONE row (8 records of 10
     floats) while a larger one takes two (12 to a row). Variant 5 reads it;
     its parameters are ``DUAL_PP``."""
-    lo, hi, right, count, axis = _collapsed(lo, hi, right, count, axis,
-                                            leaf_max)
+    lo, hi, right, count, axis = _collapse_tree(lo, hi, right, count, axis,
+                                                max_leaf=leaf_max)
     v0, e1, e2 = np.asarray(v0), v1 - v0, v2 - v0
     leaves, b, k, tri = _leaf_triangles(right, count)
     small = count[leaves] <= 8
@@ -235,23 +185,6 @@ class WideLayout:
         return 4 * (self.nodes.numel() + leaf.numel())
 
 
-def wide_stack_need(meta, wide, cnt_bits) -> int:
-    """Stack entries a walk can need: popping a wide node pushes up to c
-    children (net c − 1), so U[w] = (c − 1) + max over children of U, 1
-    for a leaf. Wide nodes are numbered parents first, so a reverse sweep
-    sees children first (pbrt_tpu's ops/bvh_pallas.py::pack_bvh)."""
-    enc = meta[:wide].T.astype(np.int64)
-    mask = (1 << cnt_bits) - 1
-    umax = np.ones(enc.shape[0], np.int64)
-    for wid in range(enc.shape[0] - 1, -1, -1):
-        e = enc[wid][enc[wid] >= 0]
-        if e.size:
-            leaf = (e & mask) > 0
-            child = np.where(leaf, 1, umax[np.where(leaf, 0, e >> cnt_bits)])
-            umax[wid] = (e.size - 1) + child.max()
-    return int(umax[0])
-
-
 def make_layout(meta, nbs, blocks, pp, *, dual=False, device="cpu"):
     """Turn the packers' tables into the kernel's layout on ``device``.
     Raises when the tree needs more stack than the kernel has."""
@@ -260,30 +193,9 @@ def make_layout(meta, nbs, blocks, pp, *, dual=False, device="cpu"):
     if need > STACK:
         raise ValueError(
             f"the {wide}-wide tree needs a traversal stack of {need} entries "
-            f"(> STACK={STACK}); raise tools.kexp_kernels.STACK and kStack "
-            "in csrc/kexp_traverse.cu for this scene")
-    nw = meta.shape[1]
-    mask = (1 << cnt_bits) - 1
-    enc = meta[:wide].T.astype(np.int64)                    # (Nw, wide)
-    inner = (enc >= 0) & ((enc & mask) == 0)
-    # breadth-first order of the wide nodes, level by level
-    order, front = [np.zeros(1, np.int64)], np.zeros(1, np.int64)
-    while front.size:
-        front = (enc[front] >> cnt_bits)[inner[front]]
-        order.append(front)
-    order = np.concatenate(order)
-    if order.size != nw:
-        raise ValueError(f"{order.size} of {nw} wide nodes reachable")
-    new_id = np.empty(nw, np.int64)
-    new_id[order] = np.arange(nw)
-    enc = np.where(inner, new_id[np.where(inner, enc >> cnt_bits, 0)]
-                   << cnt_bits, enc)
-    nodes = np.zeros((nw, NODE_WORDS[wide]), np.float32)
-    nodes[:, :6 * wide] = (nbs.T.reshape(nw, wide, 6).transpose(0, 2, 1)
-                           .reshape(nw, 6 * wide))
-    nodes[:, 6 * wide:7 * wide] = enc.astype(np.int32).view(np.float32)
-    nodes[:, 7 * wide] = meta[wide].astype(np.int32).view(np.float32)
-    nodes = nodes[order]
+            f"(> STACK={STACK}); raise ops.bvh.STACK and kStack in "
+            "csrc/kexp_traverse.cu for this scene")
+    nodes = _bfs_records(meta, nbs, wide, cnt_bits)
 
     recs = None
     if not dual:
@@ -349,116 +261,19 @@ def _leaf_fields(layout, base, target, cnt):
 
 def _traverse_wide_reference(layout, o, d, tmax, *, any_hit, variant,
                              stats=None):
-    """What the kernel computes, in plain torch over all rays at once: one
-    stack per ray, held as an (R, STACK) tensor; every pass of the loop
-    pops one entry of every ray still walking and runs the wide-node step
-    on those that popped a node and the leaf step on those that popped a
-    leaf, with the kernel's node order, push order, triangle order (strict
-    ``t < best_t``) and arithmetic, so kernel and twin agree bit for bit.
+    """What the kernel computes: ops/bvh.py's wide twin on ``layout``'s
+    nodes, with the leaves read as variant ``variant`` reads them and its
+    pruning (variant 3, not in any-hit mode) and count mode (variant ≥ 10).
     Returns t (R,) float32 and idx (R,) int32: the leaf-ordered triangle
     index, or in count mode ``n_int·65536 + n_leaf``. ``stats``, if a dict,
     receives the counts of slab tests (non-empty slots), triangle tests and
     steps."""
     base, count_mode = _split_variant(layout, variant)
-    prune = base == 3 and not any_hit
-    W, dev, R = layout.wide, o.device, o.shape[0]
-    half, mask, cb = W // 2, (1 << layout.cnt_bits) - 1, layout.cnt_bits
-    inv_d = 1.0 / torch.where(d.abs() > 1e-12, d, 1e-12)
-    best_t = torch.clamp_max(tmax, BIG).clone()
-    best_i = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
-    tn_stack = torch.zeros((R, STACK), device=dev) if prune else None
-    sp = torch.ones(R, dtype=torch.int64, device=dev)    # the root is pushed
-    n_int = torch.zeros(R, dtype=torch.int64, device=dev)
-    n_leaf = torch.zeros(R, dtype=torch.int64, device=dev)
-    jj = torch.arange(W, device=dev)
-    n_slab = n_tri = 0
-    walking = torch.arange(R, device=dev)
-    while walking.numel():
-        top = sp[walking] - 1
-        e = stack[walking, top].long()
-        sp[walking] = top
-        cnt, target = e & mask, e >> cb
-        live = (tn_stack[walking, top] < best_t[walking]) if prune else \
-            torch.ones_like(cnt, dtype=torch.bool)
-        is_leaf = cnt > 0
-
-        sel = is_leaf & live                      # ---- the leaf step
-        li, lt, lc = walking[sel], target[sel], cnt[sel]
-        if li.numel():
-            f, tri_i = _leaf_fields(layout, base, lt, lc)
-            ox, oy, oz = (o[li, k:k + 1] for k in range(3))
-            dx, dy, dz = (d[li, k:k + 1] for k in range(3))
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f.unbind(-1)
-            # Möller–Trumbore in the kernel's operation order (ray_tri.cuh)
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            okd = det.abs() > 1e-12
-            inv_det = torch.where(okd, 1.0 / det, 0.0)
-            rx = ox - v0x
-            ry = oy - v0y
-            rz = oz - v0z
-            u = (rx * px + ry * py + rz * pz) * inv_det
-            qx = ry * e1z - rz * e1y
-            qy = rz * e1x - rx * e1z
-            qz = rx * e1y - ry * e1x
-            v = (dx * qx + dy * qy + dz * qz) * inv_det
-            tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            kk = torch.arange(f.shape[1], device=dev)
-            ok = (okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                  & (tt > 1e-4) & (kk < lc[:, None]))
-            bt, bi = best_t[li], best_i[li]
-            for k in range(f.shape[1]):
-                hit = ok[:, k] & (tt[:, k] < bt)
-                bt = torch.where(hit, tt[:, k], bt)
-                bi = torch.where(hit, tri_i[:, k], bi)
-            best_t[li], best_i[li] = bt, bi
-            n_leaf[li] += 1
-            n_tri += int(lc.sum())
-
-        sel = ~is_leaf & live                     # ---- the wide-node step
-        wi = walking[sel]
-        if wi.numel():
-            rec = layout.nodes[target[sel]]
-            lo = rec[:, :3 * W].reshape(-1, 3, W)
-            hi = rec[:, 3 * W:6 * W].reshape(-1, 3, W)
-            enc = rec[:, 6 * W:7 * W].contiguous().view(torch.int32)
-            axis = rec[:, 7 * W:7 * W + 1].contiguous().view(torch.int32)
-            t0 = (lo - o[wi][:, :, None]) * inv_d[wi][:, :, None]
-            t1 = (hi - o[wi][:, :, None]) * inv_d[wi][:, :, None]
-            tn = torch.minimum(t0, t1).amax(dim=1)
-            tf = torch.maximum(t0, t1).amin(dim=1) * GSCALE
-            enter = ((tn <= tf) & (tf > 0.0) & (tn < best_t[wi][:, None])
-                     & (enc >= 0))
-            # push order: slots 0..W-1 when the ray runs down the parent's
-            # split axis, else the far half first; the last pushed is the
-            # first popped
-            sneg = torch.gather(d[wi], 1, axis.long()) < 0.0
-            slot = torch.where(sneg, jj, (jj + half) % W)
-            vk = torch.gather(enter, 1, slot)
-            at = sp[wi][:, None] + torch.cumsum(vk, 1) - vk.long()
-            rows = wi[:, None].expand(-1, W)[vk]
-            stack[rows, at[vk]] = torch.gather(enc, 1, slot)[vk]
-            if prune:
-                tn_stack[rows, at[vk]] = torch.gather(tn, 1, slot)[vk]
-            sp[wi] += vk.sum(1)
-            n_int[wi] += 1
-            n_slab += int((enc >= 0).sum())
-
-        keep = sp[walking] > 0
-        if any_hit:
-            keep &= best_i[walking] < 0
-        walking = walking[keep]
-    if stats is not None:
-        for key, val in (("slab_tests", n_slab), ("tri_tests", n_tri),
-                         ("int_steps", int(n_int.sum())),
-                         ("leaf_steps", int(n_leaf.sum()))):
-            stats[key] = stats.get(key, 0) + val
-    if count_mode:
-        return best_t, (n_int * 65536 + n_leaf).to(torch.int32)
-    return best_t, best_i
+    return bvh_ops._traverse_wide_reference(
+        layout.nodes, layout.cnt_bits,
+        functools.partial(_leaf_fields, layout, base), o, d, tmax,
+        any_hit=any_hit, prune=base == 3 and not any_hit,
+        count_mode=count_mode, stats=stats)
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +356,60 @@ traverse.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the L2 experiment on the render path's kernel
+# ---------------------------------------------------------------------------
+
+def _l2_lib():
+    from pbrt_tpu_torch.ops import _build
+
+    fn = _build.load("bvh_traverse").bvh_l2_window
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@contextlib.contextmanager
+def l2_window(bvh, on: bool):
+    """Inside the block ``bvh``'s node and triangle records (a
+    scene/bvh.py::FlatBVH's) are a copy in one buffer, and the work runs on
+    a stream of its own. With ``on`` that stream carries an L2
+    access-policy window over the buffer, with a persisting carve-out
+    (csrc/bvh_traverse.cu::bvh_l2_window), so every launch there keeps the
+    tree in L2 however much the eager torch around it reads; without, the
+    same stream and copy carry none, so the two differ only by the window.
+    On leaving, the window is cleared, the carve-out released and the
+    tree's own tables put back. A tree on the CPU changes nothing (the twin
+    runs there). Raises with CUDA's error code when the card refuses."""
+    if bvh.nodes.device.type != "cuda":
+        yield
+        return
+    dev, nodes, tris = bvh.nodes.device, bvh.nodes, bvh.tris
+    buf = torch.cat([nodes.reshape(-1), tris.reshape(-1)])
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    bvh.nodes = buf[:nodes.numel()].view(nodes.shape)
+    bvh.tris = buf[nodes.numel():].view(tris.shape)
+    try:
+        if on:
+            with torch.cuda.device(dev):
+                err = _l2_lib()(buf.data_ptr(), 4 * buf.numel(),
+                                stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bvh_l2_window: CUDA error {err}")
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        stream.synchronize()
+        bvh.nodes, bvh.tris = nodes, tris
+        if on:
+            with torch.cuda.device(dev):
+                err = _l2_lib()(None, 0, stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bvh_l2_window (clear): CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
 # the shared-memory probe
 # ---------------------------------------------------------------------------
 
@@ -557,25 +426,58 @@ def _probe_lib():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.smem_probe_launch.argtypes = [vp, vp, i32, vp]
         lib.smem_probe_launch.restype = i32
+        lib.smem_probe_set_size.argtypes = [i32]
+        lib.smem_probe_set_size.restype = i32
         lib.smem_probe_error_string.argtypes = [i32]
         lib.smem_probe_error_string.restype = ctypes.c_char_p
     return lib
 
 
+class _ProbeSizes:
+    """The dynamic shared memory the probe kernel may ask for, as last
+    granted on each device (cudaFuncAttributeMaxDynamicSharedMemorySize is
+    a per-device attribute of the kernel, so it lives as long as the
+    process). ``sets`` counts the attribute calls made."""
+
+    def __init__(self):
+        self.granted_kb = {}
+        self.sets = 0
+
+    def ensure(self, set_size, device_index: int, kb: int) -> int:
+        """Make ``kb`` KB the size granted on ``device_index``, calling
+        ``set_size(kb)`` (the CUDA error code, 0 = granted) only when it
+        differs from the last size granted there. A refused size leaves
+        the last granted one in place. Returns the error code."""
+        if self.granted_kb.get(device_index) == kb:
+            return 0
+        self.sets += 1
+        err = set_size(kb)
+        if err == 0:
+            self.granted_kb[device_index] = kb
+        return err
+
+
+_probe_sizes = _ProbeSizes()
+
+
 def _probe_launch(x, kb: int):
     """Launch the probe with ``kb`` KB of dynamic shared memory on x's
     card. Returns (CUDA error code of the attribute call or the launch,
-    CUDA's string for it, out)."""
+    CUDA's string for a failure or "" on success, out)."""
     _check("x", x, torch.float32, (8, LANES), x.device)
     out = torch.empty_like(x)
     lib = _probe_lib()
     with torch.cuda.device(x.device):
-        err = lib.smem_probe_launch(
-            x.data_ptr(), out.data_ptr(), int(kb),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err == 0:
-        smem_probe.launches += 1
-    return err, lib.smem_probe_error_string(err).decode(), out
+        err = _probe_sizes.ensure(lib.smem_probe_set_size, x.device.index,
+                                  int(kb))
+        if err == 0:
+            err = lib.smem_probe_launch(
+                x.data_ptr(), out.data_ptr(), int(kb),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        return err, lib.smem_probe_error_string(err).decode(), out
+    smem_probe.launches += 1
+    return 0, "", out
 
 
 def smem_probe(kb, device="cuda", x=None):

@@ -12,8 +12,9 @@ place. It holds the binary flat tree (``lo hi right count axis v0 v1 v2``,
 for the packers, and ``prim_order``, the triangle behind each leaf-ordered
 slot: the BVH build's spatial splits put one triangle into several leaves),
 the ray sets and, for 16,384 mixed rays, the hits of the binary traversal
-twin ``ops/bvh.py::_traverse_reference`` (``o_mix d_mix t_x i_x``). Ray
-sets, ``--rays`` rays each (default 2,097,152, one 32-spp pass at 256²):
+twin ``ops/bvh_binary.py::_traverse_reference`` (``o_mix d_mix t_x i_x``).
+Ray sets, ``--rays`` rays each (default 2,097,152, one 32-spp pass at
+256²):
 
   o_p d_p      primary rays of the camera, as a render pass issues them;
   o_r d_r      random rays from triangle vertices plus N(0, 0.5²), in
@@ -37,7 +38,7 @@ import torch
 
 from pbrt_tpu_torch import entry
 from pbrt_tpu_torch.integrators import render as render_mod
-from pbrt_tpu_torch.ops import bvh as bvh_ops
+from pbrt_tpu_torch.ops import bvh_binary
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
@@ -157,7 +158,7 @@ def prep(scene=None, *, n_rays=2_097_152, res=256, device="cuda", out=None):
     pick = np.arange(half) * (n_rays // half)
     z["o_mix"] = np.concatenate([z["o_p"][pick], o_r[:half]])
     z["d_mix"] = np.concatenate([z["d_p"][pick], d_r[:half]])
-    t_x, i_x = bvh_ops._traverse_reference(
+    t_x, i_x = bvh_binary._traverse_reference(
         bvh, torch.as_tensor(z["o_mix"], device=device),
         torch.as_tensor(z["d_mix"], device=device),
         torch.full((2 * half,), 1e30, device=device), False)

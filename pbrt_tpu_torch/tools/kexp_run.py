@@ -7,7 +7,14 @@ Usage:
 
 Experiments (each prints one JSON line):
   baseline                  the production kernel ops/bvh.py::bvh_traverse
-                            on the binary tree
+                            (4-wide nodes over the builder's leaves) as the
+                            render path launches it
+  grid <plain|persistent>   the same with one thread per ray, or with the
+                            persistent grid whose warps fetch 32 rays at a time
+  l2 <on|off>               the same on a stream of its own with or without
+                            an L2 access-policy window over the tree
+  binary                    the binary kernel ops/bvh_binary.py, the render
+                            path's kernel before the 4-wide one
   smem_probe <KB>           ask one block for that much dynamic shared memory
   variant <v> [block]       variant 1, 2 or 3 of the wide-BVH kernel on the
                             default packing (wide 4, leaves of up to 16)
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.ops import bvh as bvh_ops
+from pbrt_tpu_torch.ops import bvh_binary
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene.types import require_device
 from pbrt_tpu_torch.tools import kexp_kernels as kk
@@ -148,12 +156,37 @@ def _check_and_time(z, query, device, out):
     return out
 
 
-def exp_baseline(z, device):
+def exp_baseline(z, device, persistent=True, l2=None):
+    """The production kernel on the render path's persistent grid, or with
+    ``persistent=False`` on one thread per ray; with ``l2`` True / False
+    inside ``kexp_kernels.l2_window`` with / without the window."""
+    tree = tree_of(z, device)
+    out = {"nodes": int(tree.lo.shape[0]),
+           "wide_nodes": int(tree.nodes.shape[0]),
+           "stack_need": tree.stack_need, "persistent": persistent}
+
+    def query(o, d, tmax, any_hit):
+        return bvh_ops.bvh_traverse(tree, o, d, tmax, any_hit,
+                                    persistent=persistent)
+
+    if l2 is None:
+        return _check_and_time(z, query, device, out)
+    with kk.l2_window(tree, l2):
+        return _check_and_time(z, query, device, dict(out, l2_window=l2))
+
+
+def exp_binary(z, device):
     tree = tree_of(z, device)
     return _check_and_time(
-        z, lambda o, d, tmax, any_hit: bvh_ops.bvh_traverse(
+        z, lambda o, d, tmax, any_hit: bvh_binary.bvh_traverse_binary(
             tree, o, d, tmax, any_hit), device,
         {"nodes": int(tree.lo.shape[0])})
+
+
+def _choice(args, names):
+    if len(args) != 1 or args[0] not in names:
+        raise SystemExit(f"want one of {names}, got {args}")
+    return args[0] == names[1]
 
 
 def _exp_wide(z, layout, variant, block, smem_nodes, device, out):
@@ -187,6 +220,20 @@ def exp_pack(z, wide, leaf_max, block=128, device="cuda", smem_nodes=0):
                       int(layout.rows.shape[0] // layout.block_rows)})
 
 
+def warp_efficiency(code):
+    """From the step codes of a count-mode launch (``steps·65536 + leaf
+    steps``, a step being one pop of a ray's stack: wide node or leaf for
+    the 4-wide kernels, node for the binary one): the steps of all rays
+    over 32 times the sum, over each group of 32 consecutive rays (a warp
+    of the one-ray-per-thread grid), of the group's longest walk. 1.0 when
+    every ray of a warp takes as many steps as its longest."""
+    code = code.long()
+    steps = (code >> 16) + (code & 0xFFFF)
+    n = steps.numel() // 32 * 32
+    longest = steps[:n].reshape(-1, 32).amax(dim=1)
+    return float(steps[:n].sum()) / float(32 * longest.sum())
+
+
 def exp_count(z, variant, device="cuda", wide=4, leaf_max=16):
     """Wide-node and leaf steps per ray (the variant + 10 kernel). A thread
     walks one ray, so a "packet" is a ray here."""
@@ -216,6 +263,13 @@ def run(exp, args, z, device, smem_nodes=0):
 
     if exp == "baseline":
         return exp_baseline(z, device)
+    if exp == "grid":
+        return exp_baseline(z, device, persistent=_choice(
+            args, ("plain", "persistent")))
+    if exp == "l2":
+        return exp_baseline(z, device, l2=_choice(args, ("off", "on")))
+    if exp == "binary":
+        return exp_binary(z, device)
     if exp == "smem_probe":
         return kk.smem_probe(int(args[0]), device)
     if exp == "variant":

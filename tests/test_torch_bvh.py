@@ -7,22 +7,25 @@ The same triangles and rays (numpy, seeded) go through
   tests/test_bvh_pallas.py runs it (``bvh_pallas._impl(..., interpret=
   True)``), on pbrt_tpu's own tree;
 - pbrt_tpu's threaded XLA traversal ``scene/bvh.py::_traverse_batch``;
-- the port's ``ops/bvh.py::bvh_traverse`` (on CPU tensors: the twin
-  ``_traverse_reference``) on the same tree, carried across by the bridge.
+- the port's ``ops/bvh.py::bvh_traverse`` (on CPU tensors: the twin of the
+  4-wide kernel, ``traverse_reference``) and the binary kernel's twin
+  ``ops/bvh_binary.py::_traverse_reference`` on the same tree, carried
+  across by the bridge.
 
 Tolerances. Hit masks equal on every ray. ``t`` of the hit rays agrees
 with both JAX traversals to rtol 1e-5 (found: up to 4.9e-6 on half of the
-hits). The twin's ``t`` is bit-equal to the Möller–Trumbore formula
+hits). The twins' ``t`` is bit-equal to the Möller–Trumbore formula
 evaluated operation by operation in float32 with numpy, which a test below
-asserts; XLA's CPU code contracts multiply-adds inside the fused triangle
-test, so its last bits differ, and the two JAX traversals differ from each
-other the same way (3.6e-7). The leaf-ordered triangle indices are equal
-except at genuine ``t`` ties, the rule of tests/test_bvh_pallas.py:39-45
-(the packet kernel walks a 4-wide tree with collapsed leaves, so two
-coincident-depth surfaces can be met in another order; one ray in 3,000
-here); against the threaded XLA traversal, which visits the same tree in
-the same order, they are equal on every ray. Builder outputs and both
-traversal layouts are compared exactly.
+asserts, and the two twins' ``t`` are bit-equal to each other; XLA's CPU
+code contracts multiply-adds inside the fused triangle test, so its last
+bits differ, and the two JAX traversals differ from each other the same
+way (3.6e-7). The leaf-ordered triangle indices are equal except at
+genuine ``t`` ties, the rule of tests/test_bvh_pallas.py:39-45 (the packet
+kernel walks a 4-wide tree with collapsed leaves and the wide twin another
+4-wide tree, so two coincident-depth surfaces can be met in another order;
+one ray in 3,000 here); between the binary twin and the threaded XLA
+traversal, which visit the same tree in the same order, they are equal on
+every ray. Builder outputs and all traversal layouts are compared exactly.
 The whole pass is held per pixel to rtol 1e-4 / atol 1e-5 with the seam
 allowance of tests/test_fused_path.py:258-261.
 """
@@ -46,6 +49,7 @@ from pbrt_tpu.scene import film as jfilm
 from pbrt_tpu_torch import bridge, entry
 from pbrt_tpu_torch.integrators import render as trender
 from pbrt_tpu_torch.ops import bvh as bvh_ops
+from pbrt_tpu_torch.ops import bvh_binary
 from pbrt_tpu_torch.ops import fused_path
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as tbvh
@@ -97,7 +101,8 @@ def _assert_same_tree(got, want):
     """The port's tree and the twin's layout of it (made on first use)
     against pbrt_tpu's arrays, exactly."""
     have = {k: getattr(got, k).numpy() for k in TREE_FIELDS}
-    have["nodes8"], have["tri9"] = (x.numpy() for x in got.threaded("cpu"))
+    have["nodes8"], have["tri9"] = (
+        x.numpy() for x in bvh_binary.threaded_layout(got, "cpu"))
     for key, arr in have.items():
         ref = np.asarray(getattr(want, key))
         assert arr.dtype == ref.dtype and arr.shape == ref.shape, key
@@ -117,7 +122,7 @@ def test_build_bvh_equals_jax(soup, method):
         assert got.prim_order.shape[0] >= js.n_tri
     right, count, axis = (np.asarray(getattr(want, k))
                           for k in ("right", "count", "axis"))
-    for have, ref in zip(bvh_ops._octant_links(right, count, axis),
+    for have, ref in zip(bvh_binary._octant_links(right, count, axis),
                          jbvh._octant_links(right, count, axis)):
         np.testing.assert_array_equal(have, ref)
 
@@ -158,10 +163,12 @@ def test_native_builder_falls_back_only_without_a_compiler(soup, monkeypatch):
 
 
 def test_pack_bvh_layout_and_stack_need(soup):
-    """The kernel's layout holds the tree's own numbers, and the stack
-    need is the tree's depth in nodes (held against a recursive walk)."""
+    """The binary kernel's layout holds the tree's own numbers, and the
+    stack need is the tree's depth in nodes (held against a recursive
+    walk)."""
     tb = soup[2]
-    nodes, tris = tb.pk_nodes.numpy(), tb.pk_tris.numpy()
+    nodes, tris, need = (x.numpy() if torch.is_tensor(x) else x
+                         for x in bvh_binary.binary_layout(tb, "cpu"))
     assert nodes.shape == (tb.lo.shape[0], 8) and tris.shape[1] == 12
     np.testing.assert_array_equal(nodes[:, 0:3], tb.lo.numpy())
     np.testing.assert_array_equal(nodes[:, 3:6], tb.hi.numpy())
@@ -177,8 +184,102 @@ def test_pack_bvh_layout_and_stack_need(soup):
     def depth(i):
         return 1 if count[i] > 0 else 1 + max(depth(i + 1), depth(right[i]))
 
-    assert tb.stack_need == depth(0) == bvh_ops.stack_need(right, count)
-    assert 4 < tb.stack_need <= bvh_ops.STACK
+    assert need == depth(0) == bvh_binary.stack_need(right, count)
+    assert 4 < need <= bvh_binary.STACK
+
+
+def _wide_walk(tb):
+    """The 4-wide records of ``tb`` walked from the root, each slot held
+    against the binary node it stands for (two binary levels below the
+    parent's node, or fewer where a leaf ends the path); returns the wide
+    nodes reached and the stack need of a recursive walk."""
+    nodes = tb.nodes.numpy()
+    lo, hi = tb.lo.numpy(), tb.hi.numpy()
+    right, count, axis = (getattr(tb, k).numpy() for k in
+                          ("right", "count", "axis"))
+    enc = nodes[:, 24:28].copy().view(np.int32)
+    cb, seen = tb.cnt_bits, []
+
+    def grand(b):
+        if count[b] > 0:
+            return [b]
+        kids = [b + 1, int(right[b])]
+        return sum(([k] if count[k] > 0 else [k + 1, int(right[k])]
+                    for k in kids), [])
+
+    def need(w, b):
+        seen.append(w)
+        slots = grand(b)
+        assert nodes[w, 28].view(np.int32) == axis[b]
+        deeper = []
+        for k in range(4):
+            if k >= len(slots):
+                assert enc[w, k] == -1
+                continue
+            si = slots[k]
+            np.testing.assert_array_equal(nodes[w, [k, 4 + k, 8 + k]], lo[si])
+            np.testing.assert_array_equal(nodes[w, [12 + k, 16 + k, 20 + k]],
+                                          hi[si])
+            if count[si] > 0:
+                assert enc[w, k] == (right[si] << cb | count[si])
+                deeper.append(1)
+            else:
+                assert enc[w, k] & ((1 << cb) - 1) == 0
+                deeper.append(need(enc[w, k] >> cb, si))
+        return len(deeper) - 1 + max(deeper)
+
+    return seen, need(0, 0)
+
+
+def test_binary_layouts_are_packed_once_per_tree(soup):
+    """The binary kernel's and its twin's layouts are packed when first
+    asked for and kept for that tree and device, also across the copy of
+    the scene that a render makes (``to_device`` onto the device the tree
+    is on), and dropped with the tree; the render path's tree carries
+    neither."""
+    import gc
+
+    from pbrt_tpu_torch.scene.types import to_device
+
+    tb = soup[2]
+    assert not any(f.name.startswith("_")
+                   for f in dataclasses.fields(tbvh.FlatBVH))
+    first = bvh_binary.binary_layout(tb, "cpu")
+    assert bvh_binary.binary_layout(to_device(tb, "cpu"), "cpu") is first
+    assert bvh_binary.threaded_layout(tb, "cpu") is \
+        bvh_binary.threaded_layout(to_device(tb, "cpu"), "cpu")
+    other_tree = dataclasses.replace(tb, nodes=tb.nodes.clone())
+    other = bvh_binary.binary_layout(other_tree, "cpu")
+    assert other is not first and other[2] == first[2]
+    assert torch.equal(other[0], first[0]) and torch.equal(other[1], first[1])
+    key = (id(other_tree.nodes), "binary", "cpu")
+    assert key in bvh_binary._LAYOUTS
+    del other_tree, other
+    gc.collect()
+    assert key not in bvh_binary._LAYOUTS
+
+
+def test_pack_wide_records_and_stack_need(soup):
+    """The 4-wide layout (one 128-byte record a node, breadth-first) holds
+    the binary tree's own bounds, leaves and axes, every node is reached
+    once, the triangle records are the leaf-ordered triangles, and the
+    stack need is what a recursive walk needs."""
+    tb = soup[2]
+    assert tb.nodes.shape[1] == 32 and tb.tris.shape == (tb.v0.shape[0], 12)
+    assert tb.cnt_bits == 3 and int(tb.count.max()) <= bvh_ops.LEAF_MAX
+    seen, need = _wide_walk(tb)
+    assert sorted(seen) == list(range(tb.nodes.shape[0]))
+    # breadth-first: the children of a node come after it, in order
+    enc = tb.nodes.numpy()[:, 24:28].copy().view(np.int32)
+    inner = (enc >= 0) & ((enc & ((1 << tb.cnt_bits) - 1)) == 0)
+    kids = (enc >> tb.cnt_bits)[inner]
+    np.testing.assert_array_equal(kids, np.arange(1, tb.nodes.shape[0]))
+    assert tb.stack_need == need
+    assert 4 < need <= bvh_ops.STACK
+    tris = tb.tris.numpy()
+    np.testing.assert_array_equal(tris[:, 0:3], tb.v0.numpy())
+    np.testing.assert_array_equal(tris[:, 3:6], (tb.v1 - tb.v0).numpy())
+    np.testing.assert_array_equal(tris[:, 6:9], (tb.v2 - tb.v0).numpy())
 
 
 # -- (b) the twin against the interpret-mode Pallas kernel -------------------
@@ -240,7 +341,7 @@ def test_twin_matches_threaded_traversal(soup):
     _, jb, tb = soup
     o, d, tmax = _soup_rays(3000, seed=5)
     stats = {}
-    t, i = bvh_ops._traverse_reference(tb, torch.as_tensor(o),
+    t, i = bvh_binary._traverse_reference(tb, torch.as_tensor(o),
                                        torch.as_tensor(d),
                                        torch.as_tensor(tmax), False,
                                        stats=stats)
@@ -251,6 +352,48 @@ def test_twin_matches_threaded_traversal(soup):
     # the same tree, the same visit order: indices equal, ties included
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_x))
     assert hit.any() and stats["slab_tests"] > stats["tri_tests"] > 3000
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("finite_tmax", [False, True],
+                         ids=["tmax_inf", "tmax_finite"])
+def test_wide_twin_matches_binary_twin_and_pallas(soup, any_hit, finite_tmax):
+    """The 4-wide kernel's twin (the CPU side of ``bvh_traverse``) on the
+    production layout against the binary kernel's twin on the same tree:
+    ``t`` bit-equal, the triangle equal through ``prim_order`` but for
+    exact ties in ``t``, equal hit masks; and against pbrt_tpu's packet
+    kernel in interpret mode (the 777-ray programs of
+    ``test_twin_matches_pallas_kernel``) within its tolerance. Count mode
+    returns each ray's steps, and they add up to the walk's counts."""
+    _, jb, tb = soup
+    o, d, tmax = _soup_rays(777, tmax=(0.5, 6.0) if finite_tmax else None)
+    stats = {}
+    t, i = (x.numpy() for x in bvh_ops.traverse_reference(
+        tb, *(torch.as_tensor(x) for x in (o, d, tmax)), any_hit,
+        stats=stats))
+    t_b, i_b = (x.numpy() for x in bvh_binary._traverse_reference(
+        tb, *(torch.as_tensor(x) for x in (o, d, tmax)), any_hit))
+    hit = i >= 0
+    np.testing.assert_array_equal(hit, i_b >= 0)
+    assert 0.02 < hit.mean() < 0.95
+    t_pk, i_pk = (np.asarray(x) for x in bp._impl(
+        jb.pk_meta, jb.pk_nb, jb.pk_tri, jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmax), any_hit=any_hit, interpret=True))
+    np.testing.assert_array_equal(hit, i_pk >= 0)
+    if not any_hit:
+        np.testing.assert_array_equal(t, t_b)            # bit for bit
+        order = tb.prim_order.numpy()
+        other = order[i[hit]] != order[i_b[hit]]
+        assert other.mean() < 1e-2
+        _assert_matches(t, i, t_pk, i_pk)
+        np.testing.assert_array_equal(t[~hit], np.minimum(tmax[~hit], 1e30))
+    _, code = bvh_ops.traverse_reference(
+        tb, *(torch.as_tensor(x) for x in (o, d, tmax)), any_hit,
+        count_mode=True)
+    code = code.numpy()
+    assert (code >> 16).sum() == stats["int_steps"] >= 777
+    assert (code & 0xFFFF).sum() == stats["leaf_steps"] > 0
+    assert stats["slab_tests"] > stats["int_steps"]
 
 
 # -- (d) the port alone ------------------------------------------------------
@@ -296,8 +439,10 @@ def test_bvh_queries_match_brute_force(small_pair, finite_tmax):
 
 
 def test_ray_sort_changes_nothing(soup):
-    """Batches of 4,096 rays or more are traversed in octant + Morton order;
-    the results come back in the callers' order and are the unsorted ones."""
+    """The render path traverses in the callers' order; traversing the same
+    rays in octant + Morton order (``_ray_sort_order``, pbrt_tpu's packet
+    key) and putting the results back gives the same answers: rays are
+    independent in a per-ray walk."""
     tb = soup[2]
     o, d, tmax = (torch.as_tensor(x) for x in _soup_rays(5000, seed=9))
     perm = tbvh._ray_sort_order(o, d)
@@ -305,13 +450,15 @@ def test_ray_sort_changes_nothing(soup):
     assert not torch.equal(perm, torch.arange(5000))
     octant = ((d[perm] < 0).long() * torch.tensor([4, 2, 1])).sum(-1)
     assert (octant[1:] >= octant[:-1]).all()
-    for any_hit in (False, True):
-        t_s, i_s = tbvh._sorted_traverse(tb, o, d, tmax, any_hit)
-        t_u, i_u = bvh_ops.bvh_traverse(tb, o, d, tmax, any_hit)
-        assert torch.equal(i_s, i_u) and torch.equal(t_s, t_u)
-    # below the threshold nothing is sorted: the same call
-    t_s, i_s = tbvh._sorted_traverse(tb, o[:100], d[:100], tmax[:100], True)
-    assert torch.equal(i_s >= 0, i_u[:100] >= 0) and t_s.shape == (100,)
+    t_u, tri_u, hit_u = tbvh.bvh_intersect_tris(tb, o, d, tmax)
+    t_s, tri_s, hit_s = tbvh.bvh_intersect_tris(tb, o[perm], d[perm],
+                                                tmax[perm])
+    assert torch.equal(t_s, t_u[perm]) and torch.equal(tri_s, tri_u[perm])
+    assert torch.equal(hit_s, hit_u[perm]) and 0.05 < hit_u.float().mean()
+    occ_s = tbvh.bvh_intersect_p_tris(tb, o[perm], d[perm], tmax[perm])
+    assert torch.equal(occ_s, tbvh.bvh_intersect_p_tris(tb, o, d, tmax)[perm])
+    assert torch.equal(occ_s, hit_s)
+    assert not hasattr(tbvh, "_sorted_traverse")
 
 
 def test_duplicate_references_map_once(soup):
@@ -329,32 +476,45 @@ def test_duplicate_references_map_once(soup):
                        tb.prim_order[leaf_i[hit].long()])
 
 
-def test_deep_tree_raises_at_pack_time():
-    """A tree deeper than the kernel's stack is refused when it is packed,
-    never overflowed silently."""
-    levels = bvh_ops.STACK + 6
-    n = 2 * levels + 1            # a right-leaning chain: leaf, interior, …
+def _chain(levels):
+    """A right-leaning binary chain: leaf, interior, leaf, …, ``levels``
+    interior nodes; leaf i holds triangle i."""
+    n = 2 * levels + 1
     right = np.zeros(n, np.int32)
     count = np.zeros(n, np.int32)
     for i in range(levels):
         right[2 * i] = 2 * i + 2          # interior: left leaf is 2i + 1
         count[2 * i + 1] = 1
-        right[2 * i + 1] = i              # leaf i holds triangle i
+        right[2 * i + 1] = i
     count[n - 1] = 1
     right[n - 1] = levels
     lo = np.zeros((n, 3), np.float32)
     v = np.zeros((levels + 1, 3), np.float32)
-    assert bvh_ops.stack_need(right, count) == levels + 1
+    return lo, lo + 1, right, count, np.zeros(n, np.int32), v, v, v
+
+
+def test_deep_tree_raises_at_pack_time():
+    """A tree deeper than the binary kernel's stack is refused when it is
+    packed, never overflowed silently."""
+    deep = _chain(bvh_binary.STACK + 6)
+    assert bvh_binary.stack_need(deep[2], deep[3]) == bvh_binary.STACK + 7
     with pytest.raises(ValueError, match="STACK"):
-        bvh_ops.pack_bvh(lo, lo + 1, right, count, np.zeros(n, np.int32), v,
-                         v, v)
-    ok = 2 * (bvh_ops.STACK - 1) + 1
-    _, _, need = bvh_ops.pack_bvh(
-        lo[:ok], lo[:ok] + 1,
-        np.where(np.arange(ok) == ok - 1, 0, right[:ok]),
-        np.where(np.arange(ok) == ok - 1, 1, count[:ok]),
-        np.zeros(ok, np.int32), v, v, v)
-    assert need == bvh_ops.STACK
+        bvh_binary.pack_bvh(*deep)
+    _, _, need = bvh_binary.pack_bvh(*_chain(bvh_binary.STACK - 1))
+    assert need == bvh_binary.STACK
+
+
+def test_deep_wide_tree_raises_at_pack_time():
+    """The 4-wide layout of a chain needs two stack entries per wide level
+    (three slots, one of them the next wide node): past the kernel's stack
+    it is refused when packed; just below it, it packs."""
+    deep, fits = bvh_ops.STACK, bvh_ops.STACK - 2
+    with pytest.raises(ValueError, match="STACK"):
+        bvh_ops.pack_wide(*_chain(deep))
+    nodes, tris, cnt_bits, need = bvh_ops.pack_wide(*_chain(fits))
+    assert need <= bvh_ops.STACK and cnt_bits == 3
+    assert nodes.shape == ((fits + 1) // 2, 32)
+    assert tris.shape == (fits + 1, 12)
 
 
 class KdTree:
@@ -369,7 +529,7 @@ def test_unported_accelerators_raise(small_pair, soup):
     tb = soup[2]
     z = np.zeros((4, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        bvh_ops._pack_threaded(z[:1], z[:1], np.zeros(1, np.int32),
+        bvh_binary._pack_threaded(z[:1], z[:1], np.zeros(1, np.int32),
                                np.ones(1, np.int32), np.zeros(1, np.int32),
                                z, z, z, dv=(z, z, z))
     kd = dataclasses.replace(with_bvh, bvh=KdTree())
@@ -385,10 +545,17 @@ def test_unported_accelerators_raise(small_pair, soup):
     meta = torch.zeros(4, 3, device="meta")
     with pytest.raises(NotImplementedError):
         bvh_ops.bvh_traverse(tb, meta, meta, meta[:, 0], False)
-    before = bvh_ops.bvh_traverse.launches, ik.intersect_brute.launches
+    with pytest.raises(NotImplementedError):
+        bvh_binary.bvh_traverse_binary(tb, meta, meta, meta[:, 0], False)
+    with pytest.raises(NotImplementedError, match="count mode"):
+        bvh_binary.bvh_traverse_binary(tb, ray, ray, ray[:, 0], False,
+                                       count_mode=True)
+    before = (bvh_ops.bvh_traverse.launches, ik.intersect_brute.launches,
+              bvh_binary.bvh_traverse_binary.launches)
     tisect.intersect(with_bvh, ray + 0.5, ray + 1.0, torch.full((4,), np.inf))
     assert before == (bvh_ops.bvh_traverse.launches,
-                      ik.intersect_brute.launches)
+                      ik.intersect_brute.launches,
+                      bvh_binary.bvh_traverse_binary.launches)
 
 
 def test_use_bvh_rule():

@@ -12,7 +12,7 @@ through
   passed as the packer returns it) and the port's plain-torch twin
   ``_traverse_wide_reference``, for variants 1, 2, 3, the wide-8 packing,
   the dual-leaf variant 5, any-hit and count mode (seven Pallas programs);
-- the port's binary traversal twin ``ops/bvh.py::_traverse_reference``.
+- the port's binary traversal twin ``ops/bvh_binary.py::_traverse_reference``.
 
 Tolerances. Against the Pallas kernel: hit masks equal, ``t`` of the hits
 to rtol 1e-5 (XLA on the CPU contracts multiply-adds in the triangle test;
@@ -43,6 +43,7 @@ from pbrt_tpu.ops import bvh_pallas as bp
 from pbrt_tpu.scene import bvh as jbvh
 from pbrt_tpu_torch import bridge, entry
 from pbrt_tpu_torch.ops import bvh as bvh_ops
+from pbrt_tpu_torch.ops import bvh_binary
 from pbrt_tpu_torch.tools import kexp_kernels as kk
 from pbrt_tpu_torch.tools import kexp_prep, kexp_run
 from test_torch_bvh import _assert_matches, _soup_rays
@@ -211,7 +212,7 @@ def test_twin_is_bit_equal_to_the_binary_twin(soup, name):
     lay = _layout(tree, wide, leaf_max, dual)
     for tm in (None, (0.5, 6.0)):
         o, d, tmax = _soup_rays(1500, seed=5, tmax=tm)
-        t_b, i_b = bvh_ops._traverse_reference(
+        t_b, i_b = bvh_binary._traverse_reference(
             tb, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax),
             False)
         stats = {}
@@ -310,6 +311,40 @@ def test_smem_probe_plain_version_and_no_fallback(soup):
     assert kk.max_smem_nodes(big, 227) == 227 * 1024 // 144
 
 
+def test_probe_sets_the_size_only_when_it_changes():
+    """The probe's wrapper asks for the kernel's dynamic shared-memory size
+    only when it differs from the last one granted on that device; a
+    refused size leaves the granted one, and each device keeps its own."""
+    calls = []
+
+    def set_size(kb):
+        calls.append(kb)
+        return 0 if kb <= kk.SMEM_DOCUMENTED_KB else 1
+
+    sizes = kk._ProbeSizes()
+    for kb in (227, 227, 48, 48, 227):
+        assert sizes.ensure(set_size, 0, kb) == 0
+    assert calls == [227, 48, 227] and sizes.sets == 3
+    assert sizes.ensure(set_size, 0, 228) == 1
+    assert sizes.granted_kb == {0: 227} and calls[-1] == 228
+    assert sizes.ensure(set_size, 0, 227) == 0 and len(calls) == 4
+    assert sizes.ensure(set_size, 1, 227) == 0 and calls[-1] == 227
+    assert sizes.granted_kb == {0: 227, 1: 227} and sizes.sets == 5
+    assert isinstance(kk._probe_sizes, kk._ProbeSizes)
+
+
+def test_warp_efficiency_of_step_codes():
+    """Steps over 32 times the sum of each 32-ray group's longest walk."""
+    even = torch.full((64,), 3 * 65536 + 2, dtype=torch.int32)
+    assert kexp_run.warp_efficiency(even) == 1.0
+    one_long = even.clone()
+    one_long[5] = 9 * 65536 + 1                  # 10 steps, the others 5
+    want = (63 * 5 + 10) / (32 * (10 + 5))
+    assert kexp_run.warp_efficiency(one_long) == pytest.approx(want)
+    # a ragged tail of fewer than 32 rays is left out
+    assert kexp_run.warp_efficiency(torch.cat([even, one_long[:7]])) == 1.0
+
+
 def test_deep_wide_tree_raises_at_layout_time():
     """A tree whose walk could need more stack than the kernel holds is
     refused when its layout is made."""
@@ -366,7 +401,11 @@ def test_prep_writes_the_harness_keys(npz):
 RATES = ["primary_mrays", "random_mrays", "sorted_mrays"]
 AGREE = ["prim_agreement", "max_abs_dt"]
 EXPERIMENTS = {
-    "baseline": (["baseline"], RATES[:2] + AGREE),
+    "baseline": (["baseline"], ["wide_nodes", "stack_need"] + RATES[:2]
+                 + AGREE),
+    "binary": (["binary"], ["nodes"] + RATES[:2] + AGREE),
+    "grid": (["grid", "persistent"], ["persistent"] + RATES + AGREE),
+    "l2": (["l2", "on"], ["l2_window"] + RATES + AGREE),
     "variant3": (["variant", "3"], ["variant", "block"] + AGREE + RATES),
     "count2": (["count", "2"], ["variant", "primary", "random"]),
     "dual": (["dual"], ["exp_kind", "block", "tri_rows"] + AGREE + RATES),
@@ -406,8 +445,9 @@ def test_kexp_run_needs_the_card_by_default(npz):
             kexp_run.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         kexp_prep.main(["--scene", "soup", "--size", "300"])
-    with pytest.raises(SystemExit):
-        kexp_run.main(["slope", "--npz", npz, "--device", "cpu"])
+    for argv in (["slope"], ["grid", "wide"], ["l2"]):
+        with pytest.raises(SystemExit):
+            kexp_run.main(argv + ["--npz", npz, "--device", "cpu"])
 
 
 def test_triangle_soup_is_irregular():

@@ -48,11 +48,16 @@ def test_scene_tables_equal_jax_build(scene_pair):
     name, _, bridged, built = scene_pair
     got = dict(_fields(built))
     for key, want in _fields(bridged):
-        if key in ("bvh.built_by", "bvh._threaded"):
-            continue    # who built it; a cache filled on first CPU query
+        if key == "bvh.built_by":
+            continue    # who built it
         have = got[key]
         if isinstance(want, torch.Tensor):
             assert have.dtype == want.dtype, key
+            if have.dtype == torch.float32:
+                # bit for bit: an empty slot of a 4-wide record holds −1,
+                # whose bits are a NaN
+                have, want = (x.contiguous().view(torch.int32)
+                              for x in (have, want))
             assert torch.equal(have, want), key
         else:
             assert have == want, key
