@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
    csrc/bvh_traverse.cu, csrc/bvh_binary.cu, csrc/kexp_traverse.cu,
    csrc/smem_probe.cu) with nvcc and the host BVH builder
    (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
-   prints the card, its power limit and the build times.
+   prints the card, its power limit, the build times and, from ptxas, the
+   registers and spills of every instantiation of the fused and the
+   brute-force kernel.
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -18,12 +20,16 @@ Run from the root of a checkout, with no arguments:
    launched the kernel once per chunk and that the image mean matches
    pbrt_tpu's on the same sample streams to rel 1e-3.
 4. Times one 32-spp chunk (camera rays / kernel / replay), the 64-spp
-   render and the twin, with CUDA events.
+   render and the twin, with CUDA events; and, from the residuals, the
+   sweeps of live paths and the sweeps that warps of 32 and of 64 paths
+   execute, per bounce, with the share that falls on ended paths.
 5. Holds the brute-force intersection kernel against its plain-torch twin
    on three primitive tables (the portal scene, the sphere cornell, a
-   4,001-primitive table near the 4,096 cap that spans eight shared-memory
-   tiles), for camera rays and for random rays with infinite and finite
-   tmax: prim equal and t bit-equal.
+   4,001-primitive table near the 4,096 cap that spans several
+   shared-memory tiles), for camera rays and for random rays with infinite
+   and finite tmax: prim equal and t bit-equal, for every design
+   (INTERSECT_DESIGNS: neither step, two rays per thread, the early
+   reject, both) at R, at R not a multiple of 64 and at R < 64.
 6. Holds the generic wavefront loop against the fused kernel on the two
    scenes inside the fused profile (same lanes, seam allowance of
    tests/test_fused_path.py:258-261).
@@ -32,8 +38,10 @@ Run from the root of a checkout, with no arguments:
    64 spp, and `direct`, `whitted`, `ao`, `mypath` at 64²; checks the
    launch counts the loop implies, that the fused kernel is not launched,
    and pbrt_tpu's image means to rel 1e-3.
-8. Times the intersection kernel and its twin on 2,097,152-ray launches
-   and the new scenes' passes and renders.
+8. Times the intersection kernel and its twin on 2,097,152-ray launches,
+   its designs in turns on the three tables for camera rays and for random
+   rays from inside the box, the new scenes' passes and renders, and by
+   torch.profiler the kernel's device time inside a pass for each design.
 9. Holds the BVH traversal kernels against their plain-torch twins on
    three trees (a 600-triangle soup, the 133,130-triangle heightfield
    cornell built by the native SBVH builder, a 7,498-triangle tree built
@@ -61,7 +69,9 @@ Run from the root of a checkout, with no arguments:
    kernel and the 4-wide kernel's plain and persistent grids in turns, in
    the callers' order, the binary kernel in the ray sort's order, and the
    sort; the twins (whose test counts give the bounds); the brute-force
-   kernel and its twin at the BVH path's shape; the 32-spp pass and the
+   kernel, its designs in turns and its twin at the BVH path's shape
+   (camera and bounce rays), and its device time inside a pass for each
+   design; the 32-spp pass and the
    64-spp render against the path before the 4-wide kernel (sort + binary
    kernel), in turns; and, by torch.profiler, the 4-wide kernel's device
    time per launch inside a pass for both grids with the harness's L2
@@ -102,6 +112,7 @@ result. It needs a CUDA device and never falls back to the CPU.
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -163,6 +174,9 @@ OPS_TRI, OPS_SPH, OPS_PLN = 46, 31, 8
 # one slab test of bvh_traverse.cu: 6 subtracts, 6 multiplies, 10 min/max,
 # the conservative scale
 OPS_SLAB = 23
+# the brute-force kernel's designs timed in turns (bits of
+# ops/intersect.py); 0 has neither step
+INTERSECT_DESIGNS = ik.DESIGNS
 
 
 def check(ok, what):
@@ -190,6 +204,65 @@ def sync_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def turns(run, designs, reps):
+    """run(design) -> tuple of tensors, for each design: checks that every
+    design's result equals the first's bit for bit, runs each reps times
+    more (the card's clocks ramp up), then times them by CUDA events in
+    turns (a, b, ..., b, a). Returns {design: mean ms of its two turns}."""
+    outs = {dsg: run(dsg) for dsg in designs}
+    torch.cuda.synchronize()
+    for dsg in designs[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(outs[dsg],
+                                                    outs[designs[0]])),
+              f"design {dsg} differs from design {designs[0]}")
+    for dsg in designs:
+        for _ in range(reps):
+            run(dsg)
+    ms = {}
+    for dsg in list(designs) + list(reversed(designs)):
+        ms[dsg] = ms.get(dsg, 0.0) + sync_ms(lambda: run(dsg), reps) / 2
+    return {dsg: round(v, 4) for dsg, v in ms.items()}
+
+
+def kernel_name(mangled):
+    """'fused_path_kernel<1,1,1>' from the Itanium name of a kernel (a
+    nested name whose template arguments are integers and bools)."""
+    pos, name = 3 if mangled.startswith("_ZN") else 0, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group(0))
+        name = mangled[pos + m.end():pos + m.end() + n]
+        pos += m.end() + n
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[a-z](\d+)E", args.group(1))) \
+            + ">"
+    return name
+
+
+def ptxas_summary(log):
+    """Registers and spills of each kernel in an nvcc -Xptxas -v log:
+    {kernel: [registers, spill store bytes, spill load bytes]}."""
+    out, entry_fn, current, spills = {}, None, None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry_fn = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills[current] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry_fn:
+            out[kernel_name(entry_fn)] = [int(m.group(1)),
+                                          *spills.get(entry_fn, [0, 0])]
+            entry_fn = None
+    return out
+
+
 def bounce_args(scene, max_depth, n_clu=None):
     ax, plf, pof, n_mat, mode = scene.fused_profile
     tri, msc, clu, nc = fp.pack_fused(scene, mode)
@@ -209,12 +282,6 @@ def lanes(res, chunk, dev):
             sidx.to(torch.int32))
 
 
-def live_mask(code):
-    live = torch.ones_like(code, dtype=torch.bool)
-    live[1:] = (code[:-1] & 8) > 0
-    return live
-
-
 def replay_of(scene, res):
     return fp.replay(scene.materials.kd, scene.lights.emit[0], *res)
 
@@ -227,7 +294,7 @@ def check_kernel(name, scene, max_depth, dev):
     want = fp._kernel_reference(*tables, *rays, **kw)
     torch.cuda.synchronize()
     L, L_ref = replay_of(scene, got), replay_of(scene, want)
-    live = live_mask(want[0])
+    live = fp.live_mask(want[0])
     err = float((L - L_ref).abs().max())
     if name == "portal":
         # the CPU test's tolerances: codes identical, knee/kc rtol 1e-5
@@ -280,18 +347,15 @@ def intersect_bound(scene, n_rays, tris=True):
     return bound_ms(n_bytes, n_ops)
 
 
-def fused_bound(scene, code, n_b):
+def fused_bound(scene, code):
     """From this run's residuals: a lane alive entering bounce b sweeps
     the table once for its closest hit and, unless b is the emission-only
     last bounce, once (mode 1) or twice (mode 0) more for next-event
     estimation; ended lanes are not counted."""
     n_rays = code.shape[1]
-    live = live_mask(code).sum(dim=1).tolist()
-    shadow = 1 if scene.fused_profile[4] == 1 else 2
-    sweeps = sum(n * (1 + (shadow if b < n_b - 1 else 0))
-                 for b, n in enumerate(live))
-    n_ops = sweeps * (OPS_TRI * scene.n_tri + OPS_PLN)
-    n_bytes = n_rays * (24 + 8 + 12 * n_b) + 64 * scene.n_tri
+    live, _ = fp.sweep_counts(code, scene.fused_profile[4], 32)
+    n_ops = int(live.sum()) * (OPS_TRI * scene.n_tri + OPS_PLN)
+    n_bytes = n_rays * (24 + 8 + 12 * code.shape[0]) + 64 * scene.n_tri
     return bound_ms(n_bytes, n_ops)
 
 
@@ -327,7 +391,9 @@ def ray_sets(dev, n=8192):
 
 def check_intersect(name, scene, dev):
     """Kernel vs twin on the three ray sets: prim equal on every ray and
-    t equal bit for bit. Returns the largest |t_kernel − t_twin|."""
+    t equal bit for bit, for every design of INTERSECT_DESIGNS at R, at R
+    not a multiple of 64 and at R < 64. Returns the largest
+    |t_kernel − t_twin|."""
     tabs = ik.pack_scene(scene)
     counts = (scene.n_tri, scene.n_sph, scene.n_pln)
     worst = 0.0
@@ -341,12 +407,23 @@ def check_intersect(name, scene, dev):
         err = float((t - t_ref).abs().max())
         worst = max(worst, err)
         hit = float((prim >= 0).float().mean())
-        print(f"intersect kernel vs twin {name} {counts} {rname}: "
-              f"{n_prim} prim mismatches, t max err {err:.3g}, hit share "
-              f"{hit:.3f}")
         check(n_prim == 0, f"{n_prim} prim mismatches")
         check(torch.equal(t, t_ref), f"t differs from the twin by {err}")
         check(hit > 0.05, f"hit share {hit}")
+        sizes = (o.shape[0], o.shape[0] - 37, 45)
+        for R in sizes:
+            for design in INTERSECT_DESIGNS:
+                t_d, prim_d = ik._launch_design(
+                    *tabs, o[:R].contiguous(), d[:R].contiguous(),
+                    tmax[:R].contiguous(), *counts, design)
+                check(torch.equal(t_d, t_ref[:R])
+                      and torch.equal(prim_d, prim_ref[:R]),
+                      f"{name} {rname} R {R}: design {design} differs from "
+                      "the twin")
+        print(f"intersect kernel vs twin {name} {counts} {rname}: "
+              f"{n_prim} prim mismatches, t max err {err:.3g}, hit share "
+              f"{hit:.3f}; designs {INTERSECT_DESIGNS} equal to the twin at "
+              f"R = {sizes}")
     return worst
 
 
@@ -598,6 +675,40 @@ def plain_grid():
         bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris = saved
 
 
+@contextlib.contextmanager
+def intersect_design(design):
+    """Inside the block the render path's brute-force queries launch the
+    kernel of ``design`` in place of the render path's (their launches
+    still count in ``ik.intersect_brute.launches``)."""
+    real = ik.intersect_brute
+
+    def launch(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
+        return ik._launch_design(tri, sph, pln, o, d, tmax, n_tri, n_sph,
+                                 n_pln, design)
+
+    launch.launches = 0
+    ik.intersect_brute = launch
+    try:
+        yield
+    finally:
+        ik.intersect_brute = real
+        real.launches += launch.launches
+
+
+def intersect_in_pass(pass_fn, n_launches):
+    """The brute-force kernel's device time inside one pass of pass_fn, by
+    torch.profiler, for each design of INTERSECT_DESIGNS in turns (a, b,
+    ..., b, a): {design: ms per pass, mean of the two turns}."""
+    out = {}
+    for dsg in list(INTERSECT_DESIGNS) + list(reversed(INTERSECT_DESIGNS)):
+        with intersect_design(dsg):
+            _, by = device_ms_by_kernel(pass_fn, ["intersect_kernel"])
+        ms_k, n_k = by["intersect_kernel"]
+        check(n_k == n_launches, f"{n_k} brute-force launches in a pass")
+        out[dsg] = out.get(dsg, 0.0) + ms_k / 2
+    return {dsg: round(v, 4) for dsg, v in out.items()}
+
+
 def check_bvh_vs_brute(dev):
     """One scene under the brute-force gate, built with and without a BVH,
     the same rays through ``intersect``: valid and t equal on every ray;
@@ -666,6 +777,9 @@ def check_brute_under_bvh(scene, rname, o, d, tmax, reps=0):
     if reps:
         out["ms"] = sync_ms(kern_fn, reps)
         out["plain_ms"] = sync_ms(twin_fn, 2)
+        out["designs"] = turns(
+            lambda dsg: ik._launch_design(*tabs, o, d, best_t, *counts, dsg),
+            INTERSECT_DESIGNS, reps)
     return out
 
 
@@ -943,8 +1057,16 @@ def main():
     print(f"kernel and host-builder builds (in parallel) "
           f"{ {k: round(v, 1) for k, v in _build.load.build_seconds.items()} }"
           f" s (wall {time.perf_counter() - t0:.1f} s)")
+    ptxas = {}
     for name in _build.KERNELS:
-        print(_build.load.ptxas_log.get(name, "").strip()[-1500:])
+        log = _build.load.ptxas_log.get(name, "")
+        if name in ("fused_path", "intersect"):
+            ptxas[name] = ptxas_summary(log)
+            check(ptxas[name], f"no ptxas report for {name}")
+            print(f"{name} kernels [registers, spill store bytes, spill load "
+                  f"bytes]: " + json.dumps(ptxas[name]))
+        else:
+            print(log.strip()[-1500:])
 
     # ---- 2. kernel vs twin on the card
     scenes = {"portal": entry._portal_scene(dev),
@@ -1035,6 +1157,17 @@ def main():
     check(float(bad.float().mean()) < 6e-3, f"{int(bad.sum())} lanes")
     torch.testing.assert_close(L_k[~bad], L_t[~bad], atol=1.1e-4, rtol=0)
 
+    # the sweeps the kernel's warps (32 paths) execute on ended paths, and
+    # what warps of 64 paths (two per thread) would, from the residuals
+    dead = {}
+    for per_warp in (32, 64):
+        live_s, exec_s = fp.sweep_counts(res_k[0], kw["mode"], per_warp)
+        dead[per_warp] = {
+            "live_sweeps": live_s.tolist(), "executed_sweeps": exec_s.tolist(),
+            "dead_share": round(1.0 - float(live_s.sum() / exec_s.sum()), 5)}
+    print("fused kernel sweeps per bounce on the main path (live paths, "
+          "executed by warps of 32 and of 64 paths, share on ended paths): "
+          + json.dumps(dead))
     sweeps = (MAX_DEPTH + 1) + MAX_DEPTH          # mode 1: bench.py:173
     mrays = W * H * SPP * sweeps / (ms["render_64spp"] / 1e3) / 1e6
     timing = {k: round(v, 4) for k, v in ms.items()}
@@ -1044,8 +1177,7 @@ def main():
           f"{peak_mb:.1f} MiB")
 
     check(math.isfinite(mrays), f"rate {mrays}")
-    fused_bound_ms, fused_bound_by = fused_bound(scene_d, res_k[0],
-                                                 MAX_DEPTH + 1)
+    fused_bound_ms, fused_bound_by = fused_bound(scene_d, res_k[0])
 
     # ---- 5. the intersection kernel vs its twin on three tables
     loop_scenes = {"portal_portal": entry._portal_scene(dev, "portal"),
@@ -1090,8 +1222,15 @@ def main():
 
     # ---- 8. timings of the intersection kernel and the generic loop
     o_m, d_m, _, _ = rays
-    inf_m = torch.full((o_m.shape[0],), math.inf, device=dev)
-    ims, ibound = {}, {}
+    n_m = o_m.shape[0]
+    inf_m = torch.full((n_m,), math.inf, device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    o_rand = (torch.rand(n_m, 3, generator=gen) * 0.9 + 0.05).to(dev)
+    d_rand = torch.nn.functional.normalize(
+        torch.randn(n_m, 3, generator=gen), dim=-1).to(dev)
+    check(ik._lib().intersect_render_design() in INTERSECT_DESIGNS,
+          "the render path's design")
+    ims, ibound, iturns, in_pass_i = {}, {}, {}, {}
     for name, sc in tables.items():
         tabs = ik.pack_scene(sc)
         counts = (sc.n_tri, sc.n_sph, sc.n_pln)
@@ -1104,7 +1243,15 @@ def main():
 
         got = ikern_fn()
         ims[f"kernel_{name}"] = sync_ms(ikern_fn, 5)
-        ibound[name] = intersect_bound(sc, o_m.shape[0])
+        ibound[name] = intersect_bound(sc, n_m)
+        # the designs in turns, camera rays (coherent warps) and random
+        # rays from inside the box (incoherent)
+        for rname, o_t, d_t in (("camera", o_m, d_m),
+                                ("random", o_rand, d_rand)):
+            iturns[f"{name}_{rname}"] = turns(
+                lambda dsg: ik._launch_design(*tabs, o_t, d_t, inf_m,
+                                              *counts, dsg),
+                INTERSECT_DESIGNS, 5)
         if name == "cap_table":
             continue    # its twin is ~180,000 launches on 8 MB tensors
         want = itwin_fn()
@@ -1128,11 +1275,18 @@ def main():
         lpass_fn()
         ims[f"pass_32spp_{key}"] = sync_ms(lpass_fn, 3)
         ims[f"render_64spp_{key}"] = sync_ms(lrender_fn, 2)
+        in_pass_i[key] = intersect_in_pass(lpass_fn, per_pass[key])
     print("intersect and generic-loop times (ms, CUDA events, "
           f"{o_m.shape[0]} rays per launch): "
           + json.dumps({k: round(v, 4) for k, v in ims.items()}))
     print("intersect bounds (ms, by): " + json.dumps(
         {k: [round(v[0], 5), v[1]] for k, v in ibound.items()}))
+    print(f"intersect designs in turns (ms, CUDA events, {n_m} rays, tmax "
+          "inf; bits 1 two rays per thread, 2 early reject): "
+          + json.dumps(iturns))
+    print("intersect kernel's device ms in one 32-spp pass of the generic "
+          "loop by design, in turns (torch.profiler): "
+          + json.dumps(in_pass_i))
     print(f"peak memory of the generic loop's 64-spp renders "
           f"{loop_peak_mb:.1f} MiB")
 
@@ -1364,6 +1518,11 @@ def main():
         in_pass.setdefault(label, []).append(
             {"pass_device_ms": round(dev_ms, 3),
              "traverse_ms_per_launch": round(ms_k / n_k, 5)})
+    in_pass_i["heightfield_cornell"] = intersect_in_pass(bpass_fn,
+                                                          per_pass_bvh)
+    print("intersect kernel's device ms in one 32-spp BVH pass by design, "
+          "in turns (torch.profiler): "
+          + json.dumps(in_pass_i["heightfield_cornell"]))
     with old_bvh_path():
         dev_old, by_old = device_ms_by_kernel(bpass_fn, frags)
     in_pass["old_path"] = {"pass_device_ms": round(dev_old, 3), **{
@@ -1384,7 +1543,8 @@ def main():
                         bbound.items()}}))
     print(f"intersect kernel under the BVH (0 triangles, {hf.n_sph} sphere, "
           f"{hf.n_pln} aaplane; {n_m} rays per launch; ms, CUDA events): "
-          + json.dumps({k: {m: round(v[m], 4) for m in ("ms", "plain_ms")}
+          + json.dumps({k: {m: v[m] if m == "designs" else round(v[m], 4)
+                            for m in ("ms", "plain_ms", "designs")}
                         for k, v in under.items()})
           + f", bound {under_bound[0]:.5f} ms by {under_bound[1]}")
     print("one 32-spp BVH pass under torch.profiler (device ms; 4-wide "
@@ -1484,7 +1644,12 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": ms["kernel"], "plain_ms": ms["twin"],
         "bound_ms": fused_bound_ms, "bound_by": fused_bound_by,
-        "library_ms": None}, {
+        "library_ms": None,
+        # the share of executed sweeps that fall on ended paths (warps of
+        # 32 paths, and of 64 as two per thread would run), registers and
+        # spills of every instantiation
+        "dead_share": {k: v["dead_share"] for k, v in dead.items()},
+        "ptxas": ptxas["fused_path"]}, {
         "name": "intersect", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/intersect.cu",
         "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
@@ -1493,6 +1658,9 @@ def main():
         "plain_ms": ims["twin_sphere_cornell"],
         "bound_ms": ibound["sphere_cornell"][0],
         "bound_by": ibound["sphere_cornell"][1], "library_ms": None,
+        "design_ms": iturns["sphere_cornell_camera"],
+        "design_in_pass_ms": in_pass_i,
+        "ptxas": ptxas["intersect"],
         # the same kernel at the BVH path's call shape (no triangles, one
         # sphere, one aaplane, tmax from the traversal; bounce rays)
         "bvh_path": {"launches": bvh_brute_launches,

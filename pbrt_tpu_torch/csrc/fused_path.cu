@@ -9,17 +9,31 @@
 // parameter-free residuals (code int32, knee and kc float32) that
 // pbrt_tpu_torch/ops/fused_path.py::replay turns into radiance.
 //
-// What bounds it on this card: arithmetic. Each ray-triangle test is
-// ~40 float operations against 64 bytes of triangle that every thread of
-// the block reads at the same time, and a ray does (max_depth+1) +
-// max_depth sweeps (mode 1) over all triangles, while it writes only 12
-// bytes of residuals per bounce. So the design keeps the scene tables in
-// shared memory (one copy per block, broadcast reads), keeps the ray
-// state in registers across all bounces (no device-memory traffic
-// between bounces), selects the light-plane axis at compile time (a
-// template parameter, so no runtime-indexed register array spills), and
-// skips a 32-triangle cluster when no ray of the warp can reach its box
-// (a warp vote, conservative, so hits equal the flat sweep's).
+// What bounds it on this card: the instructions issued per ray-triangle
+// test. Each test is 46 counted float operations against 64 bytes of
+// triangle that every thread of the block reads at the same time, and a
+// path does (max_depth+1) + max_depth sweeps (mode 1) over all triangles,
+// while it writes only 12 bytes of residuals per bounce. No multiply-add is
+// contracted (see below), so the kernel can reach at most half of the
+// FMA-counted float32 rate, and besides them each test issues the row's
+// loads, the correctly rounded division, compares and selects.
+//
+// Design. The scene tables live in shared memory (one copy per block,
+// broadcast reads), the path state in registers across all bounces (no
+// device-memory traffic between bounces), the light-plane axis is a
+// template parameter (so no runtime-indexed register array spills), and a
+// 32-triangle cluster is skipped when no live path of the warp can reach
+// its box (a warp vote, conservative, so hits equal the flat sweep's).
+// Each triangle test is tri_sweep.cuh's step (the division unconditional,
+// no select around it), and a sweep keeps only the hit's t and index and
+// reads the normal and material once after it, not on every hit: 8-10%
+// less time per launch than with ray_tri.cuh's test and the per-hit moves
+// (PERF.md §6). Tried and dropped (PERF.md §6): the
+// warp-wide early reject of tri_sweep.cuh in every sweep (2.3% slower: the
+// main path's bounce rays spread too much for a warp to skip a division
+// often enough) or only in bounce 0's sweeps (0.2%, within noise), and two
+// paths per thread sharing each row read (slower still, at 126 registers
+// against 73).
 //
 // Numerics follow the plain-torch twin (_kernel_reference) operation by
 // operation: build with --fmad=false and without fast math, so no
@@ -37,9 +51,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ray_tri.cuh"
+#include "tri_sweep.cuh"
 
 namespace {
+
+using tri_sweep::Rays;
+using tri_sweep::TriRow;
 
 constexpr int kBlock = 256;
 constexpr int kCluster = 32;
@@ -117,27 +134,10 @@ struct Hit {
   float nx, ny, nz, m;
 };
 
-template <bool ATTRS>
-__device__ __forceinline__ void tri_test(const float* __restrict__ r, int i,
-                                         float rox, float roy, float roz,
-                                         float rdx, float rdy, float rdz,
-                                         Hit& h) {
-  float t;
-  if (ray_tri_hit(rox, roy, roz, rdx, rdy, rdz, r[0], r[1], r[2], r[3], r[4],
-                  r[5], r[6], r[7], r[8], h.t, t)) {
-    h.t = t;
-    h.p = i;
-    if (ATTRS) {
-      h.nx = r[9];
-      h.ny = r[10];
-      h.nz = r[11];
-      h.m = r[12];
-    }
-  }
-}
-
 // Closest hit over the triangles + the single aaplane (same tests as
-// pbrt_tpu/ops/fused_path.py sweep).
+// pbrt_tpu/ops/fused_path.py sweep). Each triangle is tri_sweep.cuh's step
+// on this thread's one ray; the hit primitive's normal and material are
+// read once, after the sweep.
 template <int AX, bool ATTRS>
 __device__ __forceinline__ Hit sweep(const Params& p,
                                      const float* __restrict__ s_tri,
@@ -148,10 +148,17 @@ __device__ __forceinline__ Hit sweep(const Params& p,
                                      float rdx, float rdy, float rdz) {
   constexpr int AX0 = AX == 2 ? 0 : (AX == 0 ? 1 : 2);
   constexpr int AX1 = AX == 2 ? 1 : (AX == 0 ? 2 : 0);
-  Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f};
+  const Rays<1> ray{{rox}, {roy}, {roz}, {rdx}, {rdy}, {rdz}};
+  float best_t[1] = {kBig};
+  int best_i[1] = {-1};
+  auto test = [&](int i) {
+    const float* r = s_tri + 16 * i;
+    tri_sweep::tri_step<1, false>(
+        TriRow{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8]}, ray, i,
+        best_t, best_i);
+  };
   if (p.n_clu == 0) {
-    for (int i = 0; i < p.n_tri; ++i)
-      tri_test<ATTRS>(s_tri + 16 * i, i, rox, roy, roz, rdx, rdy, rdz, h);
+    for (int i = 0; i < p.n_tri; ++i) test(i);
   } else {
     const float ivx = (rdx >= 0.f ? 1.f : -1.f) / jmax(fabsf(rdx), 1e-30f);
     const float ivy = (rdy >= 0.f ? 1.f : -1.f) / jmax(fabsf(rdy), 1e-30f);
@@ -170,15 +177,15 @@ __device__ __forceinline__ Hit sweep(const Params& p,
       t1 = (c[5] - roz) * ivz;
       tnear = jmax(tnear, jmin(t0, t1));
       tfar = jmin(tfar, jmax(t0, t1));
-      const bool ov = (tfar >= jmax(tnear, 0.f)) && (tnear <= h.t);
+      const bool ov = (tfar >= jmax(tnear, 0.f)) && (tnear <= best_t[0]);
       // warp-uniform skip: sweep the leaf if any live lane overlaps it
       if (__any_sync(kFull, live && ov)) {
         for (int i = ci * kCluster; i < ci * kCluster + kCluster; ++i)
-          tri_test<ATTRS>(s_tri + 16 * i, i, rox, roy, roz, rdx, rdy, rdz,
-                          h);
+          test(i);
       }
     }
   }
+  Hit h{best_t[0], best_i[0], 0.f, 0.f, 0.f, 0.f};
   // the aaplane (plane.cpp:15-55 slab test)
   const float o_ax = comp<AX>(rox, roy, roz);
   const float d_ax = comp<AX>(rdx, rdy, rdz);
@@ -190,11 +197,19 @@ __device__ __forceinline__ Hit sweep(const Params& p,
       h1 > pl_lo[AX1] && h1 < pl_hi[AX1]) {
     h.t = t;
     h.p = p.n_tri;
-    if (ATTRS) {
+  }
+  if (ATTRS) {
+    if (h.p == p.n_tri) {
       h.nx = AX == 0 ? sgn_pl : 0.f;
       h.ny = AX == 1 ? sgn_pl : 0.f;
       h.nz = AX == 2 ? sgn_pl : 0.f;
       h.m = pl_mat;
+    } else if (h.p >= 0) {
+      const float* r = s_tri + 16 * h.p;
+      h.nx = r[9];
+      h.ny = r[10];
+      h.nz = r[11];
+      h.m = r[12];
     }
   }
   return h;

@@ -14,6 +14,9 @@ gradients with respect to albedo and emission without a backward kernel.
 launches ``csrc/fused_path.cu``; a CPU tensor runs ``_kernel_reference``,
 the plain-torch twin that does the same work in the same order. Nothing
 falls back from one to the other.
+
+``sweep_counts`` counts, from a launch's residuals, the sweeps of live
+paths and the sweeps that warps execute.
 """
 
 from __future__ import annotations
@@ -69,6 +72,33 @@ def _axes_of(ax: int):
 def smem_bytes(n_rows: int, n_clu: int, n_mat: int) -> int:
     """Dynamic shared memory of one block (csrc/fused_path.cu layout)."""
     return 4 * (16 * n_rows + 8 * n_clu + 16 + 3 * n_mat)
+
+
+def live_mask(code):
+    """(n_b, R) bool: the lanes whose path is alive entering each bounce
+    (every lane at bounce 0, then the alive bit of the bounce before)."""
+    live = torch.ones_like(code, dtype=torch.bool)
+    live[1:] = (code[:-1] & _B_ALIVE) > 0
+    return live
+
+
+def sweep_counts(code, mode: int, paths_per_warp: int):
+    """Per bounce, from a launch's residuals code (n_b, R): the sweeps of
+    live paths, and the sweeps the kernel's warps execute (a warp of
+    ``paths_per_warp`` consecutive lanes runs bounce b for all its paths
+    when any of them is alive entering it). A bounce sweeps once for the
+    closest hit and, but the emission-only last one, once (mode 1) or
+    twice (mode 0) more for next-event estimation. Returns two (n_b,)
+    int64 tensors."""
+    n_b, R = code.shape
+    live = live_mask(code)
+    per = torch.full((n_b,), 2 if mode == 1 else 3, dtype=torch.int64)
+    per[-1] = 1
+    pad = -R % paths_per_warp
+    groups = torch.nn.functional.pad(live, (0, pad)).reshape(
+        n_b, -1, paths_per_warp)
+    executed = groups.any(dim=-1).sum(dim=-1).cpu() * paths_per_warp
+    return live.sum(dim=1).cpu() * per, executed * per
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,13 @@ the plain-torch twin that does the same tests in the same order with the
 same tie rule. Nothing falls back from one to the other. The query is not
 differentiated (pbrt_tpu's custom_vjp returns zero cotangents): callers
 run it under ``torch.no_grad()``.
+
+The kernel's design has two steps, the bits of a design: two rays per
+thread (TWO; ``lane_rays`` is the map) and the warp-wide early reject of
+``csrc/tri_sweep.cuh`` (REJECT, whose torch mirror is
+``tri_reject_reference``). The render path runs the kernel's own choice
+(``intersect_render_design`` in the source: both); ``_launch_design``
+launches any design, for the timing turns of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 
 BIG = 1e30
 MAX_PRIMS = 4096      # the gate of scene/intersect.py, as pbrt_tpu's
+TWO, REJECT = 1, 2   # design steps of csrc/intersect.cu
+DESIGNS = (0, TWO, REJECT, TWO | REJECT)
 
 
 def pack_scene(scene, tris=True):
@@ -45,9 +54,53 @@ def pack_scene(scene, tris=True):
     return tri.contiguous(), sph.contiguous(), pln.contiguous()
 
 
+def lane_rays(n_threads: int, rays_per_thread: int):
+    """The rays that the kernel's threads 0..n_threads-1 carry
+    (csrc/intersect.cu intersect_kernel): lane l of warp w takes rays
+    32·p·w + 32·k + l, k < p, so each store of a warp is 32 consecutive
+    rays and a warp covers 32·p consecutive rays. Returns (n_threads, p)
+    int64."""
+    g = torch.arange(n_threads)
+    k = torch.arange(rays_per_thread)
+    return ((g // 32) * 32 * rays_per_thread + (g % 32))[:, None] + 32 * k
+
+
 # ---------------------------------------------------------------------------
-# plain-torch twin of the kernel
+# plain-torch twins of the kernel and of its early reject
 # ---------------------------------------------------------------------------
+
+def tri_reject_reference(tri, o, d):
+    """csrc/tri_sweep.cuh's tri_pre and tri_reject, operation for
+    operation in float32, on rays o, d (R,3) against triangle rows tri
+    (R,9) = v0, e1, e2, pair by pair. Returns (reject (R,) bool, det, nu,
+    nv, nt). Where reject holds, the exact test of
+    ``_intersect_reference`` misses whatever the best t."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(-1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    rx = ox - v0x
+    ry = oy - v0y
+    rz = oz - v0z
+    nu = rx * px + ry * py + rz * pz
+    qx = ry * e1z - rz * e1y
+    qy = rz * e1x - rx * e1z
+    qz = rx * e1y - ry * e1x
+    nv = dx * qx + dy * qy + dz * qz
+    nt = e2x * qx + e2y * qy + e2z * qz
+    ad = det.abs()
+    pos = det > 0.0
+    su = torch.where(pos, nu, -nu)
+    sv = torch.where(pos, nv, -nv)
+    st = torch.where(pos, nt, -nt)
+    g = ad * 2.0 ** -64
+    reject = (~(ad > 1e-12) | (st <= 0.0) | (su <= -g) | (sv <= -g)
+              | (su + sv > ad * (1.0 + 2.0 ** -20)))
+    return reject, det, nu, nv, nt
+
 
 def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
     """What the kernel computes, vectorized over rays, with Python loops
@@ -132,12 +185,13 @@ def _lib():
     from pbrt_tpu_torch.ops import _build
 
     lib = _build.load("intersect")
-    fn = lib.intersect_launch
-    if fn.argtypes is None:
+    if lib.intersect_launch.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [i32] * 4 + [vp]
-        fn.restype = i32
-    return fn
+        lib.intersect_launch.argtypes = [vp] * 8 + [i32] * 5 + [vp]
+        lib.intersect_render_design.argtypes = []
+        for fn in (lib.intersect_launch, lib.intersect_render_design):
+            fn.restype = i32
+    return lib
 
 
 def _check(name, x, dtype, shape, device):
@@ -160,9 +214,19 @@ def intersect_brute(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
                                     n_pln)
     if o.device.type != "cuda":
         raise NotImplementedError(f"intersect_brute on {o.device}")
+    return _launch_design(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln,
+                          _lib().intersect_render_design())
+
+
+def _launch_design(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln, design):
+    """Launch the kernel of ``design`` (one of DESIGNS) on CUDA tensors;
+    ``intersect_brute`` launches the render path's. Every design gives the
+    same results bit for bit. Adds one to ``intersect_brute.launches``."""
     dev = o.device
     R = o.shape[0]
     f32 = torch.float32
+    if dev.type != "cuda" or design not in DESIGNS:
+        raise ValueError(f"design {design} on {dev}")
     if not (0 <= n_tri <= tri.shape[0] and 0 <= n_sph <= sph.shape[0]
             and 0 <= n_pln <= pln.shape[0] and R > 0
             and n_tri + n_sph + n_pln <= MAX_PRIMS):
@@ -177,9 +241,10 @@ def intersect_brute(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
     t = torch.empty(R, dtype=f32, device=dev)
     prim = torch.empty(R, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(tri.data_ptr(), sph.data_ptr(), pln.data_ptr(),
-                 o.data_ptr(), d.data_ptr(), tmax.data_ptr(), t.data_ptr(),
-                 prim.data_ptr(), R, n_tri, n_sph, n_pln, stream)
+    err = _lib().intersect_launch(
+        tri.data_ptr(), sph.data_ptr(), pln.data_ptr(), o.data_ptr(),
+        d.data_ptr(), tmax.data_ptr(), t.data_ptr(), prim.data_ptr(), R,
+        n_tri, n_sph, n_pln, design, stream)
     if err != 0:
         raise RuntimeError(f"intersect kernel launch failed: CUDA error "
                            f"{err}")
