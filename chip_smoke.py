@@ -101,25 +101,54 @@ Run from the root of a checkout, with no arguments:
    the 4-wide and the binary kernel from count mode; prints the matrix in
    ms, the steps per ray and the agreement with the binary twin, and
    checks that each kernel was launched exactly as often as the
-   experiments imply. Then prints a JSON line of the kernels (with each
-   kernel's roofline bound computed from this run's inputs) and
-   {"ok": true, "device": {...}} as the last line.
+   experiments imply.
+15. Scene files. (a) Runs the CLI, ``python -m pbrt_tpu_torch.utils.cli``,
+   as a subprocess on tests/oracle/{ao,deltalights,filter}_oracle.pbrt and
+   scenes/cornell_portal.pbrt at their own resolution, spp, sampler
+   (halton) and filter, each writing a PFM into a temporary directory;
+   reads it back, prints the parse / build / render (by CUDA events) /
+   write times and the kernel launches the CLI reports, checks the
+   launches the loop implies and holds each oracle image to the reference
+   binary's *_ref.pfm with tests/test_oracle.py's limits on the mean delta
+   and the block relative L1. (b) Renders the three oracle files
+   in-process (``load_pbrt`` + ``render``) at 16 spp, halton, seed 0, and
+   holds each image mean to pbrt_tpu's (REF_FILE_MEANS) to rel 1e-3. (c)
+   Parses the demo file and renders it with the independent sampler at the
+   main path's settings (256² × 64 spp, chunk 32, max_depth 4): two fused
+   launches, the mean within rel 1e-3 of REF_IMAGE_MEAN. (d) Writes a scene
+   file of phase 10's heightfield cornell (a 256×256 ``heightfield`` under
+   a y↔z transform, the cone as a ``trianglemesh`` with its normals, a
+   sphere, the area light on an ``aaplane``) and renders it through the CLI
+   at 256² × 64 spp: more than 256 triangles, so a BVH; 26 launches each of
+   the traversal and the brute-force kernel; its mean equal to phase 10's
+   render of ``_heightfield_cornell()`` to rel 1e-3. (e) Renders a small
+   scene of disks (intersected outside the kernels) with `path` and `ao`
+   on the card and on the CPU twins: means to rel 1e-4.
+   Then prints a JSON line of the kernels (with each kernel's roofline
+   bound computed from this run's inputs, and the scene files' numbers
+   under "scene_files") and {"ok": true, "device": {...}} as the last
+   line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from pbrt_tpu_torch import entry
+from pbrt_tpu_torch.frontend import load_pbrt
 from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import bvh as bk
@@ -132,6 +161,7 @@ from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder
 from pbrt_tpu_torch.tools import kexp_kernels as kk
 from pbrt_tpu_torch.tools import kexp_prep, kexp_run
+from pbrt_tpu_torch.utils import imageio
 
 W = H = 256
 SPP = 64
@@ -162,6 +192,28 @@ REF_LOOP_MEANS = {
 # is too slow for 256² × 64 spp, so the mean is held at this size and the
 # full-width render is checked for its launches, shape and finiteness.
 REF_BVH_MEAN = {("heightfield_cornell", "path", 64, 4): 0.3574122070165071}
+# pbrt_tpu's float32 image means on the CPU backend for three scene files
+# at their own resolution, integrator, max depth and filter, 16 spp, the
+# halton sampler, seed 0, printed by ``PYTHONPATH=. python
+# tests/test_torch_oracle.py``.
+REF_FILE_MEANS = {"ao": 1.4939268395117122,
+                  "deltalights": 0.44327428357883036,
+                  "filter": 0.04002022001221612}
+# The scene-file phase: (file, the CLI's expected launches of the
+# brute-force kernel as (queries per pass, passes), mean-delta and block
+# rel-L1 limits against the reference binary (tests/test_oracle.py's), or
+# None where there is no reference image). Per pass, ao traces a closest
+# hit and a probe; path traces per full bounce a closest hit, the NEE ray
+# and, with a light without portals, the BSDF half's ray, then the
+# emission-only last bounce's closest hit. The CLI's passes hold 2^21 lanes.
+SCENE_FILES = {
+    "ao": ("tests/oracle/ao_oracle.pbrt", (2, 1), (0.01, 0.05)),
+    "deltalights": ("tests/oracle/deltalights_oracle.pbrt", (4 * 2 + 1, 2),
+                    (0.01, 0.03)),
+    "filter": ("tests/oracle/filter_oracle.pbrt", (3 * 3 + 1, 1),
+               (0.025, 0.04)),
+    "cornell_portal": ("scenes/cornell_portal.pbrt", (4 * 2 + 1, 1), None),
+}
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts as
 # two, so code built without multiply-add contraction can reach half).
@@ -1044,6 +1096,255 @@ def run_harness(scenes, n_rays, res, dev):
     return matrix, steps, agree, warp, (n_kexp, n_new, n_binary, 1)
 
 
+# ---------------------------------------------------------------------------
+# 15. scene files
+# ---------------------------------------------------------------------------
+
+def _block_rel_l1(a, b, k=16):
+    """tests/test_oracle.py's blockwise relative L1."""
+    h, w = a.shape[0] // k * k, a.shape[1] // k * k
+    da = a[:h, :w].reshape(h // k, k, w // k, k, -1).mean((1, 3))
+    db = b[:h, :w].reshape(h // k, k, w // k, k, -1).mean((1, 3))
+    return float(np.abs(da - db).sum() / max(db.sum(), 1e-9))
+
+
+def _mean_delta(a, b):
+    """imgtool diff's avgDelta (imgtool.cpp:418-420)."""
+    ma, mb = float(a.mean()), float(b.mean())
+    return abs(ma - mb) / max(min(ma, mb), 1e-9)
+
+
+def run_cli(scene_file, out):
+    """The CLI in a subprocess on the card; returns its summary line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbrt_tpu_torch.utils.cli", scene_file, "-o",
+         out], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI on {scene_file}:\n{proc.stderr}")
+    lines = [ln for ln in proc.stderr.splitlines()
+             if ln.startswith("pbrt_tpu_torch: summary ")]
+    check(len(lines) == 1, f"no summary from the CLI on {scene_file}")
+    summary = json.loads(lines[0][len("pbrt_tpu_torch: summary "):])
+    summary["process_s"] = wall
+    return summary
+
+
+def _floats(a):
+    return " ".join(f"{float(v):.9g}" for v in np.asarray(a).reshape(-1))
+
+
+def write_heightfield_file(path):
+    """Phase 10's scene, ``entry._heightfield_cornell()``, as a .pbrt
+    file: its triangles in the builder's order, the heightfield as a
+    256×256 ``heightfield`` under the y↔z swap the builder applies, the
+    cone as a ``trianglemesh`` of the same vertices and normals (the
+    parser's cone has fewer rings), then the sphere and the light."""
+    from pbrt_tpu_torch.scene import tessellate
+    quad = "[0 1 2 0 2 3]"
+    lines = ['Film "image" "integer xresolution" [256] '
+             '"integer yresolution" [256]',
+             'Sampler "independent" "integer pixelsamples" [64]',
+             'Integrator "path" "integer maxdepth" [4]',
+             "LookAt 0.5 0.5 -1.4  0.5 0.5 1.0  0 1 0",
+             'Camera "perspective" "float fov" [40]', "WorldBegin"]
+
+    def mesh(kd, verts, idx="[0 1 2 0 2 3]", extra=""):
+        lines.extend(["AttributeBegin",
+                      f'Material "matte" "rgb Kd" [{_floats(kd)}]',
+                      f'Shape "trianglemesh" "integer indices" {idx}',
+                      f'  "point P" [{_floats(verts)}]{extra}',
+                      "AttributeEnd"])
+    for verts, kd in zip(entry._WALLS[1:], (entry._WHITE, entry._RED,
+                                            entry._GREEN)):
+        mesh(kd, verts)
+    mesh(entry._WHITE, [(0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1)])
+    n = 256
+    z = entry._floor_heights(n).astype(np.float32)
+    lines.extend(["AttributeBegin",
+                  'Material "matte" "rgb Kd" [0.55 0.5 0.35]',
+                  "Transform [1 0 0 0  0 0 1 0  0 1 0 0  0 0 0 1]",
+                  f'Shape "heightfield" "integer nu" [{n}] '
+                  f'"integer nv" [{n}]',
+                  f'  "float Pz" [{_floats(z)}]', "AttributeEnd"])
+    verts, faces, norms = tessellate.tessellate_cone(
+        radius=0.12, height=0.35, n_phi=64, n_z=24)
+    base = np.asarray([0.68, 0.03, 0.55], np.float32)
+    mesh((0.3, 0.4, 0.7), verts[:, [0, 2, 1]] + base,
+         idx=f"[{' '.join(str(int(i)) for i in faces.reshape(-1))}]",
+         extra=f'\n  "normal N" [{_floats(norms[:, [0, 2, 1]])}]')
+    lines.extend(["AttributeBegin", 'Material "matte" "rgb Kd" [0 0 0]',
+                  'AreaLightSource "diffuse" "rgb L" [15 13 9]',
+                  'Shape "aaplane" "point lo" [0.3 0.99 0.35] '
+                  '"point hi" [0.7 0.99 0.65] "integer axis" [1] '
+                  '"bool facingFw" "false"', "AttributeEnd",
+                  "AttributeBegin",
+                  f'Material "matte" "rgb Kd" [{_floats(entry._WHITE)}]',
+                  "Translate 0.32 0.25 0.45",
+                  'Shape "sphere" "float radius" [0.13]', "AttributeEnd",
+                  "WorldEnd"])
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+# a small scene of disks (one a ring) over a floor, with a sphere and a
+# point light: disks are intersected outside the kernels, in plain torch
+DISK_SCENE = """
+Film "image" "integer xresolution" [64] "integer yresolution" [64]
+Sampler "halton" "integer pixelsamples" [4]
+Integrator "path" "integer maxdepth" [3]
+LookAt 0.3 2.2 -3  0 0.4 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+LightSource "point" "rgb I" [8 8 8] "point from" [0.5 3 -0.5]
+Material "matte" "rgb Kd" [0.6 0.5 0.4]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-2 0 -2  2 0 -2  2 0 2  -2 0 2]
+Translate 0 0.5 0
+Shape "sphere" "float radius" [0.3]
+Rotate 70 1 0.2 0
+Shape "disk" "float radius" [0.9] "float innerradius" [0.35]
+Translate 0.4 0 0.1
+Shape "disk" "float radius" [0.5] "float height" [0.2]
+WorldEnd
+"""
+
+
+def disks_on_the_card(dev):
+    """The disk scene through ``path`` and ``ao`` on the card against the
+    port's CPU twins in the same call: image means to rel 1e-4."""
+    from pbrt_tpu_torch.frontend import parse_pbrt_string
+    out = {}
+    for integrator in ("path", "ao"):
+        means = {}
+        for d in (dev, torch.device("cpu")):
+            scene, cam, opts = parse_pbrt_string(DISK_SCENE, device=d)
+            check(scene.n_dsk == 2, "the disk scene")
+            ik.intersect_brute.launches = 0
+            img = render_mod.render(scene, cam, spp=4, integrator=integrator,
+                                    sampler="halton", max_depth=3, device=d)
+            check(bool(torch.isfinite(img).all()), "non-finite disk image")
+            means[d.type] = float(img.double().mean())
+            if d.type == "cuda":
+                launches = ik.intersect_brute.launches
+        rel = abs(means["cuda"] - means["cpu"]) / means["cpu"]
+        out[integrator] = {"mean": means["cuda"], "cpu_mean": means["cpu"],
+                           "rel": rel, "launches": launches}
+        print(f"disk scene {integrator} 64² × 4 spp: " + json.dumps(
+            out[integrator]))
+        check(launches > 0 and rel < 1e-4,
+              f"disk scene {integrator}: {out[integrator]}")
+    return out
+
+
+def scene_files(dev, hf_mean, hf_tris):
+    """Phase 15: the CLI on the scene files, in-process halton renders of
+    the oracle files, the demo file on the fused kernel and a written
+    BVH-scale file. Returns the numbers for the JSON line."""
+    out = {"cli": {}, "in_process": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI on each file at full width
+        for name, (path, (per_pass, passes), limits) in SCENE_FILES.items():
+            pfm = os.path.join(tmp, f"{name}.pfm")
+            sm = run_cli(path, pfm)
+            img = imageio.read_pfm(pfm)
+            check(list(img.shape) == sm["shape"] and np.isfinite(img).all(),
+                  f"{name}: image {img.shape}")
+            want = per_pass * passes
+            lc = sm["launches"]
+            check(lc["intersect_brute"] == want and lc["fused_bounce"] == 0
+                  and lc["bvh_traverse"] == 0,
+                  f"{name}: launches {lc}, the loop implies {want} "
+                  "brute-force launches")
+            row = {k: sm[k] for k in ("parse_s", "build_s", "render_s",
+                                      "render_cuda_ms", "write_s",
+                                      "process_s", "launches", "spp",
+                                      "mean", "prims")}
+            if limits is not None:
+                ref = imageio.read_pfm(path.replace("_oracle.pbrt",
+                                                    "_ref.pfm"))
+                row["md"] = _mean_delta(img, ref)
+                row["bl"] = _block_rel_l1(img, ref, k=16)
+                check(row["md"] < limits[0] and row["bl"] < limits[1],
+                      f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs "
+                      f"the limits {limits}")
+            print(f"scene file {name} (CLI): " + json.dumps(row))
+            out["cli"][name] = row
+        # (d) a BVH-scale file the script writes
+        hpath = os.path.join(tmp, "heightfield_cornell.pbrt")
+        t0 = time.perf_counter()
+        write_heightfield_file(hpath)
+        t_write_file = time.perf_counter() - t0
+        sm = run_cli(hpath, os.path.join(tmp, "heightfield_cornell.pfm"))
+        lc = sm["launches"]
+        want = (MAX_DEPTH * 3 + 1) * (SPP // CHUNK)
+        rel = abs(sm["mean"] - hf_mean) / hf_mean
+        row = {k: sm[k] for k in ("parse_s", "build_s", "render_s",
+                                  "render_cuda_ms", "write_s", "process_s",
+                                  "launches", "spp", "mean", "prims")}
+        row.update(file_mb=os.path.getsize(hpath) / 2**20,
+                   file_write_s=t_write_file, ref_mean=hf_mean, rel=rel)
+        print("scene file heightfield_cornell (written, CLI): "
+              + json.dumps(row))
+        check(sm["prims"]["tri"] == hf_tris and sm["prims"]["bvh"],
+              f"the written scene: {sm['prims']}, phase 10 has {hf_tris} "
+              "triangles")
+        check(lc["bvh_traverse"] == want and lc["intersect_brute"] == want
+              and lc["fused_bounce"] == 0,
+              f"written heightfield: launches {lc}, the loop implies {want}")
+        check(rel < 1e-3, f"written heightfield mean {sm['mean']!r} vs "
+              f"_heightfield_cornell()'s {hf_mean!r}: rel {rel}")
+        out["cli"]["heightfield_cornell"] = row
+    # (b) in-process halton renders against pbrt_tpu's means
+    for name, (path, _, _) in SCENE_FILES.items():
+        if name not in REF_FILE_MEANS:
+            continue
+        t0 = time.perf_counter()
+        scene, cam, opts = load_pbrt(path, device=dev)
+        fname, fkw = opts["filter"]
+        ik.intersect_brute.launches = 0
+        img = render_mod.render(scene, cam, spp=16,
+                                integrator=opts["integrator"],
+                                sampler="halton",
+                                max_depth=opts["max_depth"],
+                                filter_name=fname, filter_kwargs=fkw,
+                                seed=0, device=dev)
+        torch.cuda.synchronize()
+        mean = float(img.double().mean())
+        rel = abs(mean - REF_FILE_MEANS[name]) / REF_FILE_MEANS[name]
+        row = {"mean": mean, "ref": REF_FILE_MEANS[name], "rel": rel,
+               "launches": ik.intersect_brute.launches,
+               "s": time.perf_counter() - t0}
+        print(f"scene file {name} in process, 16 spp halton: "
+              + json.dumps(row))
+        check(ik.intersect_brute.launches > 0, f"{name}: no launch")
+        check(rel < 1e-3, f"{name}: mean off pbrt_tpu's by rel {rel}")
+        out["in_process"][name] = row
+    # (c) the demo file on the fused kernel at the main path's settings
+    scene, cam, opts = load_pbrt("scenes/cornell_portal.pbrt", device=dev)
+    cam = dataclasses.replace(cam, resolution=(W, H))
+    check(scene.fused_profile is not None, "the demo file is not fused")
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    img = render_mod.render(scene, cam, spp=SPP, integrator="path",
+                            sampler="independent", max_depth=MAX_DEPTH,
+                            chunk_spp=CHUNK, seed=0, device=dev)
+    mean = float(img.mean())
+    rel = abs(mean - REF_IMAGE_MEAN) / REF_IMAGE_MEAN
+    row = {"mean": mean, "ref": REF_IMAGE_MEAN, "rel": rel,
+           "launches": fp.fused_bounce.launches}
+    print("scene file cornell_portal, independent sampler, the main path's "
+          "settings: " + json.dumps(row))
+    check(fp.fused_bounce.launches == SPP // CHUNK
+          and ik.intersect_brute.launches == 0,
+          f"demo file: {fp.fused_bounce.launches} fused launches")
+    check(rel < 1e-3, f"demo file mean off REF_IMAGE_MEAN by rel {rel}")
+    out["demo_fused"] = row
+    out["disks"] = disks_on_the_card(dev)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1635,6 +1936,12 @@ def main():
           f"{expected}")
     check(fp.fused_bounce.launches == 0, "fused launches in the harness")
 
+    # ---- 15. scene files
+    t0 = time.perf_counter()
+    files = scene_files(dev, mean_full, hf.n_tri)
+    files["phase_s"] = time.perf_counter() - t0
+    print(f"scene-file phase {files['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -1710,7 +2017,8 @@ def main():
         "bound_ms": bound_ms(2 * 4 * 8 * kk.LANES, 8 * kk.LANES)[0],
         "bound_by": "bytes", "library_ms": probe["library_ms"],
         "device_ms": probe["device_ms"],
-        "library_device_ms": probe["library_device_ms"]}]}))
+        "library_device_ms": probe["library_device_ms"]}],
+        "scene_files": files}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,15 +50,15 @@ def bvh_from_jax(bvh, device="cpu"):
 
 
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {k: getattr(scene, k, 0) for k in ("n_dsk", "n_crv", "n_vprims")}
+    extra = {k: getattr(scene, k, 0) for k in ("n_crv", "n_vprims")}
     extra.update({k: getattr(scene, k, None) is not None
                   for k in ("textures", "inst", "sss")})
     extra.update({k: bool(getattr(scene, k, False))
                   for k in ("has_motion", "has_sss", "media", "fourier")})
     if any(extra.values()):
         raise NotImplementedError(
-            f"bridge: only triangles, spheres and aaplanes without media, "
-            f"textures or motion are ported ({extra})")
+            f"bridge: only triangles, spheres, aaplanes and disks without "
+            f"media, textures or motion are ported ({extra})")
     g, m, lt = scene.geom, scene.materials, scene.lights
     if (np.asarray(m.mtype) != MATTE).any():
         raise NotImplementedError("bridge: only matte material rows are "
@@ -71,7 +71,8 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         geom=Geometry(**{k: _t(getattr(g, k), device) for k in (
             "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
             "tri_uv0", "tri_uv1", "tri_uv2", "sph_center", "sph_radius",
-            "pln_lo", "pln_hi", "pln_ax", "pln_facing")}),
+            "pln_lo", "pln_hi", "pln_ax", "pln_facing", "dsk_center",
+            "dsk_normal", "dsk_radius", "dsk_inner")}),
         prim_mat=_t(scene.prim_mat, device),
         prim_light=_t(scene.prim_light, device),
         materials=MaterialTable(mtype=_t(m.mtype, device),
@@ -89,7 +90,7 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         world_hi=_t(scene.world_hi, device),
         n_tri=int(scene.n_tri), n_sph=int(scene.n_sph),
         n_pln=int(scene.n_pln), n_channels=int(scene.n_channels),
-        bvh=bvh_from_jax(scene.bvh, device),
+        bvh=bvh_from_jax(scene.bvh, device), n_dsk=int(scene.n_dsk),
         fused_profile=scene.fused_profile)
 
 
@@ -110,6 +111,8 @@ def camera_from_jax(cam, device="cpu") -> Camera:
 
 
 def filter_from_jax(filt, device="cpu") -> Filter:
-    if not filt.is_box:
-        raise NotImplementedError("bridge: tabulated filters are not ported")
-    return Filter(radius=_t(filt.radius, device))
+    if filt.is_box:
+        return Filter(radius=_t(filt.radius, device))
+    return Filter(radius=_t(filt.radius, device), is_box=False,
+                  **{k: _t(getattr(filt, k), device) for k in (
+                      "inv_cdf", "inv_cdf_y", "w_x", "w_y")})

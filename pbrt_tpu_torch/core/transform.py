@@ -1,5 +1,9 @@
 """4x4 transforms (port of pbrt_tpu/core/transform.py:29-129).
 
+``look_at_matrix`` and ``rotate_matrix`` are host numpy: the scene parser
+keeps its current transformation matrix in float64 and takes these
+matrices as pbrt_tpu rounds them (LookAt and Rotate through float32).
+
 Applying a transform is a (R,3)·(3,3) product, left to ``torch.matmul``.
 TF32 would keep only about three decimal digits of a float32 product on
 the GPU, so this module turns it off for matmul and cuDNN alike: the
@@ -48,9 +52,21 @@ def from_matrix(m, device="cpu") -> Transform:
     return _from_np(m, np.linalg.inv(m), device)
 
 
-def look_at(eye, look, up, device="cpu") -> Transform:
-    """transform.cpp LookAt: camera-to-world (host math in float64, as
-    pbrt_tpu does, then rounded to float32)."""
+def rotate_matrix(theta_deg: float, axis) -> np.ndarray:
+    """transform.cpp Rotate about ``axis`` (Rodrigues, float64), rounded
+    to float32."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    s, c = np.sin(np.radians(theta_deg)), np.cos(np.radians(theta_deg))
+    m = np.eye(4)
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    m[:3, :3] = c * np.eye(3) + s * K + (1 - c) * np.outer(a, a)
+    return m.astype(np.float32)
+
+
+def look_at_matrix(eye, look, up) -> np.ndarray:
+    """transform.cpp LookAt: the camera-to-world matrix in float64, as
+    pbrt_tpu computes it before rounding."""
     eye = np.asarray(eye, np.float64)
     look = np.asarray(look, np.float64)
     up = np.asarray(up, np.float64)
@@ -70,5 +86,12 @@ def look_at(eye, look, up, device="cpu") -> Transform:
     m[:3, 1] = new_up
     m[:3, 2] = d
     m[:3, 3] = eye
+    return m
+
+
+def look_at(eye, look, up, device="cpu") -> Transform:
+    """transform.cpp LookAt: camera-to-world (host math in float64, as
+    pbrt_tpu does, then rounded to float32)."""
+    m = look_at_matrix(eye, look, up)
     return _from_np(m.astype(np.float32),
                     np.linalg.inv(m).astype(np.float32), device)

@@ -6,11 +6,13 @@ render_pass and render).
 ``render_pass`` evaluates ``chunk`` samples of every pixel in one batch
 of rays: the (pixel, sample) lane layout, the pcg4d sample dimensions and
 the film reduction are pbrt_tpu's, so both packages trace the same rays.
-``render`` loops over spp chunks. `path` runs the fused path-bounce kernel
-(ops/fused_path.py) on scenes inside its profile; every other scene and
-integrator goes through the generic wavefront loop ``_li_loop``, whose
-closest-hit queries run on the brute-force intersection kernel
-(ops/intersect.py).
+``render`` loops over spp chunks, over the whole film or a crop window.
+`path` runs the fused path-bounce kernel (ops/fused_path.py) on scenes
+inside its profile (the independent sampler only); every other scene,
+sampler and integrator goes through the generic wavefront loop
+``_li_loop``, whose closest-hit queries run on the brute-force
+intersection kernel (ops/intersect.py) or, on a scene with a BVH, the
+traversal kernel (ops/bvh.py).
 """
 
 from __future__ import annotations
@@ -148,6 +150,9 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     R = o.shape[0]
     C = scene.n_channels
     dev = o.device
+    # pbrt_tpu traces these dims inside its fori_loop; a sampler with a
+    # second formula for traced dims (halton) gives it as ``in_loop``
+    sfn = getattr(sfn, "in_loop", sfn)
     L = torch.zeros((R, C), device=dev)
     beta = torch.ones((R, C), device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
@@ -237,16 +242,19 @@ _INTEGRATORS = {"path": li_path, "direct": li_direct,
 
 
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
-                chunk: int, spp_offset: int, device):
-    """The pass's lanes: lane r = s·W·H + pixel. Returns (rays, pid, sidx,
-    filter weight)."""
-    n_pix = width * height
+                chunk: int, spp_offset: int, device, crop=None):
+    """The pass's lanes: lane r = s·(pixels) + pixel, over the whole image
+    or the ``crop`` = (px0, py0, wc, hc) pixel bounds. The pixel id is
+    always the full image's, so a crop draws the same samples as the full
+    frame. Returns (rays, pid, sidx, filter weight)."""
+    px0, py0, wc, hc = crop if crop is not None else (0, 0, width, height)
+    n_pix = wc * hc
     lid = torch.arange(n_pix, dtype=torch.int64, device=device).repeat(chunk)
     sidx = (torch.arange(chunk, dtype=torch.int64, device=device)
             .repeat_interleave(n_pix) + int(spp_offset))
     sfn = make_sampler(cfg.sampler, resolution=(width, height))
-    px = (lid % width).to(torch.float32)
-    py = (lid // width).to(torch.float32)
+    px = (px0 + lid % wc).to(torch.float32)
+    py = (py0 + lid // wc).to(torch.float32)
     pid = py.to(torch.int64) * width + px.to(torch.int64)
     u_film = _sample2(sfn, pid, sidx, (0, 1), cfg.seed)
     off, w_filt = film_mod.sample_filter_offset(filt, u_film)
@@ -259,10 +267,13 @@ def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
 
 def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
                 chunk: int, spp_offset: int, device="cuda",
-                power_distr=None) -> torch.Tensor:
+                power_distr=None, crop=None, check_finite=False
+                ) -> torch.Tensor:
     """Evaluate `chunk` samples for every pixel; returns the (H,W,C) sum
-    of filter-weighted radiance (divide by the total spp outside). The
-    scene, camera and filter must already live on ``device``."""
+    of filter-weighted radiance (divide by the total spp outside), or the
+    (hc,wc,C) sum over ``crop`` = (px0, py0, wc, hc), the cropped pixel
+    bounds (Film::croppedPixelBounds, core/film.cpp:58-66). The scene,
+    camera and filter must already live on ``device``."""
     device = require_device(device)
     if cfg.integrator not in _INTEGRATORS:
         raise NotImplementedError(
@@ -271,18 +282,33 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
         raise NotImplementedError(
             f"light strategy {cfg.light_strategy!r}: ROADMAP queue 1 item 9")
     rays, pid, sidx, w_filt = camera_rays(cam, filt, cfg, width, height,
-                                          chunk, spp_offset, device)
+                                          chunk, spp_offset, device, crop)
     sfn = make_sampler(cfg.sampler, resolution=(width, height))
     if power_distr is None and cfg.light_strategy == "power":
         power_distr = lights_mod.power_distribution(scene.lights)
     L = _INTEGRATORS[cfg.integrator](scene, rays.o, rays.d, pid, sidx, sfn,
                                      cfg, power_distr)
+    if check_finite and not bool(torch.isfinite(L).all()):
+        raise FloatingPointError(
+            f"non-finite radiance in the pass at spp offset {spp_offset}")
     # clamp NaN/negative/inf to black (integrator.cpp:592-613)
     bad = (~torch.isfinite(L)).any(-1) | (L.sum(-1) < -1e-5)
     L = torch.where(bad[..., None], 0.0, L)
     contrib = L * w_filt[..., None]
-    img = contrib.reshape(chunk, width * height, -1).sum(0)
-    return img.reshape(height, width, -1)
+    _, _, wc, hc = crop if crop is not None else (0, 0, width, height)
+    img = contrib.reshape(chunk, wc * hc, -1).sum(0)
+    return img.reshape(hc, wc, -1)
+
+
+def crop_bounds(crop_window, width: int, height: int):
+    """(x0, x1, y0, y1) NDC fractions → (px0, py0, wc, hc) pixel bounds
+    (Film::croppedPixelBounds, core/film.cpp:58-66)."""
+    x0, x1, y0, y1 = [float(v) for v in crop_window]
+    px0 = int(math.ceil(width * min(x0, x1)))
+    px1 = max(px0 + 1, int(math.ceil(width * max(x0, x1))))
+    py0 = int(math.ceil(height * min(y0, y1)))
+    py1 = max(py0 + 1, int(math.ceil(height * max(y0, y1))))
+    return (px0, py0, min(px1, width) - px0, min(py1, height) - py0)
 
 
 def render(scene, cam, spp: int = 16, integrator: str = "path",
@@ -290,13 +316,23 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
            filter_kwargs: dict | None = None, max_depth: int = 5,
            seed: int = 0, chunk_spp: int | None = None,
            light_strategy: str = "uniform", rr_threshold: float = 1.0,
-           crop_window=None, device="cuda") -> torch.Tensor:
+           crop_window=None, integrator_params=None, check_finite=False,
+           progress=None, device="cuda") -> torch.Tensor:
     """Full render → (H, W, C) radiance image on ``device``, looping over
     spp chunks of ``chunk_spp`` samples per pixel. Runs on the card unless
     the caller asks for ``device="cpu"``, and raises when there is no
-    card."""
-    if crop_window is not None:
-        raise NotImplementedError("crop windows: ROADMAP queue 1 item 7")
+    card.
+
+    ``crop_window`` = (x0, x1, y0, y1) NDC fractions (Film "float
+    cropwindow"); the image is then the cropped region only, with the
+    full frame's samples. ``integrator_params`` is the scene file's
+    Integrator ParamSet, as pbrt_tpu's ``render`` takes it; the ported
+    integrators read nothing from it (pbrt_tpu reads it only for bdpt,
+    mlt and sppm). ``check_finite`` raises on the first pass whose
+    radiance holds a NaN or an infinity, before the clamp to black (the
+    CLI's ``--debug-nans``). ``progress`` (a
+    ``utils.progress.ProgressReporter``) advances by each pass's spp."""
+    del integrator_params   # read only by integrators not ported yet
     device = require_device(device)
     width, height = cam.resolution
     scene = to_device(scene, device)
@@ -308,15 +344,24 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
                        light_strategy=light_strategy,
                        rr_threshold=rr_threshold)
     if chunk_spp is None:
-        # bound the rays per pass: ~2M lanes fill the GPU; the CPU twin
-        # materializes per-lane intermediates, so keep its passes small
-        target = 2_000_000 if device.type == "cuda" else 65_536
+        # bound the rays per pass: 2^21 lanes fill the GPU (32 spp of a
+        # 256² film, the main path's chunk); the CPU twin materializes
+        # per-lane intermediates, so keep its passes small
+        target = 2_097_152 if device.type == "cuda" else 65_536
         chunk_spp = max(1, min(spp, target // (width * height) or 1))
-    img = torch.zeros((height, width, scene.n_channels), device=device)
+    crop = (crop_bounds(crop_window, width, height)
+            if crop_window is not None else None)
+    _, _, wc, hc = crop if crop is not None else (0, 0, width, height)
+    img = torch.zeros((hc, wc, scene.n_channels), device=device)
     done = 0
     while done < spp:
         c = min(chunk_spp, spp - done)
         img = img + render_pass(scene, cam, filt, cfg, width, height, c,
-                                done, device)
+                                done, device, crop=crop,
+                                check_finite=check_finite)
         done += c
+        if progress is not None:
+            progress.update(c)
+    if progress is not None:
+        progress.finish()
     return img / spp

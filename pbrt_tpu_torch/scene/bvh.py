@@ -349,8 +349,8 @@ def intersect_bvh(scene, o, d, tmax):
     """Closest hit of a scene with a BVH: the triangles through the
     traversal kernel, then the spheres and aaplanes brute force with the
     traversal's ``best_t`` as their tmax (the kernel's strict ``t <
-    best_t`` is pbrt_tpu's update rule ``anyh & (tb < best_t)``). The query
-    is not differentiated."""
+    best_t`` is pbrt_tpu's update rule ``anyh & (tb < best_t)``), then the
+    disks in plain torch. The query is not differentiated."""
     from pbrt_tpu_torch.scene import intersect as isect_mod
 
     with torch.no_grad():
@@ -363,6 +363,8 @@ def intersect_bvh(scene, o, d, tmax):
         if scene.n_sph or scene.n_pln:
             best_t, prim_b = _brute_families(scene, o_q, d_q, best_t)
             prim_id = torch.where(prim_b >= 0, prim_b + scene.n_tri, prim_id)
+        best_t, prim_id = isect_mod.closest_disk(scene, o_q, d_q, best_t,
+                                                 prim_id)
     return isect_mod.finalize_hit(scene, o, d, best_t, prim_id)
 
 
@@ -373,4 +375,7 @@ def intersect_p_bvh(scene, o, d, tmax):
         occ = bvh_intersect_p_tris(scene.bvh, o_q, d_q, tmax_q)
         if scene.n_sph or scene.n_pln:
             occ = occ | (_brute_families(scene, o_q, d_q, tmax_q)[1] >= 0)
+        if scene.n_dsk:
+            from pbrt_tpu_torch.scene import intersect as isect_mod
+            occ = occ | isect_mod.any_disk(scene, o_q, d_q, tmax_q)
     return occ

@@ -8,10 +8,14 @@ pbrt_tpu chooses them:
   ``SceneBuilder.build`` for more than 256 triangles) sends its triangle
   queries through the traversal kernel of ops/bvh.py and its spheres and
   aaplanes through the brute-force kernel (scene/bvh.py).
-- **Brute force**: a scene without one, of at most 4096 primitives, goes
-  through the brute-force kernel of ops/intersect.py as a whole.
+- **Brute force**: a scene without one, of at most 4096 triangles,
+  spheres and aaplanes, goes through the brute-force kernel of
+  ops/intersect.py as a whole.
 
 On a CUDA tensor these are the kernels, on a CPU tensor their twins.
+Disks stay outside the kernels, as in pbrt_tpu: after the kernel's
+closest hit, ``closest_disk`` tests every disk in plain torch with the
+kernel's ``t`` as its bound, and the any-hit query ORs in a disk hit.
 ``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
 and tangents. A kd-tree accelerator is not ported and raises.
 """
@@ -44,7 +48,7 @@ def _closest(scene, o, d, tmax):
     """(t, prim) of the closest hit, through the brute-force kernel. Not
     differentiated: the estimator differentiates the integrand, not the
     sampled hit distances."""
-    if scene.n_prims > ik.MAX_PRIMS:
+    if scene.n_tri + scene.n_sph + scene.n_pln > ik.MAX_PRIMS:
         raise NotImplementedError(
             f"a scene of more than {ik.MAX_PRIMS} primitives without a BVH "
             "(only triangles go into one; instancing: ROADMAP queue 1 item "
@@ -57,11 +61,39 @@ def _closest(scene, o, d, tmax):
             scene.n_pln)
 
 
+def _disk_hits(scene, o, d, tmax):
+    g = scene.geom
+    with torch.no_grad():
+        return shapes.intersect_disks(o.detach(), d.detach(), tmax.detach(),
+                                      g.dsk_center, g.dsk_normal,
+                                      g.dsk_radius, g.dsk_inner)
+
+
+def closest_disk(scene, o, d, best_t, prim_id):
+    """Fold the disks into a closest hit (best_t, prim_id): pbrt_tpu's
+    family update ``any & (tb < best_t)`` with the first disk of least t."""
+    if not scene.n_dsk:
+        return best_t, prim_id
+    t, h = _disk_hits(scene, o, d, best_t)
+    tb, idx = torch.where(h, t, shapes.BIG).min(dim=-1)
+    upd = (tb < shapes.BIG) & (tb < best_t)
+    base = scene.n_tri + scene.n_sph + scene.n_pln
+    return (torch.where(upd, tb, best_t),
+            torch.where(upd, base + idx.to(prim_id.dtype), prim_id))
+
+
+def any_disk(scene, o, d, tmax):
+    """Does any disk block the segment below tmax? (R,) bool."""
+    if not scene.n_dsk:
+        return torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    return _disk_hits(scene, o, d, tmax)[1].any(-1)
+
+
 def intersect(scene, o, d, tmax) -> Hit:
     """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...)."""
     if _has_bvh(scene):
         return bvh_mod.intersect_bvh(scene, o, d, tmax)
-    t, prim = _closest(scene, o, d, tmax)
+    t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax))
     return finalize_hit(scene, o, d, t, prim)
 
 
@@ -69,7 +101,8 @@ def intersect_p(scene, o, d, tmax):
     """Any-hit (shadow) query → occluded mask (R,)."""
     if _has_bvh(scene):
         return bvh_mod.intersect_p_bvh(scene, o, d, tmax)
-    return _closest(scene, o, d, tmax)[1] >= 0
+    occ = _closest(scene, o, d, tmax)[1] >= 0
+    return occ | any_disk(scene, o, d, tmax) if scene.n_dsk else occ
 
 
 def finalize_hit(scene, o, d, t, prim_id) -> Hit:
@@ -152,6 +185,13 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
         npln = shapes.aaplane_normal(g.pln_ax[pi], g.pln_facing[pi])
         ng = torch.where(is_pln, npln, ng)
         ns = torch.where(is_pln, npln, ns)
+    if scene.n_dsk:
+        base = nt + nsp + npl
+        di = (prim_id - base).clamp(0, scene.n_dsk - 1)
+        is_dsk = (valid & (prim_id >= base)
+                  & (prim_id < base + scene.n_dsk))[..., None]
+        ng = torch.where(is_dsk, g.dsk_normal[di], ng)
+        ns = torch.where(is_dsk, g.dsk_normal[di], ns)
 
     # the geometric normal keeps its own orientation (as pbrt's); the
     # shading normal is flipped to its side

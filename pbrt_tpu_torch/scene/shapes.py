@@ -1,11 +1,12 @@
 """Hit records, per-ray (paired) shape tests and area sampling (port of
-the triangle, sphere and aaplane parts of pbrt_tpu/scene/shapes.py).
+the triangle, sphere, aaplane and disk parts of pbrt_tpu/scene/shapes.py).
 
 pbrt_tpu's all-pairs ``intersect_triangles / _spheres / _aaplanes`` have
 no counterpart here: the brute-force closest hit over the whole scene is
 the kernel of ops/intersect.py (and its plain-torch twin). What remains
-are the routines that work on ONE primitive per ray, gathered beforehand:
-light sampling, Pdf_Li and the portal samplers.
+are the routines that work on ONE primitive per ray, gathered beforehand
+(light sampling, Pdf_Li and the portal samplers), and the all-pairs disk
+test, which pbrt_tpu, too, runs outside its kernel.
 """
 
 from __future__ import annotations
@@ -251,3 +252,22 @@ def aaplane_in_front(p, lo, ax, facing_fw):
     p_ax = take_axis(p, ax)
     lo_ax = take_axis(lo, ax)
     return torch.where(facing_fw, p_ax > lo_ax, p_ax < lo_ax)
+
+
+# ---------------------------------------------------------------------------
+# Disks (shapes/disk.cpp): world-space center, unit normal, radii
+# ---------------------------------------------------------------------------
+
+def intersect_disks(o, d, tmax, center, normal, radius, inner_radius):
+    """All-pairs ray×disk. o, d: (R,3); tmax: (R,); center, normal: (D,3);
+    radius, inner_radius: (D,). Returns (t, hit): (R,D)."""
+    denom = torch.sum(d[:, None, :] * normal[None], dim=-1)
+    ok = denom.abs() > 1e-12
+    t = torch.sum((center[None] - o[:, None, :]) * normal[None], dim=-1) \
+        / torch.where(ok, denom, 1e-12)
+    p = o[:, None, :] + t[..., None] * d[:, None, :]
+    r2 = torch.sum((p - center[None]) ** 2, dim=-1)
+    hit = (ok & (t > 1e-4) & (t < tmax[:, None])
+           & (r2 <= (radius * radius)[None])
+           & (r2 >= (inner_radius * inner_radius)[None]))
+    return t, hit

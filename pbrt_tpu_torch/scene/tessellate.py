@@ -1,6 +1,7 @@
-"""Host-side tessellators for parametric shapes (the port's copy of the
-part of pbrt_tpu/scene/tessellate.py its scenes use: the heightfield and
-the cone, a quadric of revolution; numpy only).
+"""Host-side tessellators for parametric shapes (port of
+pbrt_tpu/scene/tessellate.py without the curve ribbon; numpy only): the
+quadrics cylinder, cone, paraboloid and hyperboloid as surfaces of
+revolution, the heightfield and the NURBS surface.
 
 Every curved shape tessellates to triangles at scene-build time (as pbrt
 itself does for heightfield.cpp:60-89), so the device-side intersection
@@ -11,6 +12,19 @@ stays one ray–triangle test. All functions return (vertices (V,3), indices
 from __future__ import annotations
 
 import numpy as np
+
+
+def _grid_mesh(nu: int, nv: int, wrap_u=False):
+    """Index grid for an (nu+1)×(nv+1) vertex lattice."""
+    faces = []
+    for i in range(nu):
+        i1 = (i + 1) % (nu + 1) if wrap_u and i + 1 == nu + 1 else i + 1
+        for j in range(nv):
+            a = i * (nv + 1) + j
+            b = i1 * (nv + 1) + j
+            faces.append((a, b, b + 1))
+            faces.append((a, b + 1, a + 1))
+    return np.asarray(faces, np.int32)
 
 
 def _revolve(profile_r, profile_z, phi_max, n_phi):
@@ -42,11 +56,38 @@ def _revolve(profile_r, profile_z, phi_max, n_phi):
     return verts, np.asarray(faces, np.int32), norms
 
 
+def tessellate_cylinder(radius=1.0, zmin=-1.0, zmax=1.0, phi_max=2 * np.pi,
+                        n_phi=64, n_z=8):
+    """shapes/cylinder.cpp: x²+y²=r², zmin≤z≤zmax, φ≤phiMax."""
+    zs = np.linspace(zmin, zmax, n_z + 1)
+    return _revolve([radius] * (n_z + 1), zs, phi_max, n_phi)
+
+
 def tessellate_cone(radius=1.0, height=1.0, phi_max=2 * np.pi,
                     n_phi=64, n_z=8):
     """shapes/cone.cpp: apex at z=height, base radius at z=0."""
     zs = np.linspace(0.0, height, n_z + 1)
     rs = radius * (1.0 - zs / height)
+    return _revolve(rs, zs, phi_max, n_phi)
+
+
+def tessellate_paraboloid(radius=1.0, zmin=0.0, zmax=1.0,
+                          phi_max=2 * np.pi, n_phi=64, n_z=12):
+    """shapes/paraboloid.cpp: z = zmax·(x²+y²)/r²."""
+    zs = np.linspace(max(zmin, 1e-6), zmax, n_z + 1)
+    rs = radius * np.sqrt(zs / zmax)
+    return _revolve(rs, zs, phi_max, n_phi)
+
+
+def tessellate_hyperboloid(p1=(1.0, 0.0, 0.0), p2=(1.0, 0.0, 1.0),
+                           phi_max=2 * np.pi, n_phi=64, n_z=12):
+    """shapes/hyperboloid.cpp: sweep of the line p1→p2 around z."""
+    p1 = np.asarray(p1, np.float64)
+    p2 = np.asarray(p2, np.float64)
+    ts = np.linspace(0.0, 1.0, n_z + 1)
+    pts = p1[None] * (1 - ts[:, None]) + p2[None] * ts[:, None]
+    rs = np.hypot(pts[:, 0], pts[:, 1])
+    zs = pts[:, 2]
     return _revolve(rs, zs, phi_max, n_phi)
 
 
@@ -65,3 +106,49 @@ def tessellate_heightfield(nx: int, ny: int, z: np.ndarray):
             faces.append((a, a + 1, b + 1))
             faces.append((a, b + 1, b))
     return verts, np.asarray(faces, np.int32), None
+
+
+def _nurbs_basis(i, k, t, knots):
+    """Cox–de Boor recursion (nurbs.cpp)."""
+    if k == 0:
+        return 1.0 if knots[i] <= t < knots[i + 1] else 0.0
+    out = 0.0
+    d1 = knots[i + k] - knots[i]
+    if d1 > 1e-12:
+        out += (t - knots[i]) / d1 * _nurbs_basis(i, k - 1, t, knots)
+    d2 = knots[i + k + 1] - knots[i + 1]
+    if d2 > 1e-12:
+        out += (knots[i + k + 1] - t) / d2 * _nurbs_basis(i + 1, k - 1, t,
+                                                         knots)
+    return out
+
+
+def tessellate_nurbs(nu, uorder, uknots, nv, vorder, vknots, P,
+                     n_tess_u=24, n_tess_v=24):
+    """shapes/nurbs.cpp: evaluate the NURBS surface on a regular lattice.
+    P: (nu*nv, 3) or (nu*nv, 4) homogeneous control points."""
+    P = np.asarray(P, np.float64)
+    homog = P.shape[-1] == 4
+    P = P.reshape(nv, nu, -1) if P.shape[0] == nu * nv else P
+    uknots = np.asarray(uknots, np.float64)
+    vknots = np.asarray(vknots, np.float64)
+    u0, u1 = uknots[uorder - 1], uknots[nu]
+    v0, v1 = vknots[vorder - 1], vknots[nv]
+    us = np.linspace(u0, u1 - 1e-6, n_tess_u + 1)
+    vs = np.linspace(v0, v1 - 1e-6, n_tess_v + 1)
+    verts = np.zeros(((n_tess_u + 1) * (n_tess_v + 1), 3), np.float32)
+    idx = 0
+    for u in us:
+        bu = np.asarray([_nurbs_basis(i, uorder - 1, u, uknots)
+                         for i in range(nu)])
+        for v in vs:
+            bv = np.asarray([_nurbs_basis(j, vorder - 1, v, vknots)
+                             for j in range(nv)])
+            w = np.outer(bv, bu)[..., None]
+            pt = (w * P).sum((0, 1))
+            if homog:
+                pt = pt[:3] / max(pt[3], 1e-12)
+            verts[idx] = pt[:3]
+            idx += 1
+    faces = _grid_mesh(n_tess_u, n_tess_v)
+    return verts, faces, None

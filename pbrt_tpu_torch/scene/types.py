@@ -1,15 +1,17 @@
-"""Scene container and host-side builder (port of the triangle + sphere +
-aaplane subset of pbrt_tpu/scene/types.py).
+"""Scene container and host-side builder (port of the triangle, sphere,
+aaplane and disk subset of pbrt_tpu/scene/types.py).
 
 The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
-then spheres ``[nT, nT+nS)``, then aaplanes. ``prim_mat`` / ``prim_light``
-map a global prim to its material row and light row (−1 = not emissive).
+then spheres ``[nT, nT+nS)``, then aaplanes, then disks. ``prim_mat`` /
+``prim_light`` map a global prim to its material row and light row (−1 =
+not emissive).
 
 ``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
 ``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
-pbrt_tpu does. Disks, curves, instancing, media, textures, motion, spectral
-rendering and the kd-tree belong to later slices and raise
-``NotImplementedError``.
+pbrt_tpu does. Disks are intersected outside the kernels, in plain torch,
+as pbrt_tpu does (scene/intersect.py). Emissive disks, curves, instancing,
+media, textures, motion, spectral rendering and the kd-tree belong to
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ class Geometry:
     pln_hi: torch.Tensor      # (P,3)
     pln_ax: torch.Tensor      # (P,) int32
     pln_facing: torch.Tensor  # (P,) bool
+    dsk_center: torch.Tensor  # (D,3)
+    dsk_normal: torch.Tensor  # (D,3) unit
+    dsk_radius: torch.Tensor  # (D,)
+    dsk_inner: torch.Tensor   # (D,)
 
 
 @dataclasses.dataclass
@@ -57,13 +63,14 @@ class Scene:
     n_pln: int
     n_channels: int
     bvh: Any = None
+    n_dsk: int = 0
     # fused-path kernel profile (ops/fused_path.py):
     # (axis, plane_facing, portal_facing, n_materials, mode) or None
     fused_profile: Optional[tuple] = None
 
     @property
     def n_prims(self) -> int:
-        return self.n_tri + self.n_sph + self.n_pln
+        return self.n_tri + self.n_sph + self.n_pln + self.n_dsk
 
     def world_radius(self) -> torch.Tensor:
         return 0.5 * torch.linalg.norm(self.world_hi - self.world_lo) + 1e-3
@@ -118,6 +125,7 @@ class SceneBuilder:
         self.tris = []        # dicts: v0 v1 v2 n0 n1 n2 uv0 uv1 uv2 mat light
         self.spheres = []     # dicts: center radius mat light
         self.planes = []      # dicts: lo hi ax facing mat light
+        self.disks = []       # dicts: center normal radius inner mat light
         self.materials = []   # parameter dicts (scene/materials.py)
         self.light_rows = []  # parameter dicts (scene/lights.py)
 
@@ -192,8 +200,14 @@ class SceneBuilder:
                                 mat=mat, light=light))
         return len(self.planes) - 1
 
-    def add_disk(self, *args, **kw):
-        _unported("disks", 7)
+    def add_disk(self, center, normal, radius, inner=0.0, mat=0, light=-1,
+                 med_in=-1, med_out=-1):
+        """shapes/disk.cpp in world space: ``normal`` is the unit normal."""
+        if med_in != -1 or med_out != -1:
+            _unported("participating media", 9)
+        self.disks.append(dict(center=center, normal=normal, radius=radius,
+                               inner=inner, mat=mat, light=light))
+        return len(self.disks) - 1
 
     def add_curve(self, *args, **kw):
         _unported("curves", 8)
@@ -210,8 +224,9 @@ class SceneBuilder:
     # -- finalize ----------------------------------------------------------
     def prim_index(self, family: str, local_idx: int) -> int:
         """Global primitive index for (family, local index)."""
-        nt, ns = len(self.tris), len(self.spheres)
-        base = {"tri": 0, "sph": nt, "pln": nt + ns}[family]
+        nt, ns, npl = len(self.tris), len(self.spheres), len(self.planes)
+        base = {"tri": 0, "sph": nt, "pln": nt + ns,
+                "dsk": nt + ns + npl}[family]
         return base + local_idx
 
     def build(self, device="cuda", use_bvh: str = "auto") -> Scene:
@@ -223,6 +238,9 @@ class SceneBuilder:
             raise ValueError(f"use_bvh={use_bvh!r}")
         device = require_device(device)
         nt, ns, npl = len(self.tris), len(self.spheres), len(self.planes)
+        nd = len(self.disks)
+        if any(r["light"] != -1 for r in self.disks):
+            _unported("area lights on disks", 8)
 
         def rows_f32(rows, key, shape):
             if not rows:
@@ -247,6 +265,9 @@ class SceneBuilder:
                          np.float32)
         p_lo = rows_f32(self.planes, "lo", (max(npl, 1), 3))
         p_hi = rows_f32(self.planes, "hi", (max(npl, 1), 3))
+        d_c = rows_f32(self.disks, "center", (max(nd, 1), 3))
+        d_r = np.asarray([r["radius"] for r in self.disks] or [0.0],
+                         np.float32)
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -260,11 +281,16 @@ class SceneBuilder:
             pln_ax=t(np.asarray([r["ax"] for r in self.planes] or [2],
                                 np.int32)),
             pln_facing=t(np.asarray([r["facing"] for r in self.planes]
-                                    or [True], bool)))
+                                    or [True], bool)),
+            dsk_center=t(d_c),
+            dsk_normal=t(rows_f32(self.disks, "normal", (max(nd, 1), 3))),
+            dsk_radius=t(d_r),
+            dsk_inner=t(np.asarray([r["inner"] for r in self.disks]
+                                   or [0.0], np.float32)))
 
         def ids(key):
             a = np.asarray([r[key] for r in self.tris + self.spheres
-                            + self.planes], np.int32)
+                            + self.planes + self.disks], np.int32)
             return a if a.size else np.full(1, 0 if key == "mat" else -1,
                                             np.int32)
 
@@ -273,6 +299,8 @@ class SceneBuilder:
             pts += [s_c - s_r[:, None], s_c + s_r[:, None]]
         if npl:
             pts += [p_lo, p_hi]
+        if nd:
+            pts += [d_c - d_r[:, None], d_c + d_r[:, None]]
         allp = np.concatenate([p for p in pts if p.size]) \
             if any(p.size for p in pts) else np.zeros((1, 3), np.float32)
         world_lo, world_hi = allp.min(0) - 1e-3, allp.max(0) + 1e-3
@@ -283,7 +311,8 @@ class SceneBuilder:
             lights=lights_mod.build_light_table(self, world_lo, world_hi,
                                                 device),
             world_lo=t(world_lo), world_hi=t(world_hi),
-            n_tri=nt, n_sph=ns, n_pln=npl, n_channels=self.n_channels)
+            n_tri=nt, n_sph=ns, n_pln=npl, n_dsk=nd,
+            n_channels=self.n_channels)
         if use_bvh == "always" or (use_bvh == "auto" and nt > 256):
             from pbrt_tpu_torch.scene import bvh as bvh_mod
             scene = dataclasses.replace(
@@ -302,16 +331,16 @@ class SceneBuilder:
           one portal parallel to the light plane, or
         - mode 0 ("area"): a plain diffuse area light (two-sample MIS).
 
-        The other families pbrt_tpu's gate rules out (disks, curves,
-        instances, motion, media, textures, SSS, Fourier) cannot be built
-        here at all. A built BVH does not disqualify: the fused kernel
+        Disks are ruled out as pbrt_tpu's gate rules them out; the other
+        families it rules out (curves, instances, motion, media, textures,
+        SSS, Fourier) cannot be built here at all. A built BVH does not disqualify: the fused kernel
         reads the builder-order triangles and culls by its own clusters.
         The triangle cap is the kernel's shared memory plan
         (fused_path.MAX_TRI). Returns (axis, plane_facing,
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 
-        if scene.n_sph:
+        if scene.n_sph or scene.n_dsk:
             return None
         if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > MAX_TRI:
             return None

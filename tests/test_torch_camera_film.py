@@ -114,7 +114,7 @@ def test_unported_camera_filter_sampler_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sampler("sobol")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfilm.make_filter("gaussian")
+        make_sampler("stratified")
     cam = entry._camera((8, 8), "cpu")
     cam.cam_type = tcam.ORTHOGRAPHIC
     with pytest.raises(NotImplementedError):

@@ -302,5 +302,8 @@ def test_unported_rows_raise():
         b.build("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         SceneBuilder().add_material(type=1, kr=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SceneBuilder().add_disk((0, 0, 0), (0, 1, 0), 1.0)
+    lit_disk = SceneBuilder()      # disks are ported; area lights on them
+    lit_disk.add_disk((0, 0, 0), (0, 1, 0), 1.0,
+                      light=lit_disk.add_light(type="area", L=1.0, prim=-1))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        lit_disk.build("cpu")

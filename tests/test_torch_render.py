@@ -114,6 +114,38 @@ def test_port_renders_without_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_scene_files_render_without_jax(tmp_path):
+    """``load_pbrt`` and the CLI with jax unimportable: a scene file parses,
+    renders and writes its image, and no jax or pbrt_tpu module loads."""
+    code = textwrap.dedent(f"""
+        import sys
+        before = set(sys.modules)
+        sys.modules["jax"] = None
+        from pbrt_tpu_torch.frontend import load_pbrt
+        from pbrt_tpu_torch.integrators.render import render
+        from pbrt_tpu_torch.utils import cli, imageio
+        scene, cam, opts = load_pbrt("tests/oracle/ao_oracle.pbrt",
+                                     device="cpu")
+        cam.resolution = (12, 12)
+        img = render(scene, cam, spp=2, integrator=opts["integrator"],
+                     sampler=opts["sampler"], device="cpu")
+        assert img.shape == (12, 12, 3) and float(img.mean()) > 0.0
+        out = {str(tmp_path / "demo.pfm")!r}
+        assert cli.main(["scenes/cornell_portal.pbrt", "--cpu", "--quiet",
+                         "--spp", "1", "--cropwindow", "0.4", "0.6", "0.4",
+                         "0.6", "-o", out]) == 0
+        assert imageio.read_pfm(out).shape == (25, 25, 3)
+        assert not any(m.startswith(("jax.", "jaxlib", "pbrt_tpu."))
+                       for m in set(sys.modules) - before)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 def test_entry_points_default_to_the_card():
     """No ``device=``: the entry points run on the card, and on a machine
     without one they raise instead of carrying on on the CPU."""

@@ -123,16 +123,24 @@ def test_cluster_boundary_keeps_jax_gate():
 
 def test_non_matte_scene_gets_no_profile_or_raises(monkeypatch):
     """pbrt_tpu's rejection case (tests/test_fused_path.py:108-125): a
-    plastic row cannot be built at all; a sphere, or an Oren–Nayar
-    (sigma > 0) matte row, builds but gets no fused profile, and `path`
-    then renders it through the generic wavefront loop, never through the
-    fused kernel."""
+    plastic row cannot be built at all, nor an area light on a disk; a
+    sphere, a disk, or an Oren–Nayar (sigma > 0) matte row, builds but
+    gets no fused profile, and `path` then renders it through the generic
+    wavefront loop, never through the fused kernel."""
     b = SceneBuilder()
     m = b.add_material(type=0, kd=(0.5, 0.5, 0.5))
     with pytest.raises(NotImplementedError):
         b.add_material(type=3, kd=0.5, ks=0.2)
-    with pytest.raises(NotImplementedError):
-        b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
+    portal = SceneBuilder()
+    entry._fill_portal_scene(portal)
+    assert portal.build("cpu").fused_profile is not None
+    portal.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=0)
+    with_disk = portal.build("cpu")
+    assert with_disk.n_dsk == 1 and with_disk.fused_profile is None
+    lit = portal.add_light(type="area", L=1.0, prim=-1)
+    portal.add_disk((0.5, 0.5, 0.5), (0, -1, 0), 0.1, mat=0, light=lit)
+    with pytest.raises(NotImplementedError, match="disks"):
+        portal.build("cpu")
     rough = b.add_material(type=0, kd=0.5, sigma=20.0)
     b.add_mesh([(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],
                [(0, 1, 2), (0, 2, 3)], mat=rough)
@@ -164,6 +172,8 @@ def test_bridge_raises_on_unported_families():
     b = JaxBuilder(RGB)
     m = b.add_material(type=0, kd=0.5)
     b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
+    assert bridge.scene_from_jax(b.build()).n_dsk == 1   # disks carry over
+    b.add_curve(np.zeros((4, 3)), 0.01, 0.01, mat=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_jax(b.build())
     glossy = JaxBuilder(RGB)
