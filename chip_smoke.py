@@ -9,8 +9,8 @@ Run from the root of a checkout, with no arguments:
    csrc/smem_probe.cu) with nvcc and the host BVH builder
    (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
    prints the card, its power limit, the build times and, from ptxas, the
-   registers and spills of every instantiation of the fused and the
-   brute-force kernel.
+   registers and spills of every instantiation of the fused, the
+   brute-force and the wide-BVH experiment kernel (which must not spill).
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -87,10 +87,10 @@ Run from the root of a checkout, with no arguments:
    × {variant 1, 2, 3 on wide 4 / leaf 16, variant 2 on wide 8 / leaf 8,
    variant 5 on the dual-leaf layout} × {closest, any-hit}: index equal
    and t bit-equal; count mode's step codes equal; staging none or as many
-   nodes as fit in shared memory gives identical results; against the
-   binary kernel valid and t equal, index equal but for ties. Once more at
-   2,097,152 camera rays, where kernel and twin are timed and the twin's
-   counts give the bound.
+   nodes as fit in shared memory (1,816 wide-4 records of the heightfield
+   tree) gives identical results; against the binary kernel valid and t
+   equal, index equal but for ties. Once more at 2,097,152 camera rays, where
+   kernel and twin are timed and the twin's counts give the bound.
 14. Drives the kernel-experiment harness at full width through
    pbrt_tpu_torch.tools.kexp_prep and kexp_run: the 133,130-triangle
    heightfield tree and a 100,000-triangle irregular soup, 2,097,152 rays
@@ -99,9 +99,9 @@ Run from the root of a checkout, with no arguments:
    1|2|3` (1 and 2 also with 256 nodes staged, 2 with as many as fit),
    `pack` 4 8 and 4 4, `count`, `smem_probe`, and the warp efficiency of
    the 4-wide and the binary kernel from count mode; prints the matrix in
-   ms, the steps per ray and the agreement with the binary twin, and
-   checks that each kernel was launched exactly as often as the
-   experiments imply.
+   ms (with the threads per block each staged launch chose), the steps per
+   ray and the agreement with the binary twin, and checks that each kernel
+   was launched exactly as often as the experiments imply.
 15. Scene files. (a) Runs the CLI, ``python -m pbrt_tpu_torch.utils.cli``,
    as a subprocess on tests/oracle/{ao,deltalights,filter}_oracle.pbrt and
    scenes/cornell_portal.pbrt at their own resolution, spp, sampler
@@ -942,9 +942,9 @@ WIDE_CONFIGS = {"v1_w4_l16": (4, 16, False, 1), "v2_w4_l16": (4, 16, False, 2),
 def check_wide(name, bvh, dev, limit_kb):
     """The wide-BVH kernel against its twin, and against the binary kernel,
     on the three ray sets, for every configuration. Returns the largest
-    |t_kernel - t_twin|."""
+    |t_kernel - t_twin| and the staged launches' threads per block."""
     z = kexp_prep.tree_arrays(bvh)
-    worst = 0.0
+    worst, threads = 0.0, {}
     for cname, (wide, leaf_max, dual, variant) in WIDE_CONFIGS.items():
         lay = kexp_run.layout_of(z, dev, wide, leaf_max, dual)
         n_smem = kk.max_smem_nodes(lay, limit_kb)
@@ -956,6 +956,7 @@ def check_wide(name, bvh, dev, limit_kb):
                 t_s, i_s = kk.traverse(lay, o, d, tmax, any_hit=any_hit,
                                        variant=variant, smem_nodes=n_smem,
                                        block=256 if any_hit else 64)
+                threads[cname] = kk.traverse.last_threads
                 torch.cuda.synchronize()
                 t_ref, i_ref = kk._traverse_wide_reference(
                     lay, o, d, tmax, any_hit=any_hit, variant=variant)
@@ -989,12 +990,18 @@ def check_wide(name, bvh, dev, limit_kb):
               f"wide nodes, stack need {lay.stack_need}): {n_idx} index "
               f"mismatches, {n_any} any-hit mismatches, {n_cnt} count-code "
               f"mismatches, {n_smem_diff} differences with {n_smem} nodes in "
-              f"shared memory; vs the binary kernel t and valid equal, "
-              f"{ties} rays name another triangle (ties)")
+              f"shared memory ({threads[cname]} threads per block); vs the "
+              f"binary kernel t and valid equal, {ties} rays name another "
+              "triangle (ties)")
         check(n_idx == 0 and n_any == 0 and n_cnt == 0 and n_smem_diff == 0,
               f"{name} {cname}: kernel and twin disagree")
         check(ties <= 1e-3 * 3 * 8192, f"{ties} rays name another triangle")
-    return worst
+    return worst, threads
+
+
+# launches of check_wide per tree and configuration: per ray set and mode
+# one unstaged and one staged, then count mode
+WIDE_CHECK_LAUNCHES = 3 * 2 * 2 + 1
 
 
 def wide_bound(layout, variant, n_rays, stats):
@@ -1072,8 +1079,9 @@ def run_harness(scenes, n_rays, res, dev):
                 n_new += per_exp
             else:
                 n_kexp += per_exp
-            if "smem_nodes" in out:
+            if out.get("smem_nodes"):
                 matrix[name][label]["smem_nodes"] = out["smem_nodes"]
+                matrix[name][label]["threads"] = out["threads"]
             agree[name][label] = [out["prim_agreement"], out["max_abs_dt"]]
             # the same triangles through the same formula as the binary
             # twin: t bit-equal, the triangle equal but for exact ties
@@ -1361,13 +1369,15 @@ def main():
     ptxas = {}
     for name in _build.KERNELS:
         log = _build.load.ptxas_log.get(name, "")
-        if name in ("fused_path", "intersect"):
+        if name in ("fused_path", "intersect", "kexp_traverse"):
             ptxas[name] = ptxas_summary(log)
             check(ptxas[name], f"no ptxas report for {name}")
             print(f"{name} kernels [registers, spill store bytes, spill load "
                   f"bytes]: " + json.dumps(ptxas[name]))
         else:
             print(log.strip()[-1500:])
+    check(all(v[1] == 0 for v in ptxas["kexp_traverse"].values()),
+          "an instantiation of the wide-BVH kernel spills")
 
     # ---- 2. kernel vs twin on the card
     scenes = {"portal": entry._portal_scene(dev),
@@ -1858,12 +1868,13 @@ def main():
 
     # ---- 13. the wide-BVH kernel vs its twin and vs the binary kernel
     before = kk.traverse.launches
-    kexp_err = 0.0
+    kexp_err, kexp_threads = 0.0, {}
     for name, tree_n in trees.items():
-        kexp_err = max(kexp_err, check_wide(name, tree_n, dev,
-                                            probe["limit_kb"]))
-    check(kk.traverse.launches == before + 3 * len(WIDE_CONFIGS) * 13,
-          "wide-kernel launches")
+        err_n, kexp_threads[name] = check_wide(name, tree_n, dev,
+                                               probe["limit_kb"])
+        kexp_err = max(kexp_err, err_n)
+    check(kk.traverse.launches == before + len(trees) * len(WIDE_CONFIGS)
+          * WIDE_CHECK_LAUNCHES, "wide-kernel launches")
     lay_full = kexp_run.layout_of(kexp_prep.tree_arrays(tree), dev)
 
     def wide_fn():
@@ -2005,7 +2016,15 @@ def main():
         "replaces": "tools/kexp_kernels.py:207",
         "launches": harness_launches[0], "max_abs_err": kexp_err,
         "ms": kexp_ms, "plain_ms": kexp_twin_ms, "bound_ms": kexp_bound[0],
-        "bound_by": kexp_bound[1], "library_ms": None}, {
+        "bound_by": kexp_bound[1], "library_ms": None,
+        "redesigned": True,
+        # [registers, spill store bytes, spill load bytes] of the timed
+        # instantiation (wide 4, triangle records, closest hit, unstaged)
+        # and of every instantiation; the threads per block of phase 13's
+        # staged launches
+        "registers": ptxas["kexp_traverse"][
+            "kexp_traverse_kernel<4,1,0,0,0,0>"],
+        "ptxas": ptxas["kexp_traverse"], "staged_threads": kexp_threads}, {
         # ms and library_ms: CUDA events around 20 back-to-back calls;
         # device_ms and library_device_ms: the profiler's kernel time
         "name": "smem_probe", "route": "cuda",

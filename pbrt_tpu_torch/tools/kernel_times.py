@@ -1,18 +1,26 @@
-"""Time the render path's fused and brute-force kernels at the main path's
-shapes, through their public wrappers only, so that the same script times
-another checkout of the port (an earlier commit) on the same card:
+"""Time the render path's fused and brute-force kernels and the wide-BVH
+experiment kernel at the shapes their callers give them, through their
+public wrappers only, so that the same script times another checkout of
+the port (an earlier commit) on the same card:
 
-    python pbrt_tpu_torch/tools/kernel_times.py                # this one
+    python pbrt_tpu_torch/tools/kernel_times.py [render] [kexp]   # this one
     PYTHONPATH=<other checkout> python pbrt_tpu_torch/tools/kernel_times.py
 
 (run as a file, the script imports ``pbrt_tpu_torch`` from PYTHONPATH
-first). Shapes: the fused kernel on ``_portal_scene`` (2,097,152 lanes,
-max_depth 4); the brute-force kernel on 2,097,152 camera rays against the
-portal-strategy portal, ``_sphere_cornell`` and a 4,001-primitive table,
-and at the call shape a BVH scene gives it (``_heightfield_cornell()``'s
-sphere and aaplane, tmax from the traversal, camera rays). Prints one JSON
+first; with no argument it times both groups). ``render``: the fused
+kernel on ``_portal_scene`` (2,097,152 lanes, max_depth 4); the
+brute-force kernel on 2,097,152 camera rays against the portal-strategy
+portal, ``_sphere_cornell`` and a 4,001-primitive table, and at the call
+shape a BVH scene gives it (``_heightfield_cornell()``'s sphere and
+aaplane, tmax from the traversal, camera rays). ``kexp``: the harness's
+inputs (``kexp_prep.prep``) for the 133,130-triangle heightfield tree and
+the 100,000-triangle soup, 2,097,152 rays per set (primary, random,
+sorted, bounce closest hit, shadow any-hit), through the wide-BVH kernel
+(``kexp_kernels.traverse``) in the configurations of KEXP_CONFIGS, and
+through the render path's 4-wide kernel beside them. Prints one JSON
 line: the package's path, the card and the mean ms of each launch by CUDA
-events. Needs a CUDA device.
+events (and, where the package records it, the threads per block of each
+staged launch). Needs a CUDA device.
 """
 
 import json
@@ -30,8 +38,25 @@ from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder
+from pbrt_tpu_torch.tools import kexp_kernels as kk
+from pbrt_tpu_torch.tools import kexp_prep, kexp_run
 
 RES, SPP, MAX_DEPTH, REPS = 256, 32, 4, 20
+KEXP_REPS = 10
+# label -> (wide, leaf_max, variant (5: on the dual-leaf layout), staged
+# nodes: a count, or "max" for all that fit what the probe finds a launch
+# gets); 1,614 is the most that fit with 16 bytes of padding a record. v2
+# is staged at 1, 256, 1,024, 1,614 and all that fit: where a staged launch
+# always runs the same threads per block, these rows differ only by the
+# shared memory they take from L1 and the node loads it serves.
+KEXP_CONFIGS = {
+    "v1": (4, 16, 1, 0), "v2": (4, 16, 2, 0), "v3": (4, 16, 3, 0),
+    "pack_4_8": (4, 8, 2, 0), "pack_4_4": (4, 4, 2, 0),
+    "w8_l8": (8, 8, 2, 0), "dual": (4, 16, 5, 0),
+    "v1_smem256": (4, 16, 1, 256),
+    "v2_smem1": (4, 16, 2, 1), "v2_smem256": (4, 16, 2, 256),
+    "v2_smem1024": (4, 16, 2, 1024), "v2_smem1614": (4, 16, 2, 1614),
+    "v2_smem_max": (4, 16, 2, "max")}
 
 
 def cap_table(dev):
@@ -59,10 +84,62 @@ def ms_of(fn, reps=REPS):
     return start.elapsed_time(stop) / reps
 
 
-def main():
+def kexp_times(dev):
+    """{tree: {label: {set: ms}}} of the wide-BVH kernel and the render
+    path's kernel ("render"), and {tree: {label: threads}} of the staged
+    launches where the package records them."""
+    ms, threads = {}, {}
+    for name in ("heightfield", "soup"):
+        z = kexp_prep.prep(kexp_prep.make_scene(name, dev),
+                           n_rays=RES * RES * SPP, res=RES, device=dev)
+        sets = {sn: (*(torch.as_tensor(z[k], device=dev)
+                       for k in (ok, dk, tk)), any_hit)
+                for sn, ok, dk, tk, any_hit in kexp_run.RAY_SETS}
+        tree = kexp_run.tree_of(z, dev)
+        ms[name] = {"render": {
+            sn: ms_of(lambda: bk.bvh_traverse(tree, o, d, tm, a), KEXP_REPS)
+            for sn, (o, d, tm, a) in sets.items()}}
+        threads[name] = {}
+        for label, (wide, leaf_max, variant, smem) in KEXP_CONFIGS.items():
+            lay = kexp_run.layout_of(z, dev, wide=wide, leaf_max=leaf_max,
+                                     dual=variant == 5)
+            if smem == "max":
+                smem = kk.max_smem_nodes(lay, kk.smem_limit_kb(dev))
+            ms[name][label] = {
+                sn: ms_of(lambda: kk.traverse(
+                    lay, o, d, tm, any_hit=a, variant=variant,
+                    smem_nodes=smem), KEXP_REPS)
+                for sn, (o, d, tm, a) in sets.items()}
+            if smem:
+                ms[name][label]["smem_nodes"] = smem
+                threads[name][label] = getattr(kk.traverse, "last_threads",
+                                               None)
+    return ms, threads
+
+
+def main(groups=("render", "kexp")):
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times.py needs a CUDA device")
     dev = torch.device("cuda", 0)
+    out, line = {}, {"package": pbrt_tpu_torch.__file__}
+    if "kexp" in groups:
+        kms, line["kexp_threads"] = kexp_times(dev)
+        line["kexp_ms"] = {t: {lab: {k: v if k == "smem_nodes" else
+                                     round(v, 4) for k, v in row.items()}
+                               for lab, row in rows.items()}
+                           for t, rows in kms.items()}
+    if "render" in groups:
+        out = render_times(dev)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    line.update(card=card, ms={k: round(v, 4) for k, v in out.items()})
+    print(json.dumps(line))
+    sys.stdout.flush()
+
+
+def render_times(dev):
+    """ms of the fused and the brute-force kernel's launches."""
     cfg = render_mod.RenderConfig(max_depth=MAX_DEPTH)
     rays, pid, sidx, _ = render_mod.camera_rays(
         entry._camera((RES, RES), dev), film_mod.make_filter("box",
@@ -97,13 +174,8 @@ def main():
     out["intersect_under_bvh_camera"] = ms_of(
         lambda: ik.intersect_brute(*tabs, o, d, best_t, 0, hf.n_sph,
                                    hf.n_pln))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], check=True,
-                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"package": pbrt_tpu_torch.__file__, "card": card,
-                      "ms": {k: round(v, 4) for k, v in out.items()}}))
-    sys.stdout.flush()
+    return out
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]) or ("render", "kexp"))

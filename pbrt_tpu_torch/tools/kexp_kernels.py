@@ -32,8 +32,11 @@ Variants, as in pbrt_tpu's experiment kernel:
 half of a node's children first by the ray's own direction sign), a CPU
 tensor runs ``_traverse_wide_reference``, the plain-torch twin that walks
 the same nodes and triangles in the same order with the same arithmetic.
-Nothing falls back from one to the other. ``smem_probe`` launches
-``csrc/smem_probe.cu``: one block that asks for ``kb`` KB of dynamic shared
+Nothing falls back from one to the other. Every launch runs persistent
+warps (each takes the next 32 rays from a counter zeroed on the launch's
+stream); a staged launch runs one block per SM over unpadded, swizzled
+records (``staged_image`` is the shared memory it fills). ``smem_probe``
+launches ``csrc/smem_probe.cu``: one block that asks for ``kb`` KB of dynamic shared
 memory, writes both ends of it and returns ``x + x[0, 1]``; the size the
 kernel may ask for is set only when it differs from the last one granted
 (``_ProbeSizes``). ``l2_window`` is the harness's L2 experiment on the
@@ -63,6 +66,7 @@ TRI_F = 10             # floats per triangle in a leaf row: v0 e1 e2 index
 TRIS_PER_LEAF_ROW = 12
 REC_F = 12             # floats per 48-byte triangle record
 BLOCKS = (64, 128, 256)       # threads per block the kernel takes
+SWIZZLE = 8    # staged chunk c of record r sits in slot c ^ (r % SWIZZLE)
 VARIANTS = (1, 2, 3, 5)
 DUAL_PP = dict(wide=4, leaf_max=16, cnt_bits=5, block_rows=2,
                tris_per_row=TRIS_PER_LEAF_ROW)
@@ -234,15 +238,12 @@ def _split_variant(layout, variant):
 # the plain-torch twin
 # ---------------------------------------------------------------------------
 
-def _leaf_fields(layout, base, target, cnt):
-    """The (n, L, 10) fields v0 e1 e2 index of the leaves ``target`` as
-    variant ``base`` reads them, and the int32 (n, L) triangle indices."""
+def _row_addr(layout, base, target, cnt):
+    """(n, L) float offsets in the leaf rows of the triangles of the leaves
+    ``target`` (counts ``cnt``) as variant ``base`` (1 or 5) reads them
+    (csrc/kexp_traverse.cu::row_offset); variant 5's slots past a leaf's
+    count point at 0, which stays in the table."""
     dev = target.device
-    if base in (2, 3):
-        k = torch.arange(layout.leaf_max, device=dev)
-        rec = layout.recs[(target * layout.leaf_max)[:, None] + k]
-        return rec[..., :9], rec[..., 9].contiguous().view(torch.int32)
-    flat = layout.rows.reshape(-1)
     if base == 1:
         k = torch.arange(layout.leaf_max, device=dev)
         addr = ((target * layout.block_rows)[:, None] * LANES
@@ -254,8 +255,21 @@ def _leaf_fields(layout, base, target, cnt):
                + (k % TRIS_PER_LEAF_ROW) * TRI_F)
         addr = target[:, None] * LANES + torch.where(
             (cnt <= 8)[:, None], k * TRI_F, two)
-        addr = torch.where(k < cnt[:, None], addr, 0)   # stay in the table
-    f = flat[addr[:, :, None] + torch.arange(TRI_F, device=dev)]
+        addr = torch.where(k < cnt[:, None], addr, 0)
+    return addr
+
+
+def _leaf_fields(layout, base, target, cnt):
+    """The (n, L, 10) fields v0 e1 e2 index of the leaves ``target`` as
+    variant ``base`` reads them, and the int32 (n, L) triangle indices."""
+    dev = target.device
+    if base in (2, 3):
+        k = torch.arange(layout.leaf_max, device=dev)
+        rec = layout.recs[(target * layout.leaf_max)[:, None] + k]
+        return rec[..., :9], rec[..., 9].contiguous().view(torch.int32)
+    addr = _row_addr(layout, base, target, cnt)
+    f = layout.rows.reshape(-1)[addr[:, :, None]
+                                + torch.arange(TRI_F, device=dev)]
     return f[..., :9], f[..., 9].to(torch.int32)
 
 
@@ -286,16 +300,16 @@ def _traverse_lib():
     fn = _build.load("kexp_traverse").kexp_traverse_launch
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [i32] * 10 + [ctypes.c_float, i32, i32, vp]
+        fn.argtypes = ([vp] * 7 + [i32] * 10 + [ctypes.c_float, i32, i32]
+                       + [vp] * 3)
         fn.restype = i32
     return fn
 
 
 def node_smem_bytes(layout, smem_nodes: int) -> int:
     """Dynamic shared memory the kernel asks for to stage ``smem_nodes``
-    wide nodes: each record plus 16 bytes, which staggers the records over
-    the banks."""
-    return smem_nodes * (NODE_WORDS[layout.wide] * 4 + 16)
+    wide nodes: 128 or 256 bytes a record, unpadded (``staged_image``)."""
+    return smem_nodes * NODE_WORDS[layout.wide] * 4
 
 
 def max_smem_nodes(layout, limit_kb: int) -> int:
@@ -304,29 +318,60 @@ def max_smem_nodes(layout, limit_kb: int) -> int:
     return min(layout.n_nodes, limit_kb * 1024 // node_smem_bytes(layout, 1))
 
 
+def staged_image(layout, smem_nodes: int):
+    """The shared memory a staged launch fills (the torch mirror of the
+    kernel's copy): (smem_nodes · C, 4) float32, C = the record's 16-byte
+    chunks (8 or 16), chunk c of record r in slot r·C + (c ^ (r mod 8)).
+    The 8 threads of one 16-byte shared-memory phase that read chunk c of
+    8 records whose indices differ mod 8 then touch 8 different bank
+    groups (16 bytes each, slot mod 8), with no padding."""
+    C = NODE_WORDS[layout.wide] // 4
+    r = torch.arange(smem_nodes)[:, None]
+    slot = r * C + (torch.arange(C)[None, :] ^ (r % SWIZZLE))
+    out = torch.empty(smem_nodes * C, 4, dtype=layout.nodes.dtype)
+    out[slot.reshape(-1)] = layout.nodes[:smem_nodes].reshape(-1, 4).cpu()
+    return out
+
+
+def _check_aligned(name, x, align):
+    if x.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel reads it in {align}-byte loads, "
+                         f"but it starts {x.data_ptr() % align} bytes past "
+                         "such a boundary")
+
+
 def traverse(layout, o, d, tmax, *, any_hit, variant, block=128,
              smem_nodes=0):
     """Traverse the wide tree ``layout`` with rays o, d (R,3) within tmax
     (R,). Returns t (R,) float32 and idx (R,) int32 (count mode, variant ≥
-    10: the step code). ``block`` is the threads per block, ``smem_nodes``
-    how many of the first wide nodes the kernel stages in shared memory.
+    10: the step code). ``smem_nodes`` is how many of the first wide nodes
+    the kernel stages in shared memory. ``block`` (64, 128 or 256) is the
+    threads per block of an unstaged launch; a staged launch runs one
+    block per SM with as many threads as the kernel's registers allow (at
+    least ``block``), which ``traverse.last_threads`` records.
 
     On the CPU this is the twin; on CUDA it launches the kernel (and adds
-    one to ``traverse.launches``). Any other device raises."""
+    one to ``traverse.launches``). Any other device raises, as do a block
+    size the kernel does not take and a leaf table that does not start on
+    the boundary of the kernel's loads, on every device."""
+    base, count_mode = _split_variant(layout, variant)
+    leaf = layout.recs if base in (2, 3) else layout.rows
+    smem_nodes = int(smem_nodes)
+    if (block not in BLOCKS or layout.stack_need > STACK
+            or not 0 <= smem_nodes <= layout.n_nodes):
+        raise ValueError(f"bad sizes block={block} smem_nodes={smem_nodes} "
+                         f"stack_need={layout.stack_need}")
+    _check_aligned("nodes", layout.nodes, 16)
+    _check_aligned("leaf table", leaf, 16 if base in (2, 3) else 8)
     if o.device.type == "cpu":
         return _traverse_wide_reference(layout, o, d, tmax, any_hit=any_hit,
                                         variant=variant)
     if o.device.type != "cuda":
         raise NotImplementedError(f"kexp traverse on {o.device}")
-    base, count_mode = _split_variant(layout, variant)
     dev, R, f32 = o.device, o.shape[0], torch.float32
-    leaf = layout.recs if base in (2, 3) else layout.rows
     leaf_mode = {1: 0, 2: 1, 3: 1, 5: 2}[base]
-    smem_nodes = int(smem_nodes)
-    if (R <= 0 or block not in BLOCKS or layout.stack_need > STACK
-            or not 0 <= smem_nodes <= layout.n_nodes):
-        raise ValueError(f"bad sizes R={R} block={block} smem_nodes="
-                         f"{smem_nodes} stack_need={layout.stack_need}")
+    if R <= 0:
+        raise ValueError(f"bad sizes R={R}")
     _check("nodes", layout.nodes, f32,
            (layout.n_nodes, NODE_WORDS[layout.wide]), dev)
     _check("leaf table", leaf, f32, tuple(leaf.shape), dev)
@@ -335,13 +380,17 @@ def traverse(layout, o, d, tmax, *, any_hit, variant, block=128,
     _check("tmax", tmax, f32, (R,), dev)
     t = torch.empty(R, dtype=f32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
+    # the next ray a persistent warp takes; zeroed on the launch's stream
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    threads = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _traverse_lib()(
         layout.nodes.data_ptr(), leaf.data_ptr(), o.data_ptr(), d.data_ptr(),
         tmax.data_ptr(), t.data_ptr(), idx.data_ptr(), R, layout.n_nodes,
         layout.wide, leaf_mode, int(base == 3), int(bool(any_hit)),
         int(count_mode), layout.leaf_max, layout.block_rows, layout.cnt_bits,
-        GSCALE, block, smem_nodes, stream)
+        GSCALE, block, smem_nodes, next_ray.data_ptr(),
+        ctypes.addressof(threads), stream)
     if err != 0:
         raise RuntimeError(
             f"kexp_traverse kernel launch failed: "
@@ -349,10 +398,12 @@ def traverse(layout, o, d, tmax, *, any_hit, variant, block=128,
             f"(wide {layout.wide}, variant {variant}, block {block}, "
             f"{node_smem_bytes(layout, smem_nodes)} bytes of shared memory)")
     traverse.launches += 1
+    traverse.last_threads = threads.value
     return t, idx
 
 
 traverse.launches = 0
+traverse.last_threads = None
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,15 @@ Experiments (each prints one JSON line):
   dual [block]              variant 5 on the dual-size leaf layout
   pack <wide> <leaf_max> [block]   variant 2 on another packing
 
-``block`` is the threads per block (64, 128 or 256), ``--smem-nodes`` how
-many of the first wide nodes are staged in shared memory (``max``: all that
-fit what the probe finds a launch gets). Each ray set of the file is timed
-with CUDA events around repeated launches and reported as ``<set>_ms`` per
-launch and ``<set>_mrays`` (million rays per second): closest hit on the
-primary, random, sorted and bounce rays, any-hit on the shadow rays.
+``block`` is the threads per block of an unstaged launch (64, 128 or 256),
+``--smem-nodes`` how many of the first wide nodes are staged in shared
+memory (``max``: all that fit what the probe finds a launch gets). A staged
+launch runs one block per SM with as many threads as the kernel's registers
+allow (at least ``block``); the line reports them as ``threads``. Each ray
+set of the file is timed with CUDA events around repeated launches and
+reported as ``<set>_ms`` per launch and ``<set>_mrays`` (million rays per
+second): closest hit on the primary, random, sorted and bounce rays,
+any-hit on the shadow rays.
 ``prim_agreement`` and ``max_abs_dt`` compare the experiment on the file's
 mixed rays with the binary twin's hits stored there (the share of rays that
 name the same triangle, and the largest difference in ``t``). The default
@@ -193,10 +196,14 @@ def _exp_wide(z, layout, variant, block, smem_nodes, device, out):
     smem_nodes = _smem_nodes(layout, smem_nodes, device)
     out.update(block=block, smem_nodes=smem_nodes, nw=layout.n_nodes,
                stack_need=layout.stack_need)
-    return _check_and_time(
+    out = _check_and_time(
         z, lambda o, d, tmax, any_hit: kk.traverse(
             layout, o, d, tmax, any_hit=any_hit, variant=variant, block=block,
             smem_nodes=smem_nodes), device, out)
+    # the threads per block of the last launch (None: the twin ran)
+    out["threads"] = kk.traverse.last_threads if device.type == "cuda" \
+        else None
+    return out
 
 
 def exp_variant(z, variant, block=128, device="cuda", smem_nodes=0):

@@ -305,10 +305,10 @@ def test_smem_probe_plain_version_and_no_fallback(soup):
     t, i = kk.traverse(lay, o, d, tmax, any_hit=False, variant=3)
     assert t.shape == i.shape == (64,)
     assert before == (kk.smem_probe.launches, kk.traverse.launches)
-    assert kk.node_smem_bytes(lay, 10) == 10 * (128 + 16)
+    assert kk.node_smem_bytes(lay, 10) == 10 * 128
     assert kk.max_smem_nodes(lay, 227) == lay.n_nodes
     big = dataclasses.replace(lay, nodes=torch.zeros(5000, 32))
-    assert kk.max_smem_nodes(big, 227) == 227 * 1024 // 144
+    assert kk.max_smem_nodes(big, 227) == 227 * 1024 // 128
 
 
 def test_probe_sets_the_size_only_when_it_changes():
