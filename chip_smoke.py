@@ -103,16 +103,21 @@ Run from the root of a checkout, with no arguments:
    ray and the agreement with the binary twin, and checks that each kernel
    was launched exactly as often as the experiments imply.
 15. Scene files. (a) Runs the CLI, ``python -m pbrt_tpu_torch.utils.cli``,
-   as a subprocess on tests/oracle/{ao,deltalights,filter}_oracle.pbrt and
-   scenes/cornell_portal.pbrt at their own resolution, spp, sampler
-   (halton) and filter, each writing a PFM into a temporary directory;
-   reads it back, prints the parse / build / render (by CUDA events) /
-   write times and the kernel launches the CLI reports, checks the
-   launches the loop implies and holds each oracle image to the reference
-   binary's *_ref.pfm with tests/test_oracle.py's limits on the mean delta
-   and the block relative L1. (b) Renders the three oracle files
-   in-process (``load_pbrt`` + ``render``) at 16 spp, halton, seed 0, and
-   holds each image mean to pbrt_tpu's (REF_FILE_MEANS) to rel 1e-3. (c)
+   as a subprocess on tests/oracle/{ao,deltalights,filter}_oracle.pbrt,
+   scenes/cornell_portal.pbrt and the zoo's oracle files
+   tests/oracle/{whitted,caustic,disney,envcavity,envcam}_oracle.pbrt
+   (mirror, glass, Disney, the infinite light, the environment camera) at
+   their own resolution, spp, sampler (halton), integrator and filter,
+   each writing a PFM into a temporary directory; reads it back, prints
+   the parse / build / render (by CUDA events) / write times and the
+   kernel launches the CLI reports, checks the launches the loop implies
+   and holds each oracle image to the reference binary's *_ref.pfm with
+   tests/test_oracle.py's limits on the mean delta and the block relative
+   L1. (b) Renders the three oracle files in-process (``load_pbrt`` +
+   ``render``) at 16 spp, halton, seed 0, and the zoo's five at 8 spp in
+   one pass under torch.profiler (device time in all and in the
+   brute-force kernel, and its launches), and holds each image mean to
+   pbrt_tpu's (REF_FILE_MEANS, REF_ZOO_MEANS) to rel 1e-3. (c)
    Parses the demo file and renders it with the independent sampler at the
    main path's settings (256² × 64 spp, chunk 32, max_depth 4): two fused
    launches, the mean within rel 1e-3 of REF_IMAGE_MEAN. (d) Writes a scene
@@ -199,20 +204,51 @@ REF_BVH_MEAN = {("heightfield_cornell", "path", 64, 4): 0.3574122070165071}
 REF_FILE_MEANS = {"ao": 1.4939268395117122,
                   "deltalights": 0.44327428357883036,
                   "filter": 0.04002022001221612}
+# pbrt_tpu's float32 image means on the CPU backend for the zoo's five
+# oracle files at their own resolution, integrator and max depth, 8 spp,
+# the halton sampler, seed 0, with the port's one deviation from it (a
+# microfacet reflection under the surface, ROADMAP queue 3) patched in,
+# printed by ``PYTHONPATH=. python tests/test_torch_zoo_oracle.py``.
+ZOO_MEAN_SPP = 8
+REF_ZOO_MEANS = {"caustic": 0.043504613591096586,
+                 "disney": 0.24653613609634248,
+                 "envcam": 0.08074431071022066,
+                 "envcavity": 0.43414789720059666,
+                 "whitted": 0.06863066850038464}
 # The scene-file phase: (file, the CLI's expected launches of the
-# brute-force kernel as (queries per pass, passes), mean-delta and block
-# rel-L1 limits against the reference binary (tests/test_oracle.py's), or
-# None where there is no reference image). Per pass, ao traces a closest
-# hit and a probe; path traces per full bounce a closest hit, the NEE ray
-# and, with a light without portals, the BSDF half's ray, then the
-# emission-only last bounce's closest hit. The CLI's passes hold 2^21 lanes.
+# brute-force kernel as (queries per pass, passes), the reference binary's
+# image with tests/test_oracle.py's limits for the file as (image,
+# mean-delta limit, block rel-L1 limit or None, block size), or None where
+# there is no reference image). Per pass, ao traces a closest hit and a
+# probe; path traces per full bounce a closest hit, the NEE ray and, with
+# an area light without portals or an infinite light, the BSDF half's
+# ray, then the emission-only last bounce's closest hit; whitted traces a
+# closest hit and the NEE ray per full bounce, and runs all max_depth + 1
+# bounces where a row has a delta lobe. The CLI's passes hold at most
+# 2^21 lanes: 2,097,152 // (width × height) spp each.
 SCENE_FILES = {
-    "ao": ("tests/oracle/ao_oracle.pbrt", (2, 1), (0.01, 0.05)),
+    "ao": ("tests/oracle/ao_oracle.pbrt", (2, 1),
+           ("ao_ref.pfm", 0.01, 0.05, 16)),
     "deltalights": ("tests/oracle/deltalights_oracle.pbrt", (4 * 2 + 1, 2),
-                    (0.01, 0.03)),
+                    ("deltalights_ref.pfm", 0.01, 0.03, 16)),
     "filter": ("tests/oracle/filter_oracle.pbrt", (3 * 3 + 1, 1),
-               (0.025, 0.04)),
+               ("filter_ref.pfm", 0.025, 0.04, 16)),
     "cornell_portal": ("scenes/cornell_portal.pbrt", (4 * 2 + 1, 1), None),
+    # the zoo (96², 128 spp, whitted, maxdepth 5, a point light)
+    "whitted": ("tests/oracle/whitted_oracle.pbrt", (5 * 2 + 1, 1),
+                ("whitted_ref.pfm", 0.03, 0.05, 16)),
+    # 96², 512 spp in passes of 227, 227, 58; maxdepth 6, a sphere light
+    "caustic": ("tests/oracle/caustic_oracle.pbrt", (6 * 3 + 1, 3),
+                ("caustic_ref.pfm", 0.035, 0.20, 16)),
+    # 96², 128 spp, maxdepth 5, two area lights
+    "disney": ("tests/oracle/disney_oracle.pbrt", (5 * 3 + 1, 1),
+               ("disney_ref.pfm", 0.006, 0.095, 8)),
+    # 48², 1,024 spp in passes of 910 and 114, maxdepth 4, an infinite light
+    "envcavity": ("tests/oracle/envcavity_oracle.pbrt", (4 * 3 + 1, 2),
+                  ("envcavity_path_ref.pfm", 0.02, None, 16)),
+    # 128 × 64, 64 spp, maxdepth 2, a point light
+    "envcam": ("tests/oracle/envcam_oracle.pbrt", (2 * 2 + 1, 1),
+               ("envcam_ref.pfm", 0.02, 0.04, 16)),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores (a multiply-add counts as
@@ -1270,11 +1306,13 @@ def scene_files(dev, hf_mean, hf_tris):
                                       "process_s", "launches", "spp",
                                       "mean", "prims")}
             if limits is not None:
-                ref = imageio.read_pfm(path.replace("_oracle.pbrt",
-                                                    "_ref.pfm"))
+                ref_file, md_lim, bl_lim, k = limits
+                ref = imageio.read_pfm(os.path.join(os.path.dirname(path),
+                                                    ref_file))
                 row["md"] = _mean_delta(img, ref)
-                row["bl"] = _block_rel_l1(img, ref, k=16)
-                check(row["md"] < limits[0] and row["bl"] < limits[1],
+                row["bl"] = _block_rel_l1(img, ref, k=k)
+                check(row["md"] < md_lim
+                      and (bl_lim is None or row["bl"] < bl_lim),
                       f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs "
                       f"the limits {limits}")
             print(f"scene file {name} (CLI): " + json.dumps(row))
@@ -1304,28 +1342,48 @@ def scene_files(dev, hf_mean, hf_tris):
         check(rel < 1e-3, f"written heightfield mean {sm['mean']!r} vs "
               f"_heightfield_cornell()'s {hf_mean!r}: rel {rel}")
         out["cli"]["heightfield_cornell"] = row
-    # (b) in-process halton renders against pbrt_tpu's means
-    for name, (path, _, _) in SCENE_FILES.items():
-        if name not in REF_FILE_MEANS:
+    # (b) in-process halton renders against pbrt_tpu's means; the zoo's
+    # files in one pass, profiled: device time in all and in kernel 2
+    for name, (path, (per_pass, _), _) in SCENE_FILES.items():
+        if name in REF_FILE_MEANS:
+            spp, ref_mean, zoo = 16, REF_FILE_MEANS[name], False
+        elif name in REF_ZOO_MEANS:
+            spp, ref_mean, zoo = ZOO_MEAN_SPP, REF_ZOO_MEANS[name], True
+        else:
             continue
         t0 = time.perf_counter()
         scene, cam, opts = load_pbrt(path, device=dev)
         fname, fkw = opts["filter"]
         ik.intersect_brute.launches = 0
-        img = render_mod.render(scene, cam, spp=16,
-                                integrator=opts["integrator"],
-                                sampler="halton",
-                                max_depth=opts["max_depth"],
-                                filter_name=fname, filter_kwargs=fkw,
-                                seed=0, device=dev)
+        fp.fused_bounce.launches = 0
+        images = []
+
+        def run():
+            images.append(render_mod.render(
+                scene, cam, spp=spp, integrator=opts["integrator"],
+                sampler="halton", max_depth=opts["max_depth"],
+                filter_name=fname, filter_kwargs=fkw, seed=0, device=dev))
+        if zoo:
+            dev_ms, by = device_ms_by_kernel(run, ["intersect_kernel"])
+        else:
+            run()
         torch.cuda.synchronize()
-        mean = float(img.double().mean())
-        rel = abs(mean - REF_FILE_MEANS[name]) / REF_FILE_MEANS[name]
-        row = {"mean": mean, "ref": REF_FILE_MEANS[name], "rel": rel,
+        mean = float(images[0].double().mean())
+        rel = abs(mean - ref_mean) / ref_mean
+        row = {"mean": mean, "ref": ref_mean, "rel": rel,
                "launches": ik.intersect_brute.launches,
                "s": time.perf_counter() - t0}
-        print(f"scene file {name} in process, 16 spp halton: "
+        if zoo:
+            row.update(device_ms=dev_ms, intersect_device_ms=by[
+                "intersect_kernel"][0], intersect_in_profile=by[
+                "intersect_kernel"][1])
+            check(ik.intersect_brute.launches == per_pass
+                  and by["intersect_kernel"][1] == per_pass
+                  and fp.fused_bounce.launches == 0,
+                  f"{name}: {row}, the loop implies {per_pass} launches")
+        print(f"scene file {name} in process, {spp} spp halton: "
               + json.dumps(row))
+        check(bool(torch.isfinite(images[0]).all()), f"{name}: not finite")
         check(ik.intersect_brute.launches > 0, f"{name}: no launch")
         check(rel < 1e-3, f"{name}: mean off pbrt_tpu's by rel {rel}")
         out["in_process"][name] = row

@@ -4,10 +4,10 @@
 built ``pbrt_tpu`` Scene, Camera and Filter into this package's objects
 on a given device. Every field is read through ``np.asarray``, so this
 module never imports jax itself; static fields (the primitive counts,
-``n_channels``, ``fused_profile``, the light table's ``present`` and
-``has_portals``) carry over as they are. Only what the port models is
-carried: a scene with other shape families, material types, light types,
-media, textures or motion raises. A BVH carries over as its flat node
+``n_channels``, ``fused_profile``, the tables' ``present`` and other
+flags) carry over as they are. Only what the port models is carried: a
+scene with other shape families, material types, media, textures or
+motion raises. A BVH carries over as its flat node
 arrays and leaf-ordered triangles, repacked by the port into its own
 traversal layouts (pbrt_tpu's packet-kernel tables are left behind), so
 both packages walk the same tree; a kd-tree raises. This is the tests'
@@ -20,11 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.scene.camera import PERSPECTIVE, Camera
+from pbrt_tpu_torch.scene import materials as mat_mod
+from pbrt_tpu_torch.scene.camera import Camera
 from pbrt_tpu_torch.scene.film import Filter
 from pbrt_tpu_torch.scene.lights import AREA, LightTable
-from pbrt_tpu_torch.scene.materials import MATTE, MaterialTable
+from pbrt_tpu_torch.scene.materials import MaterialTable
 from pbrt_tpu_torch.scene.bvh import _finish_flat
 from pbrt_tpu_torch.scene.types import Geometry, Scene
 
@@ -59,14 +61,8 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         raise NotImplementedError(
             f"bridge: only triangles, spheres, aaplanes and disks without "
             f"media, textures or motion are ported ({extra})")
-    g, m, lt = scene.geom, scene.materials, scene.lights
-    if (np.asarray(m.mtype) != MATTE).any():
-        raise NotImplementedError("bridge: only matte material rows are "
-                                  "ported")
+    g, lt = scene.geom, scene.lights
     ltype = np.asarray(lt.ltype)
-    if (ltype > AREA).any():
-        raise NotImplementedError("bridge: only point, spot, distant and "
-                                  "area lights are ported")
     return Scene(
         geom=Geometry(**{k: _t(getattr(g, k), device) for k in (
             "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
@@ -75,14 +71,17 @@ def scene_from_jax(scene, device="cpu") -> Scene:
             "dsk_normal", "dsk_radius", "dsk_inner")}),
         prim_mat=_t(scene.prim_mat, device),
         prim_light=_t(scene.prim_light, device),
-        materials=MaterialTable(mtype=_t(m.mtype, device),
-                                kd=_t(m.kd, device),
-                                sigma=_t(m.sigma, device)),
+        materials=materials_from_jax(scene.materials, device),
         lights=LightTable(
             **{k: _t(getattr(lt, k), device) for k in (
                 "ltype", "emit", "pos", "dir", "cos_total", "cos_falloff",
                 "prim_id", "two_sided", "strategy", "n_portals", "portal_lo",
-                "portal_hi", "portal_ax", "portal_facing", "power")},
+                "portal_hi", "portal_ax", "portal_facing", "gonio_map",
+                "proj_fov", "env_map", "power")},
+            env_distr=Distribution2D(
+                *(Distribution1D(*(_t(getattr(d, k), device) for k in (
+                    "func", "cdf", "func_int")))
+                  for d in (lt.env_distr.cond, lt.env_distr.marginal))),
             present=tuple(lt.present), has_portals=bool(lt.has_portals),
             has_plain_area=bool(((ltype == AREA)
                                  & (np.asarray(lt.n_portals) == 0)).any())),
@@ -94,14 +93,31 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         fused_profile=scene.fused_profile)
 
 
+def materials_from_jax(m, device="cpu") -> MaterialTable:
+    """pbrt_tpu's MaterialTable as the port's: every field of the ported
+    families and the static flags. A row of another type, a textured
+    parameter or a DisneyBSSRDF row raises, as ``check_row`` does."""
+    for t in np.unique(np.asarray(m.mtype)):
+        mat_mod.check_row({"type": int(t)})
+    for k in ("kd_tex", "sigma_tex", "bump_tex", "fourier_id"):
+        if (np.asarray(getattr(m, k)) != -1).any():
+            mat_mod.check_row({k: 0})
+    if m.has_disney_sss:
+        mat_mod.check_row({"type": mat_mod.DISNEY, "scatter_d": 1.0})
+    return MaterialTable(
+        **{k: _t(getattr(m, k), device) for k in mat_mod.tensor_fields()},
+        has_beckmann=bool(m.has_beckmann),
+        has_disney_trans=bool(m.has_disney_trans),
+        present=tuple(m.present))
+
+
 def camera_from_jax(cam, device="cpu") -> Camera:
-    if int(np.asarray(cam.cam_type)) != PERSPECTIVE or \
-            getattr(cam, "anim", None) is not None:
-        raise NotImplementedError("bridge: only perspective cameras "
-                                  "without motion are ported")
+    if getattr(cam, "anim", None) is not None:
+        raise NotImplementedError("bridge: a moving camera is not ported "
+                                  "(motion blur: ROADMAP queue 1 item 8)")
     res = np.asarray(cam.resolution)
     return Camera(
-        cam_type=PERSPECTIVE,
+        cam_type=int(np.asarray(cam.cam_type)),
         cam_to_world=Transform(_t(cam.cam_to_world.m, device),
                                _t(cam.cam_to_world.m_inv, device)),
         **{k: _t(getattr(cam, k), device).to(torch.float32) for k in (

@@ -1,6 +1,7 @@
 """Sampling utilities (port of the parts of pbrt_tpu/core/sampling.py that
-the ported integrators use): the discrete Distribution1D, the warps and
-the power heuristic."""
+the ported integrators use): Distribution1D (discrete and continuous, one
+shared or one per row), Distribution2D for the environment map, the warps
+and the power heuristic."""
 
 from __future__ import annotations
 
@@ -43,15 +44,82 @@ def make_distribution_1d(f: torch.Tensor) -> Distribution1D:
     return Distribution1D(func=f, cdf=cdf, func_int=func_int)
 
 
-def sample_distribution_1d_discrete(d: Distribution1D, u: torch.Tensor):
-    """SampleDiscrete (sampling.h:89-99) of a single shared distribution:
-    returns (index, pmf)."""
-    off = torch.searchsorted(d.cdf, u.contiguous(), right=True) - 1
-    off = torch.clamp(off, 0, d.n - 1)
+def _find_interval(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Index i with cdf[i] <= u < cdf[i+1], clipped into [0, n-1]: at a
+    tie of the CDF the last such bin, as pbrt_tpu's searchsorted(side=
+    "right") - 1. ``cdf`` is one shared (n+1,) table or one row per lane,
+    (..., n+1) with u (...)."""
+    n = cdf.shape[-1] - 1
+    if cdf.ndim == 1:
+        idx = torch.searchsorted(cdf, u.contiguous(), right=True)
+    else:
+        idx = torch.searchsorted(cdf.contiguous(), u[..., None].contiguous(),
+                                 right=True)[..., 0]
+    return torch.clamp(idx - 1, 0, n - 1)
+
+
+def _take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tab[idx] for a shared table, or per row for a batched one."""
+    if tab.ndim == 1:
+        return tab[idx]
+    return torch.gather(tab, -1, idx[..., None])[..., 0]
+
+
+def sample_distribution_1d_continuous(d: Distribution1D, u: torch.Tensor):
+    """SampleContinuous (sampling.h:65-87): returns (x in [0,1), pdf,
+    offset)."""
+    off = _find_interval(d.cdf, u)
+    c_lo = _take(d.cdf, off)
+    c_hi = _take(d.cdf, off + 1)
+    du = u - c_lo
+    denom = torch.where(c_hi - c_lo > 0, c_hi - c_lo, 1.0)
+    du = du / denom
     func_int = torch.where(d.func_int > 0, d.func_int, 1.0)
-    pmf = d.func[off] / (func_int * d.n)
+    pdf = _take(d.func, off) / func_int
+    x = (off.to(u.dtype) + du) / d.n
+    return x, pdf, off
+
+
+def sample_distribution_1d_discrete(d: Distribution1D, u: torch.Tensor):
+    """SampleDiscrete (sampling.h:89-99): returns (index, pmf)."""
+    off = _find_interval(d.cdf, u)
+    func_int = torch.where(d.func_int > 0, d.func_int, 1.0)
+    pmf = _take(d.func, off) / (func_int * d.n)
     pmf = torch.where(d.func_int > 0, pmf, 1.0 / d.n)
     return off, pmf
+
+
+@dataclasses.dataclass
+class Distribution2D:
+    """Piecewise-constant 2D distribution (sampling.h:124-132): one
+    conditional Distribution1D per row, (H, W), and the marginal over
+    rows, (H,)."""
+    cond: Distribution1D
+    marginal: Distribution1D
+
+
+def make_distribution_2d(f: torch.Tensor) -> Distribution2D:
+    cond = make_distribution_1d(f)
+    return Distribution2D(cond=cond,
+                          marginal=make_distribution_1d(cond.func_int))
+
+
+def sample_distribution_2d(d: Distribution2D, u: torch.Tensor):
+    """u: (..., 2) → ((u, v) in [0,1)², pdf): the marginal picks a row,
+    that row's conditional the column."""
+    v, pdf_m, row = sample_distribution_1d_continuous(d.marginal, u[..., 1])
+    rd = Distribution1D(func=d.cond.func[row], cdf=d.cond.cdf[row],
+                        func_int=d.cond.func_int[row])
+    x, pdf_c, _ = sample_distribution_1d_continuous(rd, u[..., 0])
+    return torch.stack([x, v], dim=-1), pdf_m * pdf_c
+
+
+def distribution_2d_pdf(d: Distribution2D, uv: torch.Tensor) -> torch.Tensor:
+    h, w = d.cond.func.shape
+    iu = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
+    iv = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)
+    func_int = torch.where(d.marginal.func_int > 0, d.marginal.func_int, 1.0)
+    return d.cond.func[iv, iu] / func_int
 
 
 def uniform_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:

@@ -108,3 +108,21 @@ class Ray:
 
 def make_ray(o: torch.Tensor, d: torch.Tensor) -> Ray:
     return Ray(o=o, d=d)
+
+
+def reflect(wo: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """reflection.h Reflect: -wo + 2 dot(wo, n) n."""
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def refract(wi: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
+    """reflection.h Refract: (wt, valid). ``eta`` is eta_i / eta_t and
+    ``n`` lies on wi's side."""
+    cos_theta_i = dot(n, wi)
+    sin2_theta_i = torch.clamp_min(1.0 - cos_theta_i * cos_theta_i, 0.0)
+    sin2_theta_t = eta * eta * sin2_theta_i
+    valid = sin2_theta_t < 1.0
+    cos_theta_t = torch.sqrt(torch.clamp_min(1.0 - sin2_theta_t, 0.0))
+    wt = (eta[..., None] * -wi
+          + (eta * cos_theta_i - cos_theta_t)[..., None] * n)
+    return wt, valid

@@ -12,9 +12,10 @@ one file.
 
 Everything pbrt_tpu's parser reads and the port cannot build yet raises
 ``NotImplementedError`` naming its ROADMAP queue 1 item, at the directive
-that asks for it: textures, media, object instancing, curves, non-matte
-materials, infinite / goniometric / projection lights, emissive disks,
-motion blur, non-perspective cameras, the kd-tree and spectral mode. An
+that asks for it: textures, media, object instancing, curves, the
+subsurface, kdsubsurface, hair, fourier and null materials, a Disney
+material with scatterdistance on a solid surface, emissive disks, motion
+blur, the kd-tree and spectral mode. An
 integrator keyword the port lacks raises when the scene is rendered, so
 ``--cat`` still reads such a file. What pbrt_tpu's parser itself skips,
 or records and never reads (unknown directives, shapes, light types and
@@ -36,9 +37,10 @@ from pbrt_tpu_torch.core import spectrum as spec_mod
 from pbrt_tpu_torch.core import transform as tr
 from pbrt_tpu_torch.frontend.sexpr import parse_portal_data
 from pbrt_tpu_torch.scene import camera as cam_mod
+from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene import tessellate as tess
-from pbrt_tpu_torch.scene.materials import MATTE
 from pbrt_tpu_torch.scene.types import SceneBuilder, _unported
+from pbrt_tpu_torch.utils import imageio
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +181,24 @@ _INTEGRATORS = {"path": "path", "directlighting": "direct",
                 "bdpt": "bdpt", "mlt": "mlt", "sppm": "sppm",
                 "hero": "hero_path"}
 
-# material keywords of pbrt_tpu's parser the port cannot build yet, with
-# their ROADMAP items; any other name is matte there and here
-_UNPORTED_MATERIALS = dict.fromkeys(
-    ("mirror", "glass", "plastic", "metal", "dispersive_glass", "uber",
-     "substrate", "translucent", "disney", "hair", "fourier"), 8)
-_UNPORTED_MATERIALS.update(dict.fromkeys(
-    ("subsurface", "kdsubsurface", "none", ""), 9))
+# material keywords → types (pbrt_tpu's parser); any other name is matte
+_MATERIALS = {"matte": mat_mod.MATTE, "mirror": mat_mod.MIRROR,
+              "glass": mat_mod.GLASS, "plastic": mat_mod.PLASTIC,
+              "metal": mat_mod.METAL,
+              "dispersive_glass": mat_mod.DISPERSIVE_GLASS,
+              "uber": mat_mod.UBER, "substrate": mat_mod.SUBSTRATE,
+              "translucent": mat_mod.TRANSLUCENT, "disney": mat_mod.DISNEY}
+# the keywords the port cannot build yet, with their ROADMAP items
+_UNPORTED_MATERIALS = {"hair": 8, "fourier": 8, "subsurface": 9,
+                       "kdsubsurface": 9, "none": 9, "": 9}
+# Disney parameter → row key (materials/disney.cpp)
+_DISNEY_PARAMS = (("metallic", "metallic"), ("speculartint", "spec_tint"),
+                  ("sheen", "sheen"), ("sheentint", "sheen_tint"),
+                  ("clearcoat", "clearcoat"),
+                  ("clearcoatgloss", "clearcoat_gloss"), ("eta", "eta"),
+                  ("anisotropic", "anisotropic"),
+                  ("spectrans", "spec_trans"), ("difftrans", "diff_trans"),
+                  ("flatness", "flatness"))
 
 
 class PbrtParser:
@@ -209,7 +222,7 @@ class PbrtParser:
             "camera_to_world": np.eye(4),
         }
         # the default material (api.cpp: matte)
-        self.builder.add_material(type=MATTE, kd=0.5)
+        self.builder.add_material(type=mat_mod.MATTE, kd=0.5)
 
     def _params(self, tokens, peeked) -> Params:
         return parse_params(tokens, peeked, self.base_dir)
@@ -467,9 +480,27 @@ class PbrtParser:
             to = np.asarray(p.point("to", (0, 0, 1)))
             b.add_light(type="distant", L=p.spectrum_rgb("L", (1, 1, 1)),
                         scale=scale, dir=tuple(self._xf_vec(to - frm)))
-        elif name in ("goniometric", "projection", "infinite",
-                      "exinfinite"):
-            _unported(f"LightSource {name!r}", 8)
+        elif name in ("goniometric", "projection"):
+            kw = dict(type=name, I=p.spectrum_rgb("I", (1, 1, 1)),
+                      scale=scale, pos=self._xf_point((0, 0, 0)),
+                      dir=self._xf_vec((0, 0, 1)))
+            if p.one("mapname"):
+                # pbrt_tpu reads the map where it can and else leaves it
+                # out (a constant map)
+                try:
+                    kw["map"] = imageio.read_image(
+                        os.path.join(self.base_dir, p.one("mapname")))
+                except (OSError, ValueError):
+                    pass
+            if name == "projection":
+                kw["fov"] = p.one("fov", 45.0)
+            b.add_light(**kw)
+        elif name in ("infinite", "exinfinite"):
+            mapname = p.one("mapname")
+            b.add_light(type="infinite", L=p.spectrum_rgb("L", (1, 1, 1)),
+                        scale=scale, env_map=imageio.read_image(
+                            os.path.join(self.base_dir, mapname))
+                        if mapname else np.ones((1, 1, 3), np.float32))
 
     def _d_AreaLightSource(self, tokens, peeked, nxt):
         name = nxt().strip('"')
@@ -486,28 +517,82 @@ class PbrtParser:
         b = self.builder
         if name == "mix":
             # materials/mixmat.cpp, resolved at build time: two rows of one
-            # type blend parameter-wise by `amount`
+            # type blend parameter-wise by `amount`; of two types, the
+            # dominant row stays with its kd scaled by max(amt, 1 - amt)
             m1 = self.gs.named_materials.get(p.one("namedmaterial1", ""), 0)
             m2 = self.gs.named_materials.get(p.one("namedmaterial2", ""), 0)
             amt_s = float(np.mean(p.spectrum_rgb("amount", (0.5, 0.5, 0.5))))
             r1, r2 = b.materials[m1], b.materials[m2]
-            out = dict(r1)
-            for key in set(r1) | set(r2):
-                if key != "type":
-                    out[key] = (amt_s * np.asarray(r1.get(key, 0.0),
-                                                   np.float64)
-                                + (1 - amt_s) * np.asarray(r2.get(key, 0.0),
-                                                           np.float64))
+            if r1.get("type", 0) == r2.get("type", 0):
+                out = dict(r1)
+                for key in set(r1) | set(r2):
+                    if key != "type":
+                        out[key] = (amt_s * np.asarray(r1.get(key, 0.0),
+                                                       np.float64)
+                                    + (1 - amt_s)
+                                    * np.asarray(r2.get(key, 0.0),
+                                                 np.float64))
+                return b.add_material(**out)
+            out = dict(r1 if amt_s >= 0.5 else r2)
+            if "kd" in out:
+                out["kd"] = np.asarray(out["kd"], np.float64) \
+                    * max(amt_s, 1 - amt_s)
             return b.add_material(**out)
         if name in _UNPORTED_MATERIALS:
             _unported(f"material {name!r}", _UNPORTED_MATERIALS[name])
-        kw = dict(type=MATTE)
+        kw = dict(type=_MATERIALS.get(name, mat_mod.MATTE))
         if "Kd" in p and p["Kd"][0] == "texture":
             _unported("a textured Kd (scene/textures.py)", 8)
-        if p.spectrum_rgb("Kd") is not None:
-            kw["kd"] = p.spectrum_rgb("Kd")
+        for pname, key in (("Kd", "kd"), ("Ks", "ks"), ("Kr", "kr"),
+                           ("Kt", "kt")):
+            if p.spectrum_rgb(pname) is not None:
+                kw[key] = p.spectrum_rgb(pname)
         if p.one("sigma") is not None:
             kw["sigma"] = p.one("sigma")
+        if p.one("roughness") is not None:
+            kw["roughness"] = p.one("roughness")
+        elif name == "metal":
+            kw["roughness"] = 0.01   # metal.cpp's default
+        elif name in ("plastic", "substrate", "uber", "disney"):
+            kw["roughness"] = 0.1
+        # "string distribution" "beckmann": pbrt_tpu's extension exposing
+        # the Beckmann NDF (core/microfacet.h:48-105) to the scene language
+        if str(p.one("distribution") or p.one("microfacetdistribution")
+               or "").lower() == "beckmann":
+            kw["ndf"] = mat_mod.NDF_BECKMANN
+        if p.one("index") is not None:
+            kw["eta"] = p.one("index")
+        if p.one("eta") is not None and name == "glass":
+            kw["eta"] = p.one("eta")
+        if name == "metal":
+            for pname, key in (("eta", "metal_eta"), ("k", "metal_k")):
+                if p.spectrum_rgb(pname) is not None:
+                    kw[key] = p.spectrum_rgb(pname)
+        if name == "disney":
+            if p.spectrum_rgb("color") is not None:
+                kw["kd"] = p.spectrum_rgb("color")
+            for pname, key in _DISNEY_PARAMS:
+                if p.one(pname) is not None:
+                    kw[key] = p.one(pname)
+            if p.one("thin"):
+                kw["thin"] = 1.0
+            sd = p.spectrum_rgb("scatterdistance")
+            # a thin surface ignores scatterdistance (disney.cpp:506-517)
+            if sd is not None and float(np.max(np.asarray(sd))) > 0 \
+                    and not kw.get("thin"):
+                kw["scatter_d"] = tuple(np.asarray(sd, np.float64))
+        if name == "dispersive_glass":
+            # Cauchy from the (etaMin, etaMax) endpoints
+            # (materials/dispersive_glass.cpp:62-64); RGB renders it as
+            # smooth glass at eta(0.55 µm)
+            eta_min = p.one("etaMin", 1.5)
+            eta_max = p.one("etaMax", 1.6)
+            l_min = spec_mod.LAMBDA_START * 1e-3
+            l_max = spec_mod.LAMBDA_END * 1e-3
+            cc = (eta_max - eta_min) / (1.0 / (l_min * l_min)
+                                        - 1.0 / (l_max * l_max))
+            bb = eta_min - cc / (l_max * l_max)
+            kw.update(cauchy_b=bb, cauchy_c=cc, eta=bb + cc / (0.55 * 0.55))
         return b.add_material(**kw)
 
     def _area_light(self, gs):
@@ -647,8 +732,6 @@ class PbrtParser:
                 and len(self.builder.tris) > 256):
             _unported("Accelerator 'kdtree' (scene/kdtree.py)", 6)
         name, cp = opts["camera"]
-        if name != "perspective":
-            _unported(f"Camera {name!r}", 8)
         c2w = np.asarray(opts["camera_to_world"], np.float64)
         if not np.allclose(c2w, np.asarray(
                 opts.get("camera_to_world_end", c2w), np.float64)):
@@ -661,12 +744,18 @@ class PbrtParser:
                             .device),
             torch.as_tensor(np.linalg.inv(c2w).astype(np.float32),
                             device=scene.world_lo.device))
-        cam = cam_mod.make_perspective(
-            c2w_t, cp.one("fov", 90.0),
-            (opts["film"]["xres"], opts["film"]["yres"]),
-            lens_radius=cp.one("lensradius", 0.0),
-            focal_distance=cp.one("focaldistance", 1e6),
-            device=scene.world_lo.device)
+        res = (opts["film"]["xres"], opts["film"]["yres"])
+        dev = scene.world_lo.device
+        if name == "perspective":
+            cam = cam_mod.make_perspective(
+                c2w_t, cp.one("fov", 90.0), res,
+                lens_radius=cp.one("lensradius", 0.0),
+                focal_distance=cp.one("focaldistance", 1e6), device=dev)
+        elif name == "orthographic":
+            # as pbrt_tpu: the aspect's screen window, no lens
+            cam = cam_mod.make_orthographic(c2w_t, res, device=dev)
+        else:
+            cam = cam_mod.make_environment(c2w_t, res, device=dev)
         opts["integrator"] = _INTEGRATORS.get(opts["integrator"], "path")
         opts["max_depth"] = opts["integrator_params"].one("maxdepth", 5)
         return scene, cam, opts

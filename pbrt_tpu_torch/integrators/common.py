@@ -93,8 +93,9 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     sample estimators per portal_arealight.cpp:29-239 (no MIS), including
     the behind-all-portals fallback to plain light sampling.
 
-    The BSDF-strategy half only ever contributes for a non-delta light
-    without portals; a scene with no such light skips its trace."""
+    The BSDF-strategy half only ever contributes for an area light
+    without portals or an infinite light; a scene with neither skips its
+    trace."""
     lt = scene.lights
     light_idx, sel_pmf = choose_light(scene, u_select, power_distr)
     g = lights_mod.gather_lights(lt, light_idx)
@@ -144,7 +145,11 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     blocked_delta = hit2.valid & (hit2.t < dist * (1.0 - 1e-3))
     li_delta = torch.where(blocked_delta[..., None], 0.0, ls["li"])
     li_area = torch.where((hit2_light == light_idx)[..., None], ls["li"], 0.0)
-    li_std = torch.where(ls["is_delta"][..., None], li_delta, li_area)
+    # an infinite light's sample arrives when the ray escapes
+    li_inf = torch.where(hit2.valid[..., None], 0.0, ls["li"])
+    is_inf = g.ltype == lights_mod.INFINITE
+    li_std = torch.where(ls["is_delta"][..., None], li_delta,
+                         torch.where(is_inf[..., None], li_inf, li_area))
     # portal estimators: whatever emitter the ray hits
     li = torch.where(is_portal_light[..., None], le2, li_std)
 
@@ -174,15 +179,18 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     ld = torch.where(ok[..., None], ld, 0.0)
 
     # ---- BSDF-strategy half of two-sample MIS (non-portal, non-delta)
-    if with_bsdf_half and lt.has_plain_area:
+    if with_bsdf_half and lights_mod.takes_bsdf_half(lt):
         wi_b_loc, f_b, pdf_b, flags = mat_mod.bsdf_sample(
             mp, wo, u_bsdf_lobe, u_scatter)
         wi_b = to_world(t1, t2, hit.ns, wi_b_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         f_b = f_b * absdot(wi_b, hit.ns)[..., None]
         hit3, le3, hit3_light = trace_radiance(scene, hit.p, hit.ns, wi_b)
-        # radiance only counts when this very light is hit
+        # radiance only counts when this very light is hit, or the ray
+        # escapes to the chosen infinite light
         li_b = torch.where((hit3_light == light_idx)[..., None], le3, 0.0)
+        li_b = torch.where((is_inf & ~hit3.valid)[..., None],
+                           lights_mod.escaped_radiance(scene, wi_b), li_b)
         light_pdf_b = lights_mod.pdf_li(scene, light_idx, hit.p, wi_b)
         w_b = power_heuristic(1.0, pdf_b, 1.0, light_pdf_b)
         ld_b = f_b * li_b * (w_b / torch.clamp_min(pdf_b, 1e-20))[..., None]

@@ -143,10 +143,12 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     every lane doing every bounce's work.
 
     Where pbrt_tpu's traced loop can only mask, this one skips, with the
-    same result: the final iteration (emission only) runs no NEE and no
-    continuation, and a loop that continues through specular lobes only
-    (`indirect=False`) stops after the first bounce, since no ported
-    material has a specular lobe."""
+    same result and by static rules only (so a render's kernel launches
+    are known before it runs, on the card as on the CPU): the final
+    iteration (emission only) runs no NEE and no continuation, and a loop
+    that continues through specular lobes only (`indirect=False`:
+    `whitted`, `direct`) stops after the first bounce when no material row
+    can sample a delta lobe."""
     R = o.shape[0]
     C = scene.n_channels
     dev = o.device
@@ -157,6 +159,7 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     beta = torch.ones((R, C), device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
     specular = torch.ones(R, dtype=torch.bool, device=dev)  # bounce 0 emits
+    eta_scale = torch.ones(R, device=dev)
     o_cur, d_cur = o, d
     inf = torch.full((R,), vecmath.INF, device=dev)
 
@@ -194,9 +197,9 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
                 scene, hit, mp, wo_w, u_sel, u_l, u_mu, u_ml,
                 power_distr=power_distr, with_bsdf_half=bsdf_half)
             L = L + torch.where(active[..., None], beta * ld, 0.0)
-        if not indirect:
-            # whitted/direct continue through *specular* lobes only, and a
-            # matte row has none: every lane ends here
+        if not (indirect or mat_mod.has_specular(scene.materials)):
+            # whitted/direct continue through *specular* lobes only, and
+            # no row has one: every lane ends here
             break
 
         # continuation (path.cpp:320-360)
@@ -207,16 +210,27 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu)
         wi = common.to_world(t1, t2, hit.ns, wi_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
+        is_trans = (flags & mat_mod.FLAG_TRANSMISSION) > 0
         throughput = f * (absdot(wi, hit.ns)
                           / torch.clamp_min(pdf, 1e-20))[..., None]
         beta_new = beta * throughput
         alive = active & (pdf > 0) & (beta_new.amax(dim=-1) > 0)
+        if not indirect:
+            alive = alive & is_spec
+        # the eta scale of russian roulette (path.cpp:344-352): a specular
+        # transmission entering (by the geometric normal) multiplies it by
+        # eta², leaving by 1/eta²
+        eta2 = mp.eta * mp.eta
+        entering = vecmath.dot(-d_cur, hit.ng) > 0
+        eta_sc = torch.where(is_spec & is_trans,
+                             torch.where(entering, eta2,
+                                         1.0 / torch.clamp_min(eta2, 1e-9)),
+                             1.0)
+        eta_scale = eta_scale * torch.where(alive, eta_sc, 1.0)
 
-        # russian roulette (path.cpp:362-370). The eta scale of
-        # path.cpp:344-352 stays 1: it changes only at a specular
-        # transmission, which no ported material has.
-        if b > 3:
-            rr_beta_max = beta_new.amax(dim=-1)
+        # russian roulette (path.cpp:362-370)
+        if indirect and b > 3:
+            rr_beta_max = beta_new.amax(dim=-1) * eta_scale
             q = torch.clamp_min(1.0 - rr_beta_max, 0.05)
             u_rr = sfn(pid, sidx, dims["rr"], cfg.seed)
             do_rr = rr_beta_max < cfg.rr_threshold

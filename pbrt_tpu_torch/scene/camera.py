@@ -1,12 +1,14 @@
-"""Perspective camera with thin lens (port of pbrt_tpu/scene/camera.py:33-164).
+"""Perspective (thin lens), orthographic and environment cameras (port of
+pbrt_tpu/scene/camera.py:33-164).
 
-Orthographic and environment cameras and camera motion blur (shutter
-times) are not ported yet; the first two raise.
+Camera motion blur (shutter times) is not ported yet (ROADMAP queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -57,26 +59,55 @@ def make_perspective(cam_to_world: Transform, fov_deg: float, resolution,
         resolution=(nx, ny))
 
 
+def make_orthographic(cam_to_world: Transform, resolution,
+                      screen_window=None, lens_radius: float = 0.0,
+                      focal_distance: float = 1e6, device="cpu") -> Camera:
+    cam = make_perspective(cam_to_world, 90.0, resolution, lens_radius,
+                           focal_distance, screen_window=screen_window,
+                           device=device)
+    return dataclasses.replace(
+        cam, cam_type=ORTHOGRAPHIC,
+        fov_scale=torch.ones((), device=cam.fov_scale.device))
+
+
+def make_environment(cam_to_world: Transform, resolution,
+                     device="cpu") -> Camera:
+    return dataclasses.replace(
+        make_perspective(cam_to_world, 90.0, resolution, device=device),
+        cam_type=ENVIRONMENT)
+
+
 def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor,
                   u_time: torch.Tensor) -> Ray:
     """p_film: (R,2) raster positions; u_lens: (R,2) lens samples; u_time
     is accepted for the reference's signature (no camera motion here).
-    PerspectiveCamera::GenerateRay (cameras/perspective.cpp:63-93)."""
-    if cam.cam_type != PERSPECTIVE:
-        raise NotImplementedError(
-            "orthographic/environment cameras: ROADMAP queue 1 item 8")
+    PerspectiveCamera::GenerateRay (cameras/perspective.cpp:63-93),
+    OrthographicCamera::GenerateRay and EnvironmentCamera::GenerateRay."""
     res = torch.tensor(cam.resolution, dtype=torch.float32,
                        device=p_film.device)
     # raster → NDC → screen; raster-to-screen flips y
     ndc = p_film / res
+    if cam.cam_type == ENVIRONMENT:
+        # latitude–longitude over the whole sphere, from the unflipped ndc
+        theta = math.pi * ndc[..., 1]
+        phi = 2.0 * math.pi * ndc[..., 0]
+        d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
+                         torch.sin(theta) * torch.sin(phi)], dim=-1)
+        return make_ray(cam.cam_to_world.apply_point(torch.zeros_like(d)),
+                        cam.cam_to_world.apply_vector(d))
     sx = cam.screen_min[0] + ndc[..., 0] * (cam.screen_max[0]
                                             - cam.screen_min[0])
     sy = -(cam.screen_min[1] + ndc[..., 1]
            * (cam.screen_max[1] - cam.screen_min[1]))
-    d = normalize(torch.stack(
-        [sx * cam.fov_scale, sy * cam.fov_scale, torch.ones_like(sx)],
-        dim=-1))
-    o = torch.zeros_like(d)
+    if cam.cam_type == ORTHOGRAPHIC:
+        # origin on the film plane, direction +z
+        o = torch.stack([sx, sy, torch.zeros_like(sx)], dim=-1)
+        d = torch.tensor([0.0, 0.0, 1.0], device=o.device).expand(o.shape)
+    else:
+        d = normalize(torch.stack(
+            [sx * cam.fov_scale, sy * cam.fov_scale, torch.ones_like(sx)],
+            dim=-1))
+        o = torch.zeros_like(d)
 
     # thin-lens depth of field (perspective.cpp:74-86), selected per
     # element like the reference so no host sync is needed

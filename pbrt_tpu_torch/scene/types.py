@@ -132,8 +132,10 @@ class SceneBuilder:
     # -- materials and lights ---------------------------------------------
     def add_material(self, **params) -> int:
         mat_mod.check_row(params)
-        if "kd" in params:
-            params["kd"] = self._to_spec(params["kd"])
+        for key in ("kd", "ks", "kr", "kt", "metal_eta", "metal_k",
+                    "scatter_d"):
+            if key in params:
+                params[key] = self._to_spec(params[key])
         self.materials.append(params)
         return len(self.materials) - 1
 
@@ -331,10 +333,13 @@ class SceneBuilder:
           one portal parallel to the light plane, or
         - mode 0 ("area"): a plain diffuse area light (two-sample MIS).
 
-        Disks are ruled out as pbrt_tpu's gate rules them out; the other
-        families it rules out (curves, instances, motion, media, textures,
-        SSS, Fourier) cannot be built here at all. A built BVH does not disqualify: the fused kernel
-        reads the builder-order triangles and culls by its own clusters.
+        The kernel shades every row as matte: a row of another type, or
+        with a key beyond (type, kd, sigma), or with Oren–Nayar roughness,
+        rules the scene out, as in pbrt_tpu's gate. Disks are ruled out as
+        there; the other families it rules out (curves, instances, motion,
+        media, textures, SSS, Fourier) cannot be built here at all. A built
+        BVH does not disqualify: the fused kernel reads the builder-order
+        triangles and culls by its own clusters.
         The triangle cap is the kernel's shared memory plan
         (fused_path.MAX_TRI). Returns (axis, plane_facing,
         portal_facing, n_materials, mode) or None."""
@@ -347,6 +352,10 @@ class SceneBuilder:
         if scene.n_channels != 3 or len(self.materials) > MAX_MAT:
             return None
         for m in self.materials:
+            if set(m) - {"type", "kd", "sigma"}:
+                return None
+            if int(m.get("type", mat_mod.MATTE)) != mat_mod.MATTE:
+                return None
             if float(np.max(np.asarray(m.get("sigma", 0.0)))) != 0.0:
                 return None
         if len(self.light_rows) != 1:

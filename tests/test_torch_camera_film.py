@@ -6,6 +6,7 @@ samples; atol 1e-6 covers float32 rounding of the 3×3 camera products
 and rsqrt, which the two libraries may order differently.
 """
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -115,11 +116,10 @@ def test_unported_camera_filter_sampler_raise():
         make_sampler("sobol")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sampler("stratified")
-    cam = entry._camera((8, 8), "cpu")
-    cam.cam_type = tcam.ORTHOGRAPHIC
-    with pytest.raises(NotImplementedError):
-        tcam.generate_rays(cam, torch.zeros(4, 2), torch.zeros(4, 2),
-                           torch.zeros(4))
+    # a moving camera (motion blur) is not ported
+    moving = dataclasses.replace(ge._camera((8, 8)), anim=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        bridge.camera_from_jax(moving)
 
 
 def test_core_math_matches_jax():

@@ -402,20 +402,23 @@ UNPORTED = {
                 'WorldEnd', 8),
     "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"\n'
                'WorldBegin\nWorldEnd', 9),
-    "glass": 'WorldBegin\nMaterial "glass"\nWorldEnd',
-    "infinite": 'WorldBegin\nLightSource "infinite"\nWorldEnd',
+    "hair": 'WorldBegin\nMaterial "hair"\nWorldEnd',
+    "subsurface": ('WorldBegin\nMaterial "subsurface"\nWorldEnd', 9),
     "curve": ('WorldBegin\nShape "curve" "point P" [0 0 0 1 0 0 1 1 0 '
               '0 1 0]\nWorldEnd'),
     "emissive_disk": ('WorldBegin\nAreaLightSource "diffuse"\n'
                       'Shape "disk"\nWorldEnd'),
-    "orthographic": 'Camera "orthographic"\nWorldBegin\nWorldEnd',
+    "moving_camera": ('ActiveTransform EndTime\nTranslate 0 0 1\n'
+                      'ActiveTransform All\nCamera "perspective"\n'
+                      'WorldBegin\nWorldEnd'),
     "kdtree": ('Accelerator "kdtree"\nWorldBegin\nShape "heightfield" '
                '"integer nu" [20] "integer nv" [20] "float Pz" ['
                + " 0" * 400 + ']\nWorldEnd', 6),
 }
-UNPORTED_FILES = ("whitted", "caustic", "disney", "volpath", "texinst",
-                  "envcavity", "curves", "dofmotion", "envcam", "gridvol",
-                  "sss", "cornell_dielectric", "disney_sss", "killeroo")
+# (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
+# in the repo)
+UNPORTED_FILES = ("volpath", "texinst", "curves", "dofmotion", "gridvol",
+                  "sss", "cornell_dielectric", "disney_sss")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -429,10 +432,15 @@ def test_unported_families_raise(name):
 
 @pytest.mark.parametrize("name", UNPORTED_FILES)
 def test_unported_oracle_files_raise(name):
+    """Each file raises when it is read or, where only its integrator is
+    not ported (cornell_dielectric: hero_path_mis), when it is rendered."""
+    from pbrt_tpu_torch.integrators.render import render
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP queue 1 item (6|8|9)$"):
-        tparser.load_pbrt(os.path.join(ORACLE, f"{name}_oracle.pbrt"),
-                          device="cpu")
+        scene, cam, opts = tparser.load_pbrt(
+            os.path.join(ORACLE, f"{name}_oracle.pbrt"), device="cpu")
+        render(scene, cam, spp=1, integrator=opts["integrator"],
+               device="cpu")
 
 
 def test_spectral_mode_raises():

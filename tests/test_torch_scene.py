@@ -122,18 +122,20 @@ def test_cluster_boundary_keeps_jax_gate():
 
 
 def test_non_matte_scene_gets_no_profile_or_raises(monkeypatch):
-    """pbrt_tpu's rejection case (tests/test_fused_path.py:108-125): a
-    plastic row cannot be built at all, nor an area light on a disk; a
-    sphere, a disk, or an Oren–Nayar (sigma > 0) matte row, builds but
-    gets no fused profile, and `path` then renders it through the generic
-    wavefront loop, never through the fused kernel."""
+    """pbrt_tpu's rejection case (tests/test_fused_path.py:108-125): an
+    area light on a disk cannot be built; a plastic row, a sphere, a disk,
+    or an Oren–Nayar (sigma > 0) matte row, builds but gets no fused
+    profile, and `path` then renders it through the generic wavefront
+    loop, never through the fused kernel."""
     b = SceneBuilder()
     m = b.add_material(type=0, kd=(0.5, 0.5, 0.5))
-    with pytest.raises(NotImplementedError):
-        b.add_material(type=3, kd=0.5, ks=0.2)
     portal = SceneBuilder()
     entry._fill_portal_scene(portal)
     assert portal.build("cpu").fused_profile is not None
+    glossy = SceneBuilder()
+    entry._fill_portal_scene(glossy)
+    glossy.tris[0]["mat"] = glossy.add_material(type=3, kd=0.5, ks=0.2)
+    assert glossy.build("cpu").fused_profile is None
     portal.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=0)
     with_disk = portal.build("cpu")
     assert with_disk.n_dsk == 1 and with_disk.fused_profile is None
@@ -176,11 +178,11 @@ def test_bridge_raises_on_unported_families():
     b.add_curve(np.zeros((4, 3)), 0.01, 0.01, mat=m)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_jax(b.build())
-    glossy = JaxBuilder(RGB)
-    glossy.add_material(type=3, kd=0.5, ks=0.2)
-    glossy.add_sphere((0.5, 0.5, 0.5), 0.2, mat=0)
-    with pytest.raises(NotImplementedError, match="matte"):
-        bridge.scene_from_jax(glossy.build())
+    hair = JaxBuilder(RGB)
+    hair.add_material(type=12)
+    hair.add_sphere((0.5, 0.5, 0.5), 0.2, mat=0)
+    with pytest.raises(NotImplementedError, match="hair"):
+        bridge.scene_from_jax(hair.build())
 
 
 def test_scene_to_device_keeps_values():
