@@ -129,10 +129,26 @@ Run from the root of a checkout, with no arguments:
    render of ``_heightfield_cornell()`` to rel 1e-3. (e) Renders a small
    scene of disks (intersected outside the kernels) with `path` and `ao`
    on the card and on the CPU twins: means to rel 1e-4.
+16. Hero-wavelength spectral rendering (60-bin spectra) of
+   tests/oracle/cornell_dielectric_oracle.pbrt (96², 128 spp, halton,
+   gaussian filter, maxdepth 5, 32 triangles: every ray on the
+   brute-force kernel). (a) The CLI as a subprocess with the file's
+   ``hero_path_mis`` and with ``--integrator hero_path``: one pass each,
+   11 and 6 brute-force launches (a closest hit per bounce, a shadow ray
+   per bounce but the last), each image against cornell_dielectric_ref.pfm
+   with tests/test_oracle.py's limits (md < 0.05 and block rel-L1 < 0.20;
+   md < 0.012). (b) In process, the file at 128 spp with
+   ``hero_path_mis``: every brute-force launch of the pass recorded and
+   its (t, prim) held against the twin on the same rays, bit for bit;
+   then the render timed by CUDA events with its launches (counts set to
+   0 just before) and peak memory, and once more under torch.profiler
+   (device time, the brute-force kernel's share); the film's
+   spectrum_to_rgb against a float64 product. (c) Both integrators at 8
+   spp against pbrt_tpu's image means (REF_HERO_MEANS) to rel 1e-4.
    Then prints a JSON line of the kernels (with each kernel's roofline
-   bound computed from this run's inputs, and the scene files' numbers
-   under "scene_files") and {"ok": true, "device": {...}} as the last
-   line.
+   bound computed from this run's inputs, the scene files' numbers
+   under "scene_files" and the hero phase's under "hero") and {"ok": true,
+   "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. It needs a CUDA device and never falls back to the CPU.
@@ -215,6 +231,22 @@ REF_ZOO_MEANS = {"caustic": 0.043504613591096586,
                  "envcam": 0.08074431071022066,
                  "envcavity": 0.43414789720059666,
                  "whitted": 0.06863066850038464}
+# pbrt_tpu's float32 image means (RGB, after spectrum_to_rgb) on the CPU
+# backend of cornell_dielectric_oracle.pbrt built with 60-bin spectra, at
+# its own resolution, max depth and filter, 8 spp, the halton sampler,
+# seed 0, printed by ``PYTHONPATH=. python tests/test_torch_hero.py``.
+HERO_MEAN_SPP = 8
+REF_HERO_MEANS = {"hero_path_mis": 0.3784221561585667,
+                  "hero_path": 0.3784904484525031}
+# The hero phase: the file, and per integrator the CLI's extra arguments,
+# its brute-force launches per pass (a closest hit on each of the
+# max_depth + 1 bounces and, with next event estimation, a shadow ray on
+# each but the last; 96² × 128 spp is one pass of 1,179,648 lanes) and
+# tests/test_oracle.py's limits (mean delta, block rel-L1 or None).
+HERO_FILE = "tests/oracle/cornell_dielectric_oracle.pbrt"
+HERO_REF = "tests/oracle/cornell_dielectric_ref.pfm"
+HERO_RUNS = {"hero_path_mis": ([], 6 + 5, 0.05, 0.20),
+             "hero_path": (["--integrator", "hero_path"], 6, 0.012, None)}
 # The scene-file phase: (file, the CLI's expected launches of the
 # brute-force kernel as (queries per pass, passes), the reference binary's
 # image with tests/test_oracle.py's limits for the file as (image,
@@ -884,7 +916,10 @@ def traverse_bound(table_bytes, n_rays, *stats):
 
 def device_ms_by_kernel(fn, frags):
     """Device time by kernel over one run of ``fn``, from torch.profiler:
-    (total ms, {kernel-name fragment: [ms, launches]})."""
+    (total ms, {kernel-name fragment: [ms, launches]}). Only the device's
+    own rows count: a CPU op's row carries the device time of the kernels
+    it launched again, so summing every row counts each kernel twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -893,9 +928,9 @@ def device_ms_by_kernel(fn, frags):
         torch.cuda.synchronize()
     total, by_name = 0.0, {frag: [0.0, 0] for frag in frags}
     for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
+        if evt.device_type == DeviceType.CPU:
+            continue
+        us = evt.self_device_time_total
         total += us / 1e3
         for frag in frags:
             if frag in evt.key and us > 0:
@@ -1158,12 +1193,12 @@ def _mean_delta(a, b):
     return abs(ma - mb) / max(min(ma, mb), 1e-9)
 
 
-def run_cli(scene_file, out):
+def run_cli(scene_file, out, *args):
     """The CLI in a subprocess on the card; returns its summary line."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pbrt_tpu_torch.utils.cli", scene_file, "-o",
-         out], cwd=os.path.dirname(os.path.abspath(__file__)),
+         out, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
         capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"the CLI on {scene_file}:\n{proc.stderr}")
@@ -1408,6 +1443,161 @@ def scene_files(dev, hf_mean, hf_tris):
     check(rel < 1e-3, f"demo file mean off REF_IMAGE_MEAN by rel {rel}")
     out["demo_fused"] = row
     out["disks"] = disks_on_the_card(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 16. hero-wavelength spectral rendering
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_brute_force():
+    """Record every brute-force query of scene/intersect.py as (the
+    kernel's arguments, its outputs); the kernel's wrapper still counts
+    its launches."""
+    calls = []
+    inner = isect_mod._closest
+
+    def record(scene, o, d, tmax):
+        out = inner(scene, o, d, tmax)
+        calls.append((ik.pack_scene(scene) + (
+            o.detach().contiguous(), d.detach().contiguous(),
+            tmax.detach().contiguous(), scene.n_tri, scene.n_sph,
+            scene.n_pln), out))
+        return out
+    isect_mod._closest = record
+    try:
+        yield calls
+    finally:
+        isect_mod._closest = inner
+
+
+def hero_files(dev):
+    """Phase 16: the CLI on the spectral oracle file with both hero
+    integrators, the kernel against its twin on the hero pass's own rays,
+    the pass's time, launches, device time and memory, and the 8-spp
+    means against pbrt_tpu's. Returns the numbers for the JSON line."""
+    from pbrt_tpu_torch.core import spectrum as spec_mod
+    out = {"cli": {}}
+    ref = imageio.read_pfm(HERO_REF)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (args, want, md_lim, bl_lim) in HERO_RUNS.items():
+            pfm = os.path.join(tmp, f"{name}.pfm")
+            sm = run_cli(HERO_FILE, pfm, *args)
+            img = imageio.read_pfm(pfm)
+            lc = sm["launches"]
+            row = {k: sm[k] for k in ("parse_s", "build_s", "render_s",
+                                      "render_cuda_ms", "write_s",
+                                      "process_s", "launches", "spp",
+                                      "mean", "prims", "integrator",
+                                      "channels")}
+            row["md"] = _mean_delta(img, ref)
+            row["bl"] = _block_rel_l1(img, ref, k=16)
+            print(f"hero file {name} (CLI): " + json.dumps(row))
+            check(img.shape == ref.shape and np.isfinite(img).all()
+                  and sm["channels"] == 60 and sm["integrator"] == name,
+                  f"{name}: image {img.shape}, {sm}")
+            check(lc["intersect_brute"] == want and lc["fused_bounce"] == 0
+                  and lc["bvh_traverse"] == 0,
+                  f"{name}: launches {lc}, the loop implies {want}")
+            check(row["md"] < md_lim
+                  and (bl_lim is None or row["bl"] < bl_lim),
+                  f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs the "
+                  f"limits {md_lim}, {bl_lim}")
+            out["cli"][name] = row
+
+    scene, cam, opts = load_pbrt(HERO_FILE, spectrum_cfg=spec_mod.SAMPLED,
+                                 device=dev)
+    check(scene.n_channels == 60 and scene.bvh is None
+          and scene.fused_profile is None, "the hero file's scene")
+    fname, fkw = opts["filter"]
+    spp = 128
+
+    def render(integrator="hero_path_mis", spp=spp):
+        return render_mod.render(
+            scene, cam, spp=spp, integrator=integrator, sampler="halton",
+            max_depth=opts["max_depth"], filter_name=fname,
+            filter_kwargs=fkw, seed=0, device=dev)
+    # (b) the kernel against its twin on every query of the pass
+    with recording_brute_force() as calls:
+        img = render()
+        torch.cuda.synchronize()
+    check(len(calls) == HERO_RUNS["hero_path_mis"][1],
+          f"{len(calls)} brute-force queries in the hero pass")
+    worst = 0.0
+    for args, (t, prim) in calls:
+        t_ref, prim_ref = ik._intersect_reference(*args)
+        worst = max(worst, float((t - t_ref).abs().max()))
+        check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
+              f"the kernel differs from its twin on the hero pass's rays "
+              f"({args[3].shape[0]} rays, t err {worst})")
+    cam_args = calls[0][0]
+    n_rays = cam_args[3].shape[0]
+    k_ms = sync_ms(lambda: ik.intersect_brute(*cam_args), 20)
+    twin_ms = sync_ms(lambda: ik._intersect_reference(*cam_args), 3)
+    bound = intersect_bound(scene, n_rays)
+    del calls, cam_args
+    # the render timed, its launches counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    ik.intersect_brute.launches = 0
+    fp.fused_bounce.launches = 0
+    bk.bvh_traverse.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    img2 = render()
+    stop.record()
+    torch.cuda.synchronize()
+    render_ms = start.elapsed_time(stop)
+    launches = ik.intersect_brute.launches
+    # the pass's own peak, over what earlier phases left allocated
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+    check(launches == HERO_RUNS["hero_path_mis"][1]
+          and fp.fused_bounce.launches == 0
+          and bk.bvh_traverse.launches == 0,
+          f"hero render: {launches} brute-force launches")
+    check(torch.equal(img, img2), "two renders of the hero pass differ")
+    dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"])
+    check(by["intersect_kernel"][1] == launches,
+          f"the profiler saw {by['intersect_kernel'][1]} kernel launches")
+    # the film's conversion: no TF32 (a float64 product for reference)
+    rgb = spec_mod.spectrum_to_rgb(img)
+    rgb64 = img.double() @ torch.as_tensor(spec_mod._tables()[1].T,
+                                           dtype=torch.float64, device=dev)
+    conv_err = float((rgb.double() - rgb64).abs().max()
+                     / rgb64.abs().max())
+    check(rgb.shape == (96, 96, 3) and conv_err < 1e-6
+          and torch.equal(rgb.cpu(), spec_mod.spectrum_to_rgb(img.cpu())),
+          f"spectrum_to_rgb on the card: rel err {conv_err}")
+    pass_row = {
+        "spp": spp, "lanes": n_rays,
+        "render_cuda_ms": render_ms,
+        "samples_per_s": 96 * 96 * spp / (render_ms / 1e3),
+        "device_ms": dev_ms, "intersect_device_ms": by["intersect_kernel"][0],
+        "intersect_share": by["intersect_kernel"][0] / dev_ms,
+        "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
+        "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
+        "launches": launches,
+        "kernel_vs_twin_max_abs_err": worst, "spectrum_to_rgb_rel_err":
+        conv_err}
+    print("hero pass in process, 128 spp halton, hero_path_mis: "
+          + json.dumps(pass_row))
+    out["pass"] = pass_row
+    out["kernel"] = {"launches": launches, "max_abs_err": worst,
+                     "ms": k_ms, "plain_ms": twin_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "rays": n_rays}
+    # (c) 8-spp means against pbrt_tpu's
+    out["means"] = {}
+    for integrator, ref_mean in REF_HERO_MEANS.items():
+        m = float(spec_mod.spectrum_to_rgb(
+            render(integrator, HERO_MEAN_SPP)).double().mean())
+        rel = abs(m - ref_mean) / ref_mean
+        out["means"][integrator] = {"mean": m, "ref": ref_mean, "rel": rel}
+        print(f"hero file {integrator} in process, {HERO_MEAN_SPP} spp: "
+              + json.dumps(out["means"][integrator]))
+        check(rel < 1e-4, f"{integrator}: mean off pbrt_tpu's by rel {rel}")
     return out
 
 
@@ -2011,6 +2201,12 @@ def main():
     files["phase_s"] = time.perf_counter() - t0
     print(f"scene-file phase {files['phase_s']:.1f} s")
 
+    # ---- 16. hero-wavelength spectral rendering
+    t0 = time.perf_counter()
+    hero = hero_files(dev)
+    hero["phase_s"] = time.perf_counter() - t0
+    print(f"hero phase {hero['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -2044,7 +2240,11 @@ def main():
                      "ms": under["bounce"]["ms"],
                      "plain_ms": under["bounce"]["plain_ms"],
                      "bound_ms": under_bound[0],
-                     "bound_by": under_bound[1]}}, {
+                     "bound_by": under_bound[1]},
+        # the hero pass (phase 16): launches of its timed 128-spp render,
+        # the largest error over all its queries, times and bound on its
+        # camera rays
+        "hero_path": hero["kernel"]}, {
         # the render path's kernel as the render launches it; camera rays
         # of the heightfield tree in the callers' order (bounce and shadow
         # rays, the other grid and the L2 window in the lines above)
@@ -2095,7 +2295,7 @@ def main():
         "bound_by": "bytes", "library_ms": probe["library_ms"],
         "device_ms": probe["device_ms"],
         "library_device_ms": probe["library_device_ms"]}],
-        "scene_files": files}))
+        "scene_files": files, "hero": hero}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

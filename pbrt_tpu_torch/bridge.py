@@ -5,7 +5,8 @@ built ``pbrt_tpu`` Scene, Camera and Filter into this package's objects
 on a given device. Every field is read through ``np.asarray``, so this
 module never imports jax itself; static fields (the primitive counts,
 ``n_channels``, ``fused_profile``, the tables' ``present`` and other
-flags) carry over as they are. Only what the port models is carried: a
+flags) carry over as they are, so a scene of 60-bin sampled spectra
+carries its 60-channel materials, lights, power and map distribution. Only what the port models is carried: a
 scene with other shape families, material types, media, textures or
 motion raises. A BVH carries over as its flat node
 arrays and leaf-ordered triangles, repacked by the port into its own

@@ -15,7 +15,10 @@ Everything pbrt_tpu's parser reads and the port cannot build yet raises
 that asks for it: textures, media, object instancing, curves, the
 subsurface, kdsubsurface, hair, fourier and null materials, a Disney
 material with scatterdistance on a solid surface, emissive disks, motion
-blur, the kd-tree and spectral mode. An
+blur and the kd-tree. A ``spectrum_cfg`` of SAMPLED builds a 60-bin scene
+as pbrt_tpu's does: each spectrum-typed parameter resolves to RGB first
+(``Params.spectrum_rgb``) and the builder lifts it to 60 bins
+(``from_rgb``); the reference binary keeps an SPD as it is. An
 integrator keyword the port lacks raises when the scene is rendered, so
 ``--cat`` still reads such a file. What pbrt_tpu's parser itself skips,
 or records and never reads (unknown directives, shapes, light types and
@@ -203,8 +206,7 @@ _DISNEY_PARAMS = (("metallic", "metallic"), ("speculartint", "spec_tint"),
 
 class PbrtParser:
     def __init__(self, spectrum_cfg=spec_mod.RGB, base_dir="."):
-        spec_mod.require_rgb(spectrum_cfg)
-        self.builder = SceneBuilder()
+        self.builder = SceneBuilder(spectrum_cfg)
         self.base_dir = base_dir
         self.ctm = np.eye(4)
         self.ctm2 = np.eye(4)          # end-time CTM (TransformSet[1])
@@ -583,8 +585,8 @@ class PbrtParser:
                 kw["scatter_d"] = tuple(np.asarray(sd, np.float64))
         if name == "dispersive_glass":
             # Cauchy from the (etaMin, etaMax) endpoints
-            # (materials/dispersive_glass.cpp:62-64); RGB renders it as
-            # smooth glass at eta(0.55 µm)
+            # (materials/dispersive_glass.cpp:62-64); the hero integrators
+            # evaluate eta(λ), the others smooth glass at eta(0.55 µm)
             eta_min = p.one("etaMin", 1.5)
             eta_max = p.one("etaMax", 1.6)
             l_min = spec_mod.LAMBDA_START * 1e-3

@@ -1,6 +1,7 @@
 """Render entry points and the sampler-integrator family as wavefront
 programs (port of pbrt_tpu/integrators/render.py: RenderConfig, the integrators
-`path`, `mypath`, `directlighting`, `whitted` and `ambientocclusion`,
+`path`, `mypath`, `directlighting`, `whitted` and `ambientocclusion`, the
+hero-wavelength `hero_path` and `hero_path_mis` of integrators/hero.py,
 render_pass and render).
 
 ``render_pass`` evaluates ``chunk`` samples of every pixel in one batch
@@ -28,6 +29,7 @@ from pbrt_tpu_torch.core.sampling import (cosine_sample_hemisphere,
                                           uniform_sample_hemisphere)
 from pbrt_tpu_torch.core.vecmath import absdot
 from pbrt_tpu_torch.integrators import common
+from pbrt_tpu_torch.integrators import hero as hero_mod
 from pbrt_tpu_torch.ops import fused_path
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import camera as cam_mod
@@ -252,7 +254,9 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
 
 _INTEGRATORS = {"path": li_path, "direct": li_direct,
                 "directlighting": li_direct, "whitted": li_whitted,
-                "ao": li_ao, "ambientocclusion": li_ao, "mypath": li_mypath}
+                "ao": li_ao, "ambientocclusion": li_ao, "mypath": li_mypath,
+                "hero_path": hero_mod.li_hero_path,
+                "hero_path_mis": hero_mod.li_hero_path_mis}
 
 
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
@@ -332,7 +336,8 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
            light_strategy: str = "uniform", rr_threshold: float = 1.0,
            crop_window=None, integrator_params=None, check_finite=False,
            progress=None, device="cuda") -> torch.Tensor:
-    """Full render → (H, W, C) radiance image on ``device``, looping over
+    """Full render → (H, W, C) radiance image on ``device`` (C = 60 for a
+    scene of sampled spectra: convert with ``spectrum_to_rgb``), looping over
     spp chunks of ``chunk_spp`` samples per pixel. Runs on the card unless
     the caller asks for ``device="cpu"``, and raises when there is no
     card.

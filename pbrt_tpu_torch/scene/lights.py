@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import spectrum as spec_mod
 from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.sampling import (INV_4PI, Distribution2D,
                                           distribution_2d_pdf,
@@ -101,7 +102,11 @@ def _lt_present(lt: LightTable, *types: int) -> bool:
 
 
 def _rgb_map(m, C: int) -> np.ndarray:
+    """A light map of C channels; an RGB map in a sampled scene is lifted
+    to 60 bins (``from_rgb``), as pbrt_tpu lifts it."""
     m = np.asarray(m, np.float32)
+    if m.ndim == 3 and m.shape[-1] == 3 and C != 3:
+        m = spec_mod.rgb_to_spectrum(m)
     if m.ndim != 3 or m.shape[-1] != C:
         raise ValueError(f"a light map must be (H, W, {C}), not {m.shape}")
     return m
@@ -510,6 +515,17 @@ def pdf_li(scene, light_idx, ref_p, wi):
         if scene.n_sph else pdf
     pdf_area = torch.where(ap.is_sph, pdf_sph, pdf_flat)
     return torch.where(g.ltype == AREA, pdf_area, pdf)
+
+
+def infinite_pdf_li(scene, d):
+    """Solid-angle pdf of the infinite light's Sample_Li for directions d,
+    already multiplied by the uniform light-selection pmf
+    (InfiniteAreaLight::Pdf_Li, lights/infinite.cpp:142-152)."""
+    lt = scene.lights
+    if not _lt_present(lt, INFINITE):
+        return torch.zeros(d.shape[:-1], device=d.device)
+    has_inf = (lt.ltype == INFINITE).any()
+    return torch.where(has_inf, _env_pdf(lt, d) / lt.n, 0.0)
 
 
 def env_radiance(lt: LightTable, d):

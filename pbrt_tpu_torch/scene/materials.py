@@ -11,7 +11,9 @@ convention: a delta lobe returns ``f`` already divided by ``|cos|`` with
 
 Types (MakeMaterial, core/api.cpp:497-583): MATTE (Lambert / Oren–Nayar),
 MIRROR, GLASS (smooth, or rough when ``roughness > 1e-3``), PLASTIC, METAL,
-DISPERSIVE_GLASS (RGB: smooth glass at eta = B + C/0.55²), UBER (plastic's
+DISPERSIVE_GLASS (smooth glass at eta = B + C/λ²: the hero integrators
+pass eta at their hero wavelength, ``cauchy_eta``; the others render it
+at eta(0.55 µm)), UBER (plastic's
 lobes), SUBSTRATE (FresnelBlend), TRANSLUCENT and DISNEY (thin and solid,
 with transmission). Microfacet rows take Trowbridge–Reitz or, with
 ``ndf`` 1, Beckmann–Spizzichino. The BSSRDF families (subsurface, a
@@ -28,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import spectrum as spec_mod
 from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.sampling import (INV_PI, concentric_sample_disk,
                                           cosine_sample_hemisphere)
@@ -612,10 +615,10 @@ def _pow5(x):
 # ---------------------------------------------------------------------------
 
 def _disney_lum(c):
-    """Spectrum::y() of an RGB color (disney.cpp:494)."""
-    w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=c.dtype,
-                     device=c.device)
-    return c @ w
+    """Spectrum::y() used for the Disney tint normalization
+    (disney.cpp:494: `Float lum = c.y()`), of RGB or 60-bin colors."""
+    return spec_mod.luminance(
+        c, spec_mod.RGB if c.shape[-1] == 3 else spec_mod.SAMPLED)
 
 
 def _disney_alphas(mp):
@@ -967,7 +970,8 @@ def _sel(pairs, default):
     return out
 
 
-def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None):
+def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None,
+                eta_override=None):
     """Sample wi ~ BSDF (BSDF::Sample_f, reflection.cpp:605+). Returns
     (wi, f, pdf, flags); the caller computes beta *= f·|cos(wi)|/pdf
     (a delta lobe's f is F/|cos|, its pdf the lobe's probability).
@@ -975,12 +979,15 @@ def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None):
     a microfacet sample below the horizon; smooth glass reflects or
     refracts by Fresnel against u_lobe (total internal reflection
     reflects); rough glass picks reflection or transmission by
-    u_lobe ≥ 0.5, and a failed refraction is a failed sample (pdf 0)."""
+    u_lobe ≥ 0.5, and a failed refraction is a failed sample (pdf 0).
+    ``eta_override`` (R,) replaces the dielectric index of the glass
+    families (dispersive glass at the hero wavelength,
+    materials/dispersive_glass.cpp:90-122)."""
     t = mp.mtype
     C = mp.kd.shape[-1]
     R = wo.shape[:-1]
     dev = wo.device
-    eta_mat = mp.eta
+    eta_mat = mp.eta if eta_override is None else eta_override
     kd = mp.kd if kd_override is None else kd_override
     alpha = _mat_alpha(mp)
     ndf = _ndf(mp)
@@ -1093,6 +1100,13 @@ def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None):
     flags = (is_spec.to(torch.int32) * FLAG_SPECULAR
              | is_trans.to(torch.int32) * FLAG_TRANSMISSION)
     return wi, f, pdf, flags
+
+
+def cauchy_eta(b, c, wvl_nm):
+    """Dispersive glass eta(λ) = B + C/λ², λ in µm
+    (materials/dispersive_glass.cpp:62-64, reflection.h:345-380)."""
+    lam_um = wvl_nm * 1e-3
+    return b + c / (lam_um * lam_um)
 
 
 def _disney_sample(mp, kd, wo, u_lobe, u, wi_cos):

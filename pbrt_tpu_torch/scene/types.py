@@ -10,8 +10,11 @@ not emissive).
 ``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
 pbrt_tpu does. Disks are intersected outside the kernels, in plain torch,
 as pbrt_tpu does (scene/intersect.py). Emissive disks, curves, instancing,
-media, textures, motion, spectral rendering and the kd-tree belong to
-later slices and raise ``NotImplementedError``.
+media, textures, motion and the kd-tree belong to later slices and raise
+``NotImplementedError``. A scene's spectra have 3 channels (RGB) or 60
+(sampled, for the hero-wavelength integrators): the builder's
+``SpectrumConfig`` decides, and lifts RGB parameters to 60 bins with
+``core/spectrum.py::from_rgb``, as pbrt_tpu's builder does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import spectrum as spec_mod
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
 
@@ -115,12 +119,12 @@ def _unported(what: str, item: int):
 
 class SceneBuilder:
     """Host-side scene construction (numpy lists → tensors), the role of
-    the pbrt API's world block. RGB only (``n_channels=3``)."""
+    the pbrt API's world block. ``spectrum_cfg``: RGB (3 channels) or
+    SAMPLED (60 bins)."""
 
-    def __init__(self, n_channels: int = 3):
-        if n_channels != 3:
-            _unported("spectral rendering (n_channels != 3)", 9)
-        self.n_channels = n_channels
+    def __init__(self, spectrum_cfg: spec_mod.SpectrumConfig = spec_mod.RGB):
+        self.cfg = spectrum_cfg
+        self.n_channels = spectrum_cfg.n_channels
         self.bvh_split = "sah"  # BVH SplitMethod (bvh.h:58)
         self.tris = []        # dicts: v0 v1 v2 n0 n1 n2 uv0 uv1 uv2 mat light
         self.spheres = []     # dicts: center radius mat light
@@ -143,6 +147,8 @@ class SceneBuilder:
         v = np.asarray(v, np.float32)
         if v.ndim == 0:
             return np.full(self.n_channels, float(v), np.float32)
+        if v.shape[-1] == 3 and self.n_channels != 3:
+            return spec_mod.from_rgb(v, self.cfg)
         if v.shape[-1] == self.n_channels:
             return v
         raise ValueError(f"bad spectrum shape {v.shape}")

@@ -14,6 +14,11 @@ launches of each kernel, the primitive counts and the image mean.
 ``--debug-nans`` is the counterpart of pbrt_tpu's ``jax_debug_nans``: it
 raises on the first pass whose radiance holds a NaN or an infinity,
 before the render's clamp to black.
+
+``--spectral`` builds the scene with 60-bin sampled spectra; a
+``hero_path`` or ``hero_path_mis`` integrator (the file's or
+``--integrator``'s) does so by itself, as pbrt_tpu's CLI does. A sampled
+image is converted to RGB (``spectrum_to_rgb``) before it is written.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ def _parser():
     ap.add_argument("--spp", type=int, default=None)
     ap.add_argument("--integrator", default=None)
     ap.add_argument("--spectral", action="store_true",
-                    help="60-bin sampled spectra (not ported)")
+                    help="60-bin sampled spectra (the hero_path* "
+                         "integrators imply it)")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (the kernels' plain twins)")
     ap.add_argument("--cat", action="store_true",
@@ -65,7 +71,7 @@ def main(argv=None):
     import torch
 
     from pbrt_tpu_torch.core import spectrum as spec_mod
-    from pbrt_tpu_torch.frontend.parser import parse_file
+    from pbrt_tpu_torch.frontend.parser import _INTEGRATORS, parse_file
     from pbrt_tpu_torch.integrators.render import render
     from pbrt_tpu_torch.ops import bvh, fused_path, intersect
     from pbrt_tpu_torch.scene.types import require_device
@@ -86,6 +92,11 @@ def main(argv=None):
     phases0 = stats_mod.phase_times()    # main() may run more than once
     with stats_mod.profile_phase("Scene parsing"):
         ps = parse_file(args.scene, spectrum_cfg=cfg)
+        name = args.integrator or _INTEGRATORS.get(
+            ps.options["integrator"], "path")
+        if name in ("hero_path", "hero_path_mis") and cfg.mode != "sampled":
+            cfg = spec_mod.SAMPLED
+            ps = parse_file(args.scene, spectrum_cfg=cfg)
     with stats_mod.profile_phase("Scene creation"):
         scene, cam, opts = ps.build(device)
         if device.type == "cuda":
@@ -122,6 +133,8 @@ def main(argv=None):
             ev1.record()
             torch.cuda.synchronize()
             t["render_cuda_ms"] = ev0.elapsed_time(ev1)
+    if img.shape[-1] != 3:
+        img = spec_mod.spectrum_to_rgb(img)
     img = img.cpu().numpy()
     with stats_mod.profile_phase("Film write"):
         imageio.write_image(fname, img)
@@ -141,6 +154,7 @@ def main(argv=None):
         say("summary " + json.dumps(dict(
             t, launches=launches, mean=float(img.astype("float64").mean()),
             shape=list(img.shape), spp=spp, outfile=fname,
+            integrator=integrator, channels=scene.n_channels,
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
                        dsk=scene.n_dsk, bvh=scene.bvh is not None))))
     return 0

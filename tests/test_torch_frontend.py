@@ -418,7 +418,7 @@ UNPORTED = {
 # (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
 # in the repo)
 UNPORTED_FILES = ("volpath", "texinst", "curves", "dofmotion", "gridvol",
-                  "sss", "cornell_dielectric", "disney_sss")
+                  "sss", "disney_sss")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -433,7 +433,7 @@ def test_unported_families_raise(name):
 @pytest.mark.parametrize("name", UNPORTED_FILES)
 def test_unported_oracle_files_raise(name):
     """Each file raises when it is read or, where only its integrator is
-    not ported (cornell_dielectric: hero_path_mis), when it is rendered."""
+    not ported, when it is rendered."""
     from pbrt_tpu_torch.integrators.render import render
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP queue 1 item (6|8|9)$"):
@@ -444,10 +444,20 @@ def test_unported_oracle_files_raise(name):
 
 
 def test_spectral_mode_raises():
+    """Spectral mode no longer raises: ao_oracle.pbrt parsed with SAMPLED
+    spectra gives pbrt_tpu's 60-bin tables exactly (each RGB parameter
+    lifted by ``from_rgb`` in XLA's summation order)."""
+    from pbrt_tpu.core import spectrum as jspectrum
     from pbrt_tpu_torch.core import spectrum
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tparser.load_pbrt(FILES["ao"], spectrum_cfg=spectrum.SAMPLED,
-                          device="cpu")
+    js, jc, jo = jparser.load_pbrt(FILES["ao"],
+                                   spectrum_cfg=jspectrum.SAMPLED)
+    ts, tc, to = tparser.load_pbrt(FILES["ao"], spectrum_cfg=spectrum.SAMPLED,
+                                   device="cpu")
+    assert ts.n_channels == 60 and ts.materials.kd.shape[-1] == 60
+    assert_same(ts, bridge.scene_from_jax(js), "scene")
+    assert_same(tc, bridge.camera_from_jax(jc), "camera")
+    for k in OPTION_KEYS:
+        assert to.get(k) == jo.get(k), k
 
 
 def test_load_pbrt_defaults_to_the_card():

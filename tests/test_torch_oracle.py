@@ -12,7 +12,7 @@
     block relative L1 (k = 16) against the *_ref.pfm images.
 (c) The CLI: ``cli.main`` writes the image ``render`` gives, ``--cat``
     prints what pbrt_tpu's prints, ``--cropwindow`` writes the crop and
-    ``--spectral`` raises.
+    ``--spectral`` writes a 60-bin render as RGB.
 """
 
 import importlib
@@ -132,9 +132,25 @@ def test_cli_cat_matches_jax(capsys):
         assert "WorldBegin" in want
 
 
-def test_cli_spectral_and_no_card_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main([DEMO, "--cpu", "--spectral", "--quiet"])
+def test_cli_spectral_and_no_card_raise(tmp_path):
+    """``--spectral`` renders (it raised before the hero slice): the CLI
+    writes the 60-bin render of the file's scene built with SAMPLED
+    spectra, converted to RGB, bit for bit; without a card the CLI still
+    raises unless asked for the CPU."""
+    from pbrt_tpu_torch.core import spectrum
+    out = tmp_path / "s.pfm"
+    window = (0.25, 0.5, 0.25, 0.5)
+    assert cli.main([DEMO, "--cpu", "--quiet", "--spectral", "--spp", "1",
+                     "--cropwindow", *map(str, window), "-o", str(out)]) == 0
+    img = imageio.read_pfm(str(out))
+    scene, cam, opts = load_pbrt(DEMO, spectrum_cfg=spectrum.SAMPLED,
+                                 device="cpu")
+    ref = trender.render(scene, cam, spp=1, integrator="path",
+                         sampler="halton", max_depth=opts["max_depth"],
+                         crop_window=window, device="cpu")
+    assert scene.n_channels == 60 and ref.shape == (32, 32, 60)
+    assert np.array_equal(img, spectrum.spectrum_to_rgb(ref).numpy())
+    assert np.isfinite(img).all() and img.mean() > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([DEMO, "--quiet"])
