@@ -145,6 +145,23 @@ Run from the root of a checkout, with no arguments:
    (device time, the brute-force kernel's share); the film's
    spectrum_to_rgb against a float64 product. (c) Both integrators at 8
    spp against pbrt_tpu's image means (REF_HERO_MEANS) to rel 1e-4.
+17. Textures, object instancing and participating media: the files
+   tests/oracle/{texinst,volpath,gridvol}_oracle.pbrt (96², halton; an
+   EWA-filtered imagemap floor and two instances of a mesh under `path`;
+   a homogeneous and a grid medium in a null sphere under `volpath`; every
+   query on the brute-force kernel). (a) The CLI as three subprocesses at
+   once, at the files' own spp (128, 256, 256): 10, 92 and 92
+   brute-force launches (MEDIA_FILES), each image against its reference
+   with tests/test_oracle.py's limits. (b) In process, each file at 128
+   spp (one pass of 1,179,648 lanes): every brute-force launch recorded
+   and held against the twin bit for bit; the pass timed by CUDA events
+   with its launches (counts set to 0 just before) and peak memory, and
+   under torch.profiler (device time, the kernel's share). (c) Each file
+   at 8 spp against pbrt_tpu's image mean (REF_MEDIA_MEANS) to rel 1e-4,
+   and the gradient scene's (entry._fill_portal_grad_scene) image mean and
+   gradients with respect to kd, emit and the portal's corners through
+   the generic loop on the card against the CPU twins' within
+   tests/test_torch_grad.py's tolerance.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -247,6 +264,29 @@ HERO_FILE = "tests/oracle/cornell_dielectric_oracle.pbrt"
 HERO_REF = "tests/oracle/cornell_dielectric_ref.pfm"
 HERO_RUNS = {"hero_path_mis": ([], 6 + 5, 0.05, 0.20),
              "hero_path": (["--integrator", "hero_path"], 6, 0.012, None)}
+# The media phase (17): per file, the CLI's spp (the file's own), the
+# brute-force queries a pass makes (path: a closest hit, the NEE ray and
+# the BSDF half's ray on each full bounce, then the last bounce's closest
+# hit; volpath: the bounce's ray, four shadow segments and four segments
+# of the scattering-strategy walk on each full bounce, then the last
+# bounce's ray), the passes of 2^21 lanes the CLI cuts its spp into, and
+# tests/test_oracle.py's limits (mean delta, block rel-L1).
+MEDIA_FILES = {"texinst": (128, 3 * 3 + 1, 1, 0.01, 0.03),
+               "volpath": (256, 5 * 9 + 1, 2, 0.02, 0.06),
+               "gridvol": (256, 5 * 9 + 1, 2, 0.05, 0.08)}
+MEDIA_PASS_SPP = 128     # the in-process pass: 96² × 128 = 1,179,648 lanes
+# pbrt_tpu's float32 image means on the CPU backend of the three files at
+# their own resolution, integrator and max depth, 8 spp, the halton
+# sampler, seed 0, printed by ``PYTHONPATH=. python
+# tests/test_torch_texinst.py`` and ``... tests/test_torch_volpath.py``.
+MEDIA_MEAN_SPP = 8
+REF_MEDIA_MEANS = {"texinst": 0.03901138345819349,
+                   "volpath": 0.04115201333742233,
+                   "gridvol": 0.044565141245070834}
+# the gradient scene (entry._fill_portal_grad_scene): 16² × 4 spp, `path`
+# through the generic loop at max_depth 3, the parameters differentiated
+# and tests/test_torch_grad.py's tolerance (atol 1e-6 + 1e-4 × max |g|)
+GRAD_PARAMS = ("kd", "emit", "portal_lo", "portal_hi")
 # The scene-file phase: (file, the CLI's expected launches of the
 # brute-force kernel as (queries per pass, passes), the reference binary's
 # image with tests/test_oracle.py's limits for the file as (image,
@@ -914,16 +954,18 @@ def traverse_bound(table_bytes, n_rays, *stats):
     return bound_ms(n_bytes, n_ops)
 
 
-def device_ms_by_kernel(fn, frags):
+def device_ms_by_kernel(fn, frags, cpu=True):
     """Device time by kernel over one run of ``fn``, from torch.profiler:
     (total ms, {kernel-name fragment: [ms, launches]}). Only the device's
     own rows count: a CPU op's row carries the device time of the kernels
-    it launched again, so summing every row counts each kernel twice."""
+    it launched again, so summing every row counts each kernel twice.
+    ``cpu=False`` traces the device alone (no CPU op rows, a fraction of
+    the overhead on a pass of many small launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
         fn()
         torch.cuda.synchronize()
     total, by_name = 0.0, {frag: [0.0, 0] for frag in frags}
@@ -1193,21 +1235,37 @@ def _mean_delta(a, b):
     return abs(ma - mb) / max(min(ma, mb), 1e-9)
 
 
-def run_cli(scene_file, out, *args):
-    """The CLI in a subprocess on the card; returns its summary line."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def start_cli(scene_file, out, *args):
+    """The CLI in a subprocess on the card, started; finish_cli waits."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "pbrt_tpu_torch.utils.cli", scene_file, "-o",
          out, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return scene_file, proc, time.perf_counter()
+
+
+def finish_cli(started):
+    """Wait for a CLI started by start_cli; returns its summary line."""
+    scene_file, proc, t0 = started
+    try:
+        _, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the CLI on {scene_file}:\n{proc.stderr}")
-    lines = [ln for ln in proc.stderr.splitlines()
+    check(proc.returncode == 0, f"the CLI on {scene_file}:\n{stderr}")
+    lines = [ln for ln in stderr.splitlines()
              if ln.startswith("pbrt_tpu_torch: summary ")]
     check(len(lines) == 1, f"no summary from the CLI on {scene_file}")
     summary = json.loads(lines[0][len("pbrt_tpu_torch: summary "):])
     summary["process_s"] = wall
     return summary
+
+
+def run_cli(scene_file, out, *args):
+    """The CLI in a subprocess on the card; returns its summary line."""
+    return finish_cli(start_cli(scene_file, out, *args))
 
 
 def _floats(a):
@@ -1598,6 +1656,171 @@ def hero_files(dev):
         print(f"hero file {integrator} in process, {HERO_MEAN_SPP} spp: "
               + json.dumps(out["means"][integrator]))
         check(rel < 1e-4, f"{integrator}: mean off pbrt_tpu's by rel {rel}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 17. textures, object instancing and participating media
+# ---------------------------------------------------------------------------
+
+def _grad_pass(dev):
+    """The gradient scene's image mean and its gradients with respect to
+    GRAD_PARAMS through the generic loop on ``dev``."""
+    b = SceneBuilder()
+    entry._fill_portal_grad_scene(b)
+    scene = dataclasses.replace(b.build(dev), fused_profile=None)
+    tables = {"kd": scene.materials}
+    leaves = {n: getattr(tables.get(n, scene.lights), n).clone()
+              .requires_grad_() for n in GRAD_PARAMS}
+    scene = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials,
+                                             kd=leaves["kd"]),
+        lights=dataclasses.replace(scene.lights, **{
+            n: v for n, v in leaves.items() if n != "kd"}))
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=3)
+    img = render_mod.render_pass(
+        scene, entry._grad_camera((16, 16), dev), film_mod.make_filter(
+            "box", device=dev), cfg, 16, 16, 4, 0, dev) / 4
+    loss = img.mean()
+    loss.backward()
+    return float(loss.detach()), {n: v.grad.cpu() for n, v in
+                                  leaves.items()}
+
+
+def media_files(dev):
+    """Phase 17: (a) the CLI on texinst, volpath and gridvol at their own
+    spp against the reference images; (b) one in-process pass of each,
+    every brute-force query held to the twin bit for bit, the launches
+    counted, the pass timed with its device time, the kernel's share and
+    its peak memory; (c) the 8-spp means against pbrt_tpu's and the
+    gradient scene's gradients on the card against the CPU's. Returns the
+    numbers for the JSON lines."""
+    out = {"cli": {}, "pass": {}, "means": {}, "file_s": {}}
+    t_phase = time.perf_counter()
+    # (a) the three CLIs run at once (their times overlap: the in-process
+    # passes below are the timed ones)
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {name: start_cli(f"tests/oracle/{name}_oracle.pbrt",
+                                   os.path.join(tmp, f"{name}.pfm"))
+                   for name in MEDIA_FILES}
+        for name, (spp, per_pass, n_pass, md_lim, bl_lim) in \
+                MEDIA_FILES.items():
+            sm = finish_cli(started[name])
+            img = imageio.read_pfm(os.path.join(tmp, f"{name}.pfm"))
+            ref = imageio.read_pfm(f"tests/oracle/{name}_ref.pfm")
+            row = {k: sm[k] for k in ("render_s", "render_cuda_ms",
+                                      "process_s", "launches", "spp",
+                                      "mean", "prims", "media", "textures",
+                                      "integrator")}
+            row["md"] = _mean_delta(img, ref)
+            row["bl"] = _block_rel_l1(img, ref, k=16)
+            print(f"media file {name} (CLI, three at once): "
+                  + json.dumps(row))
+            lc = sm["launches"]
+            check(img.shape == ref.shape and np.isfinite(img).all()
+                  and sm["spp"] == spp, f"{name}: {img.shape}, {sm}")
+            check(lc["intersect_brute"] == per_pass * n_pass
+                  and lc["fused_bounce"] == 0 and lc["bvh_traverse"] == 0,
+                  f"{name}: launches {lc}, expected {per_pass * n_pass}")
+            check(row["md"] < md_lim and row["bl"] < bl_lim,
+                  f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs the "
+                  f"limits {md_lim}, {bl_lim}")
+            out["cli"][name] = row
+
+    out["cli_s"] = time.perf_counter() - t_phase
+    # (b) one pass of each file in process
+    for name, (_, per_pass, _, _, _) in MEDIA_FILES.items():
+        t_file = time.perf_counter()
+        scene, cam, opts = load_pbrt(f"tests/oracle/{name}_oracle.pbrt",
+                                     device=dev)
+        check(scene.bvh is None and scene.fused_profile is None,
+              f"{name}: the scene")
+
+        def render(spp=MEDIA_PASS_SPP, seed=0):
+            return render_mod.render(
+                scene, cam, spp=spp, integrator=opts["integrator"],
+                sampler="halton", max_depth=opts["max_depth"], seed=seed,
+                device=dev)
+        with recording_brute_force() as calls:
+            img = render()
+            torch.cuda.synchronize()
+        check(len(calls) == per_pass,
+              f"{name}: {len(calls)} brute-force queries in the pass")
+        worst = 0.0
+        for args, (t, prim) in calls:
+            t_ref, prim_ref = ik._intersect_reference(*args)
+            worst = max(worst, float((t - t_ref).abs().max()))
+            check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
+                  f"{name}: the kernel differs from its twin on the pass's "
+                  f"rays ({args[3].shape[0]} rays, t err {worst})")
+        n_rays = calls[0][0][3].shape[0]
+        del calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        ik.intersect_brute.launches = 0
+        fp.fused_bounce.launches = 0
+        bk.bvh_traverse.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img2 = render()
+        stop.record()
+        torch.cuda.synchronize()
+        render_ms = start.elapsed_time(stop)
+        launches = (ik.intersect_brute.launches, fp.fused_bounce.launches,
+                    bk.bvh_traverse.launches)
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+        check(launches == (per_pass, 0, 0),
+              f"{name}: launches {launches} in the timed pass")
+        check(torch.equal(img, img2), f"{name}: two renders differ")
+        dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"],
+                                         cpu=False)
+        check(by["intersect_kernel"][1] == per_pass,
+              f"{name}: the profiler saw {by['intersect_kernel'][1]} "
+              "kernel launches")
+        row = {"spp": MEDIA_PASS_SPP, "lanes": n_rays,
+               "render_cuda_ms": render_ms,
+               "samples_per_s": 96 * 96 * MEDIA_PASS_SPP / (render_ms / 1e3),
+               "device_ms": dev_ms,
+               "intersect_device_ms": by["intersect_kernel"][0],
+               "intersect_share": by["intersect_kernel"][0] / dev_ms,
+               "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
+               "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
+               "launches": launches[0], "kernel_vs_twin_max_abs_err": worst}
+        print(f"media pass {name} in process, {MEDIA_PASS_SPP} spp halton: "
+              + json.dumps(row))
+        out["pass"][name] = row
+
+        # (c) the 8-spp mean against pbrt_tpu's
+        m = float(render(MEDIA_MEAN_SPP).double().mean())
+        ref_mean = REF_MEDIA_MEANS[name]
+        rel = abs(m - ref_mean) / ref_mean
+        out["means"][name] = {"mean": m, "ref": ref_mean, "rel": rel}
+        print(f"media file {name} in process, {MEDIA_MEAN_SPP} spp: "
+              + json.dumps(out["means"][name]))
+        check(rel < 1e-4, f"{name}: mean off pbrt_tpu's by rel {rel}")
+        del scene, img, img2
+        out["file_s"][name] = time.perf_counter() - t_file
+        print(f"media file {name}: in-process checks "
+              f"{out['file_s'][name]:.1f} s")
+
+    # (c) the gradient scene's gradients, card against CPU
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _grad_pass(torch.device("cpu"))
+    loss_card, g_card = _grad_pass(dev)
+    grads = {"loss_cpu": loss_cpu, "loss_card": loss_card,
+             "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+    check(grads["loss_rel"] < 1e-5, f"gradient scene loss {grads}")
+    for n in GRAD_PARAMS:
+        scale = float(g_cpu[n].abs().max())
+        err = float((g_card[n] - g_cpu[n]).abs().max())
+        grads[n] = {"max_abs": scale, "max_abs_err": err}
+        check(scale > 1e-3 and err <= 1e-6 + 1e-4 * scale,
+              f"gradient {n} on the card: {grads[n]}")
+    grads["seconds"] = time.perf_counter() - t0
+    print("gradient scene, card against CPU: " + json.dumps(grads))
+    out["grads"] = grads
     return out
 
 
@@ -2206,6 +2429,12 @@ def main():
     hero = hero_files(dev)
     hero["phase_s"] = time.perf_counter() - t0
     print(f"hero phase {hero['phase_s']:.1f} s")
+
+    # ---- 17. textures, object instancing and participating media
+    t0 = time.perf_counter()
+    media = media_files(dev)
+    media["phase_s"] = time.perf_counter() - t0
+    print(f"media phase {media['phase_s']:.1f} s")
 
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -6,10 +6,13 @@ on a given device. Every field is read through ``np.asarray``, so this
 module never imports jax itself; static fields (the primitive counts,
 ``n_channels``, ``fused_profile``, the tables' ``present`` and other
 flags) carry over as they are, so a scene of 60-bin sampled spectra
-carries its 60-channel materials, lights, power and map distribution. Only what the port models is carried: a
-scene with other shape families, material types, media, textures or
-motion raises. A BVH carries over as its flat node
-arrays and leaf-ordered triangles, repacked by the port into its own
+carries its 60-channel materials, lights, power and map distribution.
+Textures (the table and its mip-atlas stack), instanced objects and media
+(with the per-prim media interface and the camera's medium; a legacy
+scene-global ``camera_medium`` becomes medium 0 of the camera) carry over.
+Only what the port models is carried: a scene with curves, subsurface,
+Fourier or hair rows, or motion raises. A BVH carries over as its flat
+node arrays and leaf-ordered triangles, repacked by the port into its own
 traversal layouts (pbrt_tpu's packet-kernel tables are left behind), so
 both packages walk the same tree; a kd-tree raises. This is the tests'
 tool for feeding both packages one scene, so it defaults to the CPU, where
@@ -17,6 +20,8 @@ JAX runs there; the port's own entry points default to the card.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,6 +34,9 @@ from pbrt_tpu_torch.scene.film import Filter
 from pbrt_tpu_torch.scene.lights import AREA, LightTable
 from pbrt_tpu_torch.scene.materials import MaterialTable
 from pbrt_tpu_torch.scene.bvh import _finish_flat
+from pbrt_tpu_torch.scene.instances import InstanceTable
+from pbrt_tpu_torch.scene.media import Medium
+from pbrt_tpu_torch.scene.textures import TextureTable
 from pbrt_tpu_torch.scene.types import Geometry, Scene
 
 
@@ -52,16 +60,50 @@ def bvh_from_jax(bvh, device="cpu"):
         "v2")), device=device, built_by="bridge")
 
 
+def _fields_from_jax(cls, obj, device, **static):
+    """A port dataclass ``cls`` from pbrt_tpu's ``obj``: every tensor
+    field read from the same name, the static ones given."""
+    return cls(**{f.name: _t(getattr(obj, f.name), device)
+                  for f in dataclasses.fields(cls)
+                  if f.type == "torch.Tensor"}, **static)
+
+
+def textures_from_jax(tt, device="cpu"):
+    if tt is None:
+        return None
+    return _fields_from_jax(
+        TextureTable, tt, device, ewa=bool(tt.ewa),
+        max_aniso=float(tt.max_aniso), nest_depth=int(tt.nest_depth),
+        present=tuple(sorted(set(np.asarray(tt.ttype).tolist()))))
+
+
+def instances_from_jax(it, device="cpu"):
+    if it is None:
+        return None
+    return _fields_from_jax(
+        InstanceTable, it, device, obj_layout=tuple(
+            tuple(int(x) for x in row) for row in it.obj_layout),
+        inst_order=tuple(int(i) for i in np.asarray(it.inst_ids)))
+
+
+def medium_from_jax(med, device="cpu") -> Medium:
+    return _fields_from_jax(Medium, med, device, is_grid=bool(med.is_grid))
+
+
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {k: getattr(scene, k, 0) for k in ("n_crv", "n_vprims")}
-    extra.update({k: getattr(scene, k, None) is not None
-                  for k in ("textures", "inst", "sss")})
+    extra = {"n_crv": getattr(scene, "n_crv", 0),
+             "sss": getattr(scene, "sss", None) is not None}
     extra.update({k: bool(getattr(scene, k, False))
-                  for k in ("has_motion", "has_sss", "media", "fourier")})
+                  for k in ("has_motion", "has_sss", "fourier")})
     if any(extra.values()):
         raise NotImplementedError(
-            f"bridge: only triangles, spheres, aaplanes and disks without "
-            f"media, textures or motion are ported ({extra})")
+            f"bridge: curves, subsurface scattering, Fourier tables and "
+            f"motion are not ported ({extra})")
+    media = tuple(medium_from_jax(m, device) for m in scene.media)
+    camera_med = int(scene.camera_med)
+    if not media and getattr(scene, "camera_medium", None) is not None:
+        media, camera_med = (medium_from_jax(scene.camera_medium,
+                                             device),), 0
     g, lt = scene.geom, scene.lights
     ltype = np.asarray(lt.ltype)
     return Scene(
@@ -91,16 +133,22 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         n_tri=int(scene.n_tri), n_sph=int(scene.n_sph),
         n_pln=int(scene.n_pln), n_channels=int(scene.n_channels),
         bvh=bvh_from_jax(scene.bvh, device), n_dsk=int(scene.n_dsk),
-        fused_profile=scene.fused_profile)
+        fused_profile=scene.fused_profile,
+        textures=textures_from_jax(scene.textures, device),
+        inst=instances_from_jax(scene.inst, device),
+        n_vprims=int(scene.n_vprims), media=media,
+        prim_med_in=_t(scene.prim_med_in, device),
+        prim_med_out=_t(scene.prim_med_out, device), camera_med=camera_med)
 
 
 def materials_from_jax(m, device="cpu") -> MaterialTable:
     """pbrt_tpu's MaterialTable as the port's: every field of the ported
-    families and the static flags. A row of another type, a textured
-    parameter or a DisneyBSSRDF row raises, as ``check_row`` does."""
+    families, the kd texture rows and the static flags. A row of another
+    type, a textured sigma or bump, or a DisneyBSSRDF row raises, as
+    ``check_row`` does."""
     for t in np.unique(np.asarray(m.mtype)):
         mat_mod.check_row({"type": int(t)})
-    for k in ("kd_tex", "sigma_tex", "bump_tex", "fourier_id"):
+    for k in ("sigma_tex", "bump_tex", "fourier_id"):
         if (np.asarray(getattr(m, k)) != -1).any():
             mat_mod.check_row({k: 0})
     if m.has_disney_sss:

@@ -98,6 +98,31 @@ def _portal_scene(device="cuda", strategy="projection"):
     return b.build(device)
 
 
+def _fill_portal_grad_scene(b, kd=0.6, Le=10.0, plo=(-0.5, 0.5),
+                            phi=(0.5, 1.5)):
+    """Add pbrt_tpu's gradient scene (tests/test_grad.py
+    ``_portal_grad_scene``) to builder ``b``: a floor and a vertical
+    projection-strategy portal (z = 2) in front of a vertical area light
+    (z = 3)."""
+    m = b.add_material(type=0, kd=kd)
+    b.add_mesh([(-4, 0, -4), (4, 0, -4), (4, 0, 4), (-4, 0, 4)],
+               [(0, 1, 2), (0, 2, 3)], mat=m)
+    li = b.add_light(type="area", L=Le, prim=-1, strategy="projection",
+                     portals=[((plo[0], plo[1], 2.0),
+                               (phi[0], phi[1], 2.0), 2, False)])
+    pid = b.add_aaplane((-1, 0.2, 3), (1, 2.2, 3), axis=2,
+                        facing_fw=False, mat=m, light=li)
+    b.light_rows[li]["prim"] = b.prim_index("pln", pid)
+
+
+def _grad_camera(res=(16, 16), device="cuda"):
+    """The gradient scene's camera (tests/test_grad.py ``render_small``)."""
+    device = require_device(device)
+    return cam_mod.make_perspective(
+        transform.look_at((0, 2, -4), (0, 0.5, 0), (0, 1, 0),
+                          device=device), 30.0, res, device=device)
+
+
 def _cornell_box(b):
     """The classic cornell box with a plain one-sided diffuse area light
     on an aaplane under the ceiling. Returns the white material row."""

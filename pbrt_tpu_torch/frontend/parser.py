@@ -10,12 +10,16 @@ float32, and every table the builder receives is the one pbrt_tpu's
 parser hands its own builder, so both packages build the same scene from
 one file.
 
-Everything pbrt_tpu's parser reads and the port cannot build yet raises
-``NotImplementedError`` naming its ROADMAP queue 1 item, at the directive
-that asks for it: textures, media, object instancing, curves, the
-subsurface, kdsubsurface, hair, fourier and null materials, a Disney
-material with scatterdistance on a solid surface, emissive disks, motion
-blur and the kd-tree. A ``spectrum_cfg`` of SAMPLED builds a 60-bin scene
+Textures (``Texture`` and a textured Kd), media (``MakeNamedMedium``,
+``MediumInterface``, the null material ``""`` / ``none``) and object
+instancing (``ObjectBegin`` / ``ObjectEnd`` / ``ObjectInstance``: true
+instances of pure triangle-mesh objects, flattened copies of any other)
+are read as pbrt_tpu reads them. Everything pbrt_tpu's parser reads and
+the port cannot build yet raises ``NotImplementedError`` naming its
+ROADMAP queue 1 item, at the directive that asks for it: curves, the
+subsurface, kdsubsurface, hair and fourier materials, a Disney material
+with scatterdistance on a solid surface, emissive disks, motion blur and
+the kd-tree. A ``spectrum_cfg`` of SAMPLED builds a 60-bin scene
 as pbrt_tpu's does: each spectrum-typed parameter resolves to RGB first
 (``Params.spectrum_rgb``) and the builder lifts it to 60 bins
 (``from_rgb``); the reference binary keeps an SPD as it is. An
@@ -175,6 +179,10 @@ class GraphicsState:
     material_id: int = 0
     area_light: Optional[dict] = None
     named_materials: dict = field(default_factory=dict)
+    textures: dict = field(default_factory=dict)  # name → (class, params)
+    # MediumInterface (api.cpp pbrtMediumInterface): medium ids, −1 vacuum
+    medium_in: int = -1
+    medium_out: int = -1
 
 
 _INTEGRATORS = {"path": "path", "directlighting": "direct",
@@ -190,10 +198,15 @@ _MATERIALS = {"matte": mat_mod.MATTE, "mirror": mat_mod.MIRROR,
               "metal": mat_mod.METAL,
               "dispersive_glass": mat_mod.DISPERSIVE_GLASS,
               "uber": mat_mod.UBER, "substrate": mat_mod.SUBSTRATE,
-              "translucent": mat_mod.TRANSLUCENT, "disney": mat_mod.DISNEY}
+              "translucent": mat_mod.TRANSLUCENT, "disney": mat_mod.DISNEY,
+              "none": mat_mod.NONE, "": mat_mod.NONE}
 # the keywords the port cannot build yet, with their ROADMAP items
 _UNPORTED_MATERIALS = {"hair": 8, "fourier": 8, "subsurface": 9,
-                       "kdsubsurface": 9, "none": 9, "": 9}
+                       "kdsubsurface": 9}
+# Texture classes → scene/textures.py types
+_TEXTURES = {"constant": 0, "scale": 1, "mix": 2, "checkerboard": 3,
+             "uv": 4, "dots": 5, "bilerp": 6, "imagemap": 7, "fbm": 8,
+             "wrinkled": 9, "windy": 10, "marble": 11}
 # Disney parameter → row key (materials/disney.cpp)
 _DISNEY_PARAMS = (("metallic", "metallic"), ("speculartint", "spec_tint"),
                   ("sheen", "sheen"), ("sheentint", "sheen_tint"),
@@ -223,6 +236,11 @@ class PbrtParser:
             "camera": ("perspective", Params(base_dir)),
             "camera_to_world": np.eye(4),
         }
+        self.object_defs = {}        # ObjectBegin name → recorded shapes
+        self.recording = None
+        self._instance_obj_ids = {}  # name → the builder's object id
+        self.named_media = {}        # MakeNamedMedium name → medium id
+        self._tex_ids = {}           # Texture name → texture row
         # the default material (api.cpp: matte)
         self.builder.add_material(type=mat_mod.MATTE, kd=0.5)
 
@@ -424,25 +442,118 @@ class PbrtParser:
         self.ctm, self.ctm2, self.active = self.ctm_stack.pop()
 
     def _d_ObjectBegin(self, tokens, peeked, nxt):
-        _unported("ObjectBegin (object instancing)", 6)
+        self._d_AttributeBegin(tokens, peeked, nxt)
+        self.recording = nxt().strip('"')
+        self.object_defs[self.recording] = []
+
+    def _d_ObjectEnd(self, tokens, peeked, nxt):
+        self.recording = None
+        self._d_AttributeEnd(tokens, peeked, nxt)
 
     def _d_ObjectInstance(self, tokens, peeked, nxt):
-        _unported("ObjectInstance (object instancing)", 6)
+        """True instancing (TransformedPrimitive, core/primitive.h:92) of
+        an object made only of triangle meshes without area lights or
+        media: its geometry goes into the shared pool once, each instance
+        adds its CTM. Any other object is flattened into copies."""
+        name = nxt().strip('"')
+        entries = self.object_defs.get(name, [])
+        if self._instanceable(entries):
+            if name not in self._instance_obj_ids:
+                oid = self.builder.add_instanced_object()
+                for entry in entries:
+                    p = entry["params"]
+                    idx = np.asarray(p["indices"][1],
+                                     np.int32).reshape(-1, 3)
+                    pts = np.asarray(p["P"][1], np.float64).reshape(-1, 3)
+                    m = entry["ctm"]
+                    pts_o = (pts @ m[:3, :3].T + m[:3, 3]).astype(
+                        np.float32)
+                    uvs = None
+                    for uk in ("st", "uv"):
+                        if uk in p:
+                            uvs = np.asarray(p[uk][1],
+                                             np.float64).reshape(-1, 2)
+                    normals = None
+                    if "N" in p:
+                        # into the pool's space by the recorded CTM's
+                        # inverse-transpose (core/transform.h)
+                        ns = np.asarray(p["N"][1],
+                                        np.float64).reshape(-1, 3)
+                        normals = (ns @ np.linalg.inv(m[:3, :3])).astype(
+                            np.float32)
+                    self.builder.add_object_mesh(
+                        oid, pts_o, idx, mat=entry["gs"].material_id,
+                        uvs=uvs, normals=normals)
+                self._instance_obj_ids[name] = oid
+            self.builder.add_instance(self._instance_obj_ids[name],
+                                      self.ctm)
+            return
+        for entry in entries:
+            # both CTMs compose with the recorded one (pbrt_tpu composes
+            # the start CTM only, which its builder then reads as motion)
+            saved = self.ctm, self.ctm2
+            self.ctm = self.ctm @ entry["ctm"]
+            self.ctm2 = self.ctm2 @ entry["ctm"]
+            self._emit_shape(entry["name"], entry["params"], entry["gs"])
+            self.ctm, self.ctm2 = saved
+
+    @staticmethod
+    def _instanceable(entries) -> bool:
+        return bool(entries) and all(
+            e["name"] == "trianglemesh" and e["gs"].area_light is None
+            and e["gs"].medium_in == -1 and e["gs"].medium_out == -1
+            for e in entries)
 
     def _d_Texture(self, tokens, peeked, nxt):
-        _unported("Texture (scene/textures.py)", 8)
+        name = nxt().strip('"')
+        nxt()                       # the value type: spectrum or float
+        klass = nxt().strip('"')
+        self.gs.textures[name] = (klass, self._params(tokens, peeked))
 
     def _d_MakeNamedMedium(self, tokens, peeked, nxt):
-        _unported("MakeNamedMedium (participating media)", 9)
+        """MakeNamedMedium (api.cpp pbrtMakeNamedMedium → MakeMedium,
+        media/homogeneous.cpp and media/grid.cpp)."""
+        from pbrt_tpu_torch.scene import media as media_mod
+        name = nxt().strip('"')
+        p = self._params(tokens, peeked)
+        C = self.builder.n_channels
+        scale = p.one("scale", 1.0)
+        sa = np.asarray(p.spectrum_rgb("sigma_a", (1.0, 1.0, 1.0)),
+                        np.float32) * scale
+        ss = np.asarray(p.spectrum_rgb("sigma_s", (1.0, 1.0, 1.0)),
+                        np.float32) * scale
+        g = p.one("g", 0.0)
+        if p.one("type", "homogeneous") == "heterogeneous" \
+                and "density" in p:
+            nx, ny, nz = (int(p.one("nx", 1)), int(p.one("ny", 1)),
+                          int(p.one("nz", 1)))
+            dens = np.asarray(p["density"][1], np.float32).reshape(nz, ny,
+                                                                   nx)
+            p0 = self._xf_point(p.point("p0", (0, 0, 0)))
+            p1 = self._xf_point(p.point("p1", (1, 1, 1)))
+            med = media_mod.make_grid(sa, ss, dens, np.minimum(p0, p1),
+                                      np.maximum(p0, p1), g, C)
+        else:
+            med = media_mod.make_homogeneous(sa, ss, g, C)
+        self.named_media[name] = self.builder.add_medium(med)
 
     def _d_MediumInterface(self, tokens, peeked, nxt):
-        """No medium can be named here (MakeNamedMedium raises), and
-        pbrt_tpu reads an unknown name as vacuum: the directive changes
-        nothing."""
-        nxt()
+        """MediumInterface "inside" ["outside"] (api.cpp
+        pbrtMediumInterface). Before WorldBegin it sets the camera's
+        medium; an unknown name is vacuum."""
+        inside = nxt().strip('"')
+        outside = ""
         t = nxt()
-        if t is not None and not t.startswith('"'):
+        if t is not None and t.startswith('"'):
+            outside = t.strip('"')
+        elif t is not None:
             peeked.append(t)
+        mi = self.named_media.get(inside, -1)
+        if not self.world:
+            self.builder.camera_med = mi
+        else:
+            self.gs.medium_in = mi
+            self.gs.medium_out = self.named_media.get(outside, -1)
 
     def _d_Material(self, tokens, peeked, nxt):
         name = nxt().strip('"')
@@ -511,9 +622,68 @@ class PbrtParser:
 
     def _d_Shape(self, tokens, peeked, nxt):
         name = nxt().strip('"')
-        self._emit_shape(name, self._params(tokens, peeked), self.gs)
+        params = self._params(tokens, peeked)
+        if self.recording is not None:
+            self.object_defs[self.recording].append(dict(
+                name=name, params=params, ctm=self.ctm.copy(),
+                gs=copy.deepcopy(self.gs)))
+            return
+        self._emit_shape(name, params, self.gs)
 
     # -- construction helpers ---------------------------------------------
+
+    def _build_texture(self, name: str) -> int:
+        """A named texture (Texture directive) as a row of the builder's
+        texture table; −1 for an unknown name. Texture operands (scale.cpp
+        :44-48) become rows too, recursively."""
+        if name in self._tex_ids:
+            return self._tex_ids[name]
+        if name not in self.gs.textures:
+            return -1
+        klass, p = self.gs.textures[name]
+        kw = dict(type=_TEXTURES.get(klass, 0))
+        self._tex_ids[name] = -1    # a cyclic operand reads as unknown
+        for pname, slot, op_slot in (("tex1", "v1", "op1"),
+                                     ("tex2", "v2", "op2"),
+                                     ("value", "v1", "op1")):
+            if pname in p and p[pname][0] == "texture":
+                kw[op_slot] = self._build_texture(p.one(pname))
+                continue
+            v = p.spectrum_rgb(pname)
+            if v is not None:
+                kw[slot] = v
+        for pname in ("uscale", "vscale", "udelta", "vdelta", "octaves",
+                      "omega", "variation"):
+            if p.one(pname) is not None:
+                kw[pname] = p.one(pname)
+        # the noise textures' names (marble.cpp): roughness → omega,
+        # scale → the 3D noise frequency
+        if p.one("roughness") is not None:
+            kw["omega"] = p.one("roughness")
+        if p.one("scale") is not None and klass in ("marble", "fbm",
+                                                    "wrinkled", "windy"):
+            kw["scale3d"] = p.one("scale")
+        if "amount" in p:
+            if p["amount"][0] == "texture":
+                kw["op3"] = self._build_texture(p.one("amount"))
+            else:
+                kw["omega"] = p.one("amount")   # a mix's amount
+        if klass == "imagemap" and p.one("filename"):
+            try:
+                img = imageio.read_image(os.path.join(self.base_dir,
+                                                      p.one("filename")))
+                kw["img"] = self.builder.add_image(img)
+                # pbrt's imagemap filters with EWA unless "bool trilinear"
+                # (textures/imagemap.cpp)
+                if not p.one("trilinear"):
+                    self.builder.tex_filtering = "ewa"
+            except (OSError, ValueError):
+                # an unreadable image: pbrt_tpu's constant 0.5 instead
+                kw["type"] = 0
+                kw["v1"] = (0.5, 0.5, 0.5)
+        tid = self.builder.add_texture(**kw)
+        self._tex_ids[name] = tid
+        return tid
 
     def _make_material(self, name: str, p: Params) -> int:
         b = self.builder
@@ -528,7 +698,7 @@ class PbrtParser:
             if r1.get("type", 0) == r2.get("type", 0):
                 out = dict(r1)
                 for key in set(r1) | set(r2):
-                    if key != "type":
+                    if key not in ("type", "kd_tex"):
                         out[key] = (amt_s * np.asarray(r1.get(key, 0.0),
                                                        np.float64)
                                     + (1 - amt_s)
@@ -544,9 +714,11 @@ class PbrtParser:
             _unported(f"material {name!r}", _UNPORTED_MATERIALS[name])
         kw = dict(type=_MATERIALS.get(name, mat_mod.MATTE))
         if "Kd" in p and p["Kd"][0] == "texture":
-            _unported("a textured Kd (scene/textures.py)", 8)
+            kw["kd_tex"] = self._build_texture(p["Kd"][1][0])
         for pname, key in (("Kd", "kd"), ("Ks", "ks"), ("Kr", "kr"),
                            ("Kt", "kt")):
+            if pname == "Kd" and "kd_tex" in kw:
+                continue
             if p.spectrum_rgb(pname) is not None:
                 kw[key] = p.spectrum_rgb(pname)
         if p.one("sigma") is not None:
@@ -612,6 +784,19 @@ class PbrtParser:
         return self.builder.add_light(**kw)
 
     def _emit_shape(self, name, p: Params, gs: GraphicsState):
+        """A shape's rows, stamped with the attribute stack's
+        MediumInterface (GeometricPrimitive's mediumInterface)."""
+        b = self.builder
+        families = (b.tris, b.spheres, b.planes, b.disks)
+        marks = [len(rows) for rows in families]
+        self._emit_shape_rows(name, p, gs)
+        if gs.medium_in != -1 or gs.medium_out != -1:
+            for rows, m in zip(families, marks):
+                for r in rows[m:]:
+                    r["med_in"] = gs.medium_in
+                    r["med_out"] = gs.medium_out
+
+    def _emit_shape_rows(self, name, p: Params, gs: GraphicsState):
         b = self.builder
         mat = gs.material_id
         if name == "trianglemesh":
@@ -738,7 +923,14 @@ class PbrtParser:
         if not np.allclose(c2w, np.asarray(
                 opts.get("camera_to_world_end", c2w), np.float64)):
             _unported("an animated camera (motion blur)", 8)
-        scene = self.builder.build(device)
+        # the camera's pixel spread picks the imagemaps' mip level (MIPMap
+        # width from ray differentials, core/camera.cpp's 1-pixel offset)
+        tex_spread = 0.0
+        if name == "perspective":
+            tex_spread = float(2.0 * np.tan(np.radians(
+                cp.one("fov", 90.0)) / 2.0) / max(1, int(
+                    opts["film"]["yres"])))
+        scene = self.builder.build(device, tex_spread=tex_spread)
         # pbrt's camera space is left-handed (+z forward), as look_at
         # builds it, so the matrix is used as it is
         c2w_t = tr.Transform(

@@ -19,6 +19,7 @@ from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene import portals as portals_mod
+from pbrt_tpu_torch.scene import textures as tex_mod
 from pbrt_tpu_torch.scene.lights import (AREA, STRAT_LIGHT,
                                          STRAT_PROJECTION)
 
@@ -86,7 +87,8 @@ def trace_radiance(scene, p, ns, wi):
 def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
                     u_bsdf_lobe, power_distr=None, with_bsdf_half=True):
     """One-light NEE estimate at shading points ``hit`` with materials
-    ``mp`` (gathered rows). Returns Ld (R,C).
+    ``mp`` (gathered rows), kd resolved through the rows' textures.
+    Returns Ld (R,C).
 
     Standard lights: two-sample MIS (light strategy + BSDF strategy) as
     EstimateDirect; portal area lights (fork): strategy-dispatched single
@@ -103,6 +105,7 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
 
     t1, t2 = shading_frame(hit, mp)
     wo = to_local(t1, t2, hit.ns, wo_world)
+    kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=wo_world)
 
     # ---- light-strategy sample (Sample_Li)
     ls = lights_mod.sample_li(scene, light_idx, hit.p, u_light)
@@ -155,7 +158,8 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
 
     # ---- BSDF at the sampled direction
     wi_loc = to_local(t1, t2, hit.ns, wi_nee)
-    f = mat_mod.bsdf_f(mp, wo, wi_loc) * absdot(wi_nee, hit.ns)[..., None]
+    f = mat_mod.bsdf_f(mp, wo, wi_loc, kd_override=kd_eff) \
+        * absdot(wi_nee, hit.ns)[..., None]
     scatter_pdf = mat_mod.bsdf_pdf(mp, wo, wi_loc)
 
     # ---- combine
@@ -181,7 +185,7 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     # ---- BSDF-strategy half of two-sample MIS (non-portal, non-delta)
     if with_bsdf_half and lights_mod.takes_bsdf_half(lt):
         wi_b_loc, f_b, pdf_b, flags = mat_mod.bsdf_sample(
-            mp, wo, u_bsdf_lobe, u_scatter)
+            mp, wo, u_bsdf_lobe, u_scatter, kd_override=kd_eff)
         wi_b = to_world(t1, t2, hit.ns, wi_b_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         f_b = f_b * absdot(wi_b, hit.ns)[..., None]

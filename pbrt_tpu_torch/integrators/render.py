@@ -1,8 +1,9 @@
 """Render entry points and the sampler-integrator family as wavefront
 programs (port of pbrt_tpu/integrators/render.py: RenderConfig, the integrators
 `path`, `mypath`, `directlighting`, `whitted` and `ambientocclusion`, the
-hero-wavelength `hero_path` and `hero_path_mis` of integrators/hero.py,
-render_pass and render).
+volumetric `volpath` of integrators/volpath.py, the hero-wavelength
+`hero_path` and `hero_path_mis` of integrators/hero.py, render_pass and
+render).
 
 ``render_pass`` evaluates ``chunk`` samples of every pixel in one batch
 of rays: the (pixel, sample) lane layout, the pcg4d sample dimensions and
@@ -30,6 +31,7 @@ from pbrt_tpu_torch.core.sampling import (cosine_sample_hemisphere,
 from pbrt_tpu_torch.core.vecmath import absdot
 from pbrt_tpu_torch.integrators import common
 from pbrt_tpu_torch.integrators import hero as hero_mod
+from pbrt_tpu_torch.integrators import volpath as volpath_mod
 from pbrt_tpu_torch.ops import fused_path
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import camera as cam_mod
@@ -37,6 +39,7 @@ from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
+from pbrt_tpu_torch.scene import textures as tex_mod
 from pbrt_tpu_torch.scene.types import require_device, to_device
 
 # per-bounce sample-dimension layout
@@ -209,7 +212,9 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         wo = common.to_local(t1, t2, hit.ns, wo_w)
         u_cl = sfn(pid, sidx, dims["cont_lobe"], cfg.seed)
         u_cu = _sample2(sfn, pid, sidx, dims["cont_u"], cfg.seed)
-        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu)
+        kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=wo_w)
+        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu,
+                                                    kd_override=kd_eff)
         wi = common.to_world(t1, t2, hit.ns, wi_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         is_trans = (flags & mat_mod.FLAG_TRANSMISSION) > 0
@@ -255,6 +260,7 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
 _INTEGRATORS = {"path": li_path, "direct": li_direct,
                 "directlighting": li_direct, "whitted": li_whitted,
                 "ao": li_ao, "ambientocclusion": li_ao, "mypath": li_mypath,
+                "volpath": volpath_mod.li_volpath,
                 "hero_path": hero_mod.li_hero_path,
                 "hero_path_mis": hero_mod.li_hero_path_mis}
 

@@ -30,6 +30,7 @@ import torch
 
 from pbrt_tpu_torch.ops import bvh as bvh_ops
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.scene import instances as inst_mod
 
 LEAF_MAX = bvh_ops.LEAF_MAX
 N_BUCKETS = 12
@@ -350,7 +351,8 @@ def intersect_bvh(scene, o, d, tmax):
     traversal kernel, then the spheres and aaplanes brute force with the
     traversal's ``best_t`` as their tmax (the kernel's strict ``t <
     best_t`` is pbrt_tpu's update rule ``anyh & (tb < best_t)``), then the
-    disks in plain torch. The query is not differentiated."""
+    disks and the instances in plain torch. The query is not
+    differentiated."""
     from pbrt_tpu_torch.scene import intersect as isect_mod
 
     with torch.no_grad():
@@ -365,6 +367,8 @@ def intersect_bvh(scene, o, d, tmax):
             prim_id = torch.where(prim_b >= 0, prim_b + scene.n_tri, prim_id)
         best_t, prim_id = isect_mod.closest_disk(scene, o_q, d_q, best_t,
                                                  prim_id)
+        best_t, prim_id = inst_mod.update_closest(scene, o_q, d_q, best_t,
+                                                  prim_id)
     return isect_mod.finalize_hit(scene, o, d, best_t, prim_id)
 
 
@@ -378,4 +382,6 @@ def intersect_p_bvh(scene, o, d, tmax):
         if scene.n_dsk:
             from pbrt_tpu_torch.scene import intersect as isect_mod
             occ = occ | isect_mod.any_disk(scene, o_q, d_q, tmax_q)
+        if scene.inst is not None:
+            occ = occ | inst_mod.any_hit(scene, o_q, d_q, tmax_q)
     return occ

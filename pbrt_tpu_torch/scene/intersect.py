@@ -13,9 +13,11 @@ pbrt_tpu chooses them:
   ops/intersect.py as a whole.
 
 On a CUDA tensor these are the kernels, on a CPU tensor their twins.
-Disks stay outside the kernels, as in pbrt_tpu: after the kernel's
-closest hit, ``closest_disk`` tests every disk in plain torch with the
-kernel's ``t`` as its bound, and the any-hit query ORs in a disk hit.
+Disks and instanced objects stay outside the kernels, as in pbrt_tpu:
+after the kernel's closest hit, ``closest_disk`` tests every disk in
+plain torch with the kernel's ``t`` as its bound, then
+scene/instances.py walks the instances the same way, and the any-hit
+query ORs in a disk or an instance hit.
 ``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
 and tangents. A kd-tree accelerator is not ported and raises.
 """
@@ -30,6 +32,7 @@ from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.vecmath import normalize
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as bvh_mod
+from pbrt_tpu_torch.scene import instances as inst_mod
 from pbrt_tpu_torch.scene import shapes
 from pbrt_tpu_torch.scene.shapes import Hit
 
@@ -51,8 +54,7 @@ def _closest(scene, o, d, tmax):
     if scene.n_tri + scene.n_sph + scene.n_pln > ik.MAX_PRIMS:
         raise NotImplementedError(
             f"a scene of more than {ik.MAX_PRIMS} primitives without a BVH "
-            "(only triangles go into one; instancing: ROADMAP queue 1 item "
-            "6)")
+            "(only triangles go into one): ROADMAP queue 1 item 6")
     with torch.no_grad():
         tri, sph, pln = ik.pack_scene(scene)
         return ik.intersect_brute(
@@ -94,6 +96,7 @@ def intersect(scene, o, d, tmax) -> Hit:
     if _has_bvh(scene):
         return bvh_mod.intersect_bvh(scene, o, d, tmax)
     t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax))
+    t, prim = inst_mod.update_closest(scene, o, d, t, prim)
     return finalize_hit(scene, o, d, t, prim)
 
 
@@ -102,7 +105,11 @@ def intersect_p(scene, o, d, tmax):
     if _has_bvh(scene):
         return bvh_mod.intersect_p_bvh(scene, o, d, tmax)
     occ = _closest(scene, o, d, tmax)[1] >= 0
-    return occ | any_disk(scene, o, d, tmax) if scene.n_dsk else occ
+    if scene.n_dsk:
+        occ = occ | any_disk(scene, o, d, tmax)
+    if scene.inst is not None:
+        occ = occ | inst_mod.any_hit(scene, o, d, tmax)
+    return occ
 
 
 def finalize_hit(scene, o, d, t, prim_id) -> Hit:
@@ -201,6 +208,10 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
     dpdv = vecmath.cross(ng, dpdu)
     if nt:
         dpdv = torch.where(is_tri, dpdv_t, dpdv)
+    if scene.inst is not None and scene.n_vprims:
+        ng, ns, uv, dpdu, dpdv = inst_mod.finalize_instance_hits(
+            scene, t, prim_id, p, ng, ns, uv, dpdu, dpdv)
+        ns = vecmath.face_forward(ns, ng)
     return Hit(valid=valid, t=t, p=p, ng=ng, ns=ns, uv=uv,
                prim_id=torch.where(valid, prim_id, -1), dpdu=dpdu,
                dpdv=dpdv)

@@ -17,8 +17,8 @@ at eta(0.55 µm)), UBER (plastic's
 lobes), SUBSTRATE (FresnelBlend), TRANSLUCENT and DISNEY (thin and solid,
 with transmission). Microfacet rows take Trowbridge–Reitz or, with
 ``ndf`` 1, Beckmann–Spizzichino. The BSSRDF families (subsurface, a
-non-thin Disney row with scatterdistance, the exit lobe), the null
-material, hair, Fourier tables and textures raise in ``check_row`` with
+non-thin Disney row with scatterdistance, the exit lobe), hair, Fourier
+tables and textured sigma or bump raise in ``check_row`` with
 their ROADMAP item.
 """
 
@@ -73,12 +73,11 @@ _DEFAULTS = {
     "flatness": (0.0, False), "thin": (0.0, False)}
 # accepted and not carried: a thin Disney row's scatterdistance, which
 # pbrt ignores (disney.cpp:506-517)
-ROW_KEYS = frozenset(_DEFAULTS) | {"type", "ndf", "scatter_d"}
-_UNPORTED_KEYS = {"kd_tex": 8, "sigma_tex": 8, "bump_tex": 8,
+ROW_KEYS = frozenset(_DEFAULTS) | {"type", "ndf", "scatter_d", "kd_tex"}
+_UNPORTED_KEYS = {"sigma_tex": 8, "bump_tex": 8,
                   "beta_m": 8, "beta_n": 8, "hair_alpha": 8,
                   "fourier_id": 8}
-_UNPORTED_TYPES = {NONE: ("the null material (a medium interface)", 9),
-                   SUBSURFACE: ("subsurface (the BSSRDF)", 9),
+_UNPORTED_TYPES = {SUBSURFACE: ("subsurface (the BSSRDF)", 9),
                    HAIR: ("hair", 8), FOURIER: ("fourier", 8),
                    SSS_EXIT: ("the BSSRDF exit lobe", 9)}
 
@@ -111,6 +110,7 @@ class MaterialTable:
     diff_trans: torch.Tensor       # raw difftrans (halved at evaluation)
     flatness: torch.Tensor
     thin: torch.Tensor             # (M,) 0/1
+    kd_tex: torch.Tensor           # (M,) int32 texture row of kd (−1 none)
     has_beckmann: bool = False     # any Beckmann row?
     has_disney_trans: bool = False  # any Disney row with spectrans or thin?
     present: tuple = ()            # sorted types present (empty: all)
@@ -162,6 +162,7 @@ def make_material_table(rows: list[dict], n_channels: int,
 
     return MaterialTable(
         mtype=i32("type", MATTE), ndf=i32("ndf", NDF_TR),
+        kd_tex=i32("kd_tex", -1),
         **{k: col(k) for k in _DEFAULTS},
         has_beckmann=any(r.get("ndf") == NDF_BECKMANN for r in rows),
         has_disney_trans=any(
@@ -190,7 +191,7 @@ def _present(mp: MaterialTable, *types: int) -> bool:
 def has_specular(mp: MaterialTable) -> bool:
     """Can a row of this table sample a delta lobe? (the static rule by
     which `whitted` and `direct` continue past the first bounce)"""
-    return _present(mp, MIRROR, GLASS, DISPERSIVE_GLASS)
+    return _present(mp, MIRROR, GLASS, DISPERSIVE_GLASS, NONE)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1080,14 @@ def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None,
     if _present(mp, DISNEY):
         rows.append((t == DISNEY,) + _disney_sample(mp, kd, wo, u_lobe, u,
                                                     wi_cos))
+    if _present(mp, NONE):
+        # the null material (a medium interface): the ray passes straight
+        # through with f·|cos|/pdf = 1 (GeometricPrimitive's early-out
+        # when there is no material, core/primitive.cpp)
+        rows.append((t == NONE, -wo,
+                     torch.ones(R + (C,), device=dev)
+                     / torch.clamp_min(abs_cos_theta(-wo), 1e-6)[..., None],
+                     torch.ones(R, device=dev)))
 
     wi = _sel([(c, w) for c, w, _, _ in rows], wi_cos)
     f = _sel([(c, v) for c, _, v, _ in rows],
@@ -1087,6 +1096,9 @@ def bsdf_sample(mp: MaterialTable, wo, u_lobe, u, kd_override=None,
 
     is_spec = torch.zeros(R, dtype=torch.bool, device=dev)
     is_trans = torch.zeros(R, dtype=torch.bool, device=dev)
+    if _present(mp, NONE):
+        is_spec = is_spec | (t == NONE)
+        is_trans = is_trans | (t == NONE)
     if _present(mp, MIRROR):
         is_spec = is_spec | (t == MIRROR)
     if need_glass:

@@ -1,16 +1,19 @@
-"""Scene container and host-side builder (port of the triangle, sphere,
-aaplane and disk subset of pbrt_tpu/scene/types.py).
+"""Scene container and host-side builder (port of pbrt_tpu/scene/types.py
+for triangles, spheres, aaplanes, disks, instanced objects, textures and
+media).
 
 The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
-then spheres ``[nT, nT+nS)``, then aaplanes, then disks. ``prim_mat`` /
+then spheres ``[nT, nT+nS)``, then aaplanes, then disks, then the
+virtual prims of instanced objects (scene/instances.py). ``prim_mat`` /
 ``prim_light`` map a global prim to its material row and light row (−1 =
-not emissive).
+not emissive); ``prim_med_in`` / ``prim_med_out`` to the media inside
+and outside it (MediumInterface, −1 = vacuum).
 
 ``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
 ``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
-pbrt_tpu does. Disks are intersected outside the kernels, in plain torch,
-as pbrt_tpu does (scene/intersect.py). Emissive disks, curves, instancing,
-media, textures, motion and the kd-tree belong to later slices and raise
+pbrt_tpu does. Disks and instances are intersected outside the kernels,
+in plain torch, as pbrt_tpu does (scene/intersect.py). Emissive disks,
+curves, motion and the kd-tree belong to later slices and raise
 ``NotImplementedError``. A scene's spectra have 3 channels (RGB) or 60
 (sampled, for the hero-wavelength integrators): the builder's
 ``SpectrumConfig`` decides, and lifts RGB parameters to 60 bins with
@@ -71,10 +74,24 @@ class Scene:
     # fused-path kernel profile (ops/fused_path.py):
     # (axis, plane_facing, portal_facing, n_materials, mode) or None
     fused_profile: Optional[tuple] = None
+    textures: Any = None          # scene/textures.py TextureTable or None
+    # instancing (scene/instances.py): the shared pool and transforms;
+    # virtual prims occupy [n_base_prims, n_base_prims + n_vprims)
+    inst: Any = None
+    n_vprims: int = 0
+    # per-primitive media (scene/media.py Medium rows) and the camera's
+    media: tuple = ()
+    prim_med_in: Optional[torch.Tensor] = None   # (N,) int32, −1 vacuum
+    prim_med_out: Optional[torch.Tensor] = None
+    camera_med: int = -1
+
+    @property
+    def n_base_prims(self) -> int:
+        return self.n_tri + self.n_sph + self.n_pln + self.n_dsk
 
     @property
     def n_prims(self) -> int:
-        return self.n_tri + self.n_sph + self.n_pln + self.n_dsk
+        return self.n_base_prims + self.n_vprims
 
     def world_radius(self) -> torch.Tensor:
         return 0.5 * torch.linalg.norm(self.world_hi - self.world_lo) + 1e-3
@@ -93,6 +110,8 @@ def to_device(obj, device):
     """Copy every tensor of a (nested) dataclass of tensors to ``device``."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(to_device(x, device) for x in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: to_device(getattr(obj, f.name), device)
@@ -132,6 +151,14 @@ class SceneBuilder:
         self.disks = []       # dicts: center normal radius inner mat light
         self.materials = []   # parameter dicts (scene/materials.py)
         self.light_rows = []  # parameter dicts (scene/lights.py)
+        self.texture_rows = []  # parameter dicts (scene/textures.py)
+        self.images = []        # (H,W,C) arrays of the imagemap textures
+        self.tex_filtering = "trilinear"  # or "ewa" (scene/textures.py)
+        self.media = []         # scene/media.py Medium rows
+        self.camera_med = -1    # the camera's medium (−1 vacuum)
+        # instancing (scene/instances.py): shared objects and transforms
+        self.instance_objects = []  # {"tris": [(v0,v1,v2,uvs,ns,mat)]}
+        self.instance_rows = []     # (obj_id, o2w 4×4)
 
     # -- materials and lights ---------------------------------------------
     def add_material(self, **params) -> int:
@@ -164,13 +191,11 @@ class SceneBuilder:
     def add_triangle(self, v0, v1, v2, mat=0, light=-1, n0=None, n1=None,
                      n2=None, uv0=(0, 0), uv1=(1, 0), uv2=(1, 1), med_in=-1,
                      med_out=-1, v0_e=None, v1_e=None, v2_e=None):
-        if med_in != -1 or med_out != -1:
-            _unported("participating media", 9)
         if any(x is not None for x in (v0_e, v1_e, v2_e)):
             _unported("motion blur", 8)
         self.tris.append(dict(v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
                               uv0=uv0, uv1=uv1, uv2=uv2, mat=mat,
-                              light=light))
+                              light=light, med_in=med_in, med_out=med_out))
         return len(self.tris) - 1
 
     def add_mesh(self, vertices, indices, mat=0, light=-1, normals=None,
@@ -194,40 +219,72 @@ class SceneBuilder:
 
     def add_sphere(self, center, radius, mat=0, light=-1, med_in=-1,
                    med_out=-1):
-        if med_in != -1 or med_out != -1:
-            _unported("participating media", 9)
         self.spheres.append(dict(center=center, radius=radius, mat=mat,
-                                 light=light))
+                                 light=light, med_in=med_in,
+                                 med_out=med_out))
         return len(self.spheres) - 1
 
     def add_aaplane(self, lo, hi, axis, facing_fw=True, mat=0, light=-1,
                     med_in=-1, med_out=-1):
-        if med_in != -1 or med_out != -1:
-            _unported("participating media", 9)
         self.planes.append(dict(lo=lo, hi=hi, ax=axis, facing=facing_fw,
-                                mat=mat, light=light))
+                                mat=mat, light=light, med_in=med_in,
+                                med_out=med_out))
         return len(self.planes) - 1
 
     def add_disk(self, center, normal, radius, inner=0.0, mat=0, light=-1,
                  med_in=-1, med_out=-1):
         """shapes/disk.cpp in world space: ``normal`` is the unit normal."""
-        if med_in != -1 or med_out != -1:
-            _unported("participating media", 9)
         self.disks.append(dict(center=center, normal=normal, radius=radius,
-                               inner=inner, mat=mat, light=light))
+                               inner=inner, mat=mat, light=light,
+                               med_in=med_in, med_out=med_out))
         return len(self.disks) - 1
 
     def add_curve(self, *args, **kw):
         _unported("curves", 8)
 
-    def add_instanced_object(self, *args, **kw):
-        _unported("instancing", 6)
+    # -- instancing, media and textures -----------------------------------
+    def add_instanced_object(self) -> int:
+        """pbrtObjectBegin's role: open a shared object; fill it with
+        ``add_object_mesh``, then stamp copies with ``add_instance``."""
+        self.instance_objects.append({"tris": []})
+        return len(self.instance_objects) - 1
 
-    def add_medium(self, *args, **kw):
-        _unported("participating media", 9)
+    def add_object_mesh(self, obj_id: int, vertices, faces, mat=0,
+                        uvs=None, normals=None):
+        verts = np.asarray(vertices, np.float32)
+        for f in faces:
+            tri_uvs = (tuple(tuple(np.asarray(uvs[i], np.float32))
+                             for i in f) if uvs is not None else None)
+            tri_ns = (tuple(np.asarray(normals[i], np.float32)
+                            for i in f) if normals is not None else None)
+            self.instance_objects[obj_id]["tris"].append(
+                (verts[f[0]], verts[f[1]], verts[f[2]], tri_uvs, tri_ns,
+                 mat))
 
-    def add_texture(self, *args, **kw):
-        _unported("textures", 8)
+    def add_instance(self, obj_id: int, o2w):
+        """pbrtObjectInstance's role: one 4×4, no geometry copied."""
+        self.instance_rows.append(
+            (obj_id, np.asarray(o2w, np.float32).reshape(4, 4)))
+
+    def add_medium(self, medium) -> int:
+        """MakeNamedMedium's role: register a scene/media.py Medium; the
+        id is what med_in / med_out and ``camera_med`` name."""
+        self.media.append(medium)
+        return len(self.media) - 1
+
+    def add_texture(self, **params) -> int:
+        for key in ("v1", "v2"):
+            if key in params:
+                params[key] = self._to_spec(params[key])
+        self.texture_rows.append(params)
+        return len(self.texture_rows) - 1
+
+    def add_image(self, img) -> int:
+        img = np.asarray(img, np.float32)
+        if img.shape[-1] == 3 and self.n_channels != 3:
+            img = np.asarray(spec_mod.from_rgb(img, self.cfg), np.float32)
+        self.images.append(img)
+        return len(self.images) - 1
 
     # -- finalize ----------------------------------------------------------
     def prim_index(self, family: str, local_idx: int) -> int:
@@ -237,11 +294,14 @@ class SceneBuilder:
                 "dsk": nt + ns + npl}[family]
         return base + local_idx
 
-    def build(self, device="cuda", use_bvh: str = "auto") -> Scene:
+    def build(self, device="cuda", use_bvh: str = "auto",
+              tex_spread: float = 0.0) -> Scene:
         """The scene's tensors on ``device``. ``use_bvh``: "auto" builds a
         BVH over the triangles when there are more than 256 (pbrt_tpu's
         rule), "always" and "never" force it; ``self.bvh_split`` picks
-        the split method."""
+        the split method. ``tex_spread`` is the camera's pixel spread
+        (rad/px) from which imagemaps pick their mip level (0: level
+        0)."""
         if use_bvh not in ("auto", "always", "never"):
             raise ValueError(f"use_bvh={use_bvh!r}")
         device = require_device(device)
@@ -296,11 +356,14 @@ class SceneBuilder:
             dsk_inner=t(np.asarray([r["inner"] for r in self.disks]
                                    or [0.0], np.float32)))
 
-        def ids(key):
-            a = np.asarray([r[key] for r in self.tris + self.spheres
-                            + self.planes + self.disks], np.int32)
-            return a if a.size else np.full(1, 0 if key == "mat" else -1,
-                                            np.int32)
+        def ids(key, default):
+            a = np.asarray([r.get(key, default) for r in self.tris
+                            + self.spheres + self.planes + self.disks],
+                           np.int32)
+            return a if a.size else np.zeros(0, np.int32)
+
+        prim_mat, prim_light = ids("mat", 0), ids("light", -1)
+        med_in, med_out = ids("med_in", -1), ids("med_out", -1)
 
         pts = [v[:nt] for v in tv]
         if ns:
@@ -309,18 +372,55 @@ class SceneBuilder:
             pts += [p_lo, p_hi]
         if nd:
             pts += [d_c - d_r[:, None], d_c + d_r[:, None]]
+
+        # instancing: one int entry per (instance, pool triangle) in the
+        # prim tables; the geometry itself is never copied
+        inst_table, n_vprims = None, 0
+        if self.instance_rows:
+            from pbrt_tpu_torch.scene import instances as inst_mod
+            inst_table, vprim_mat = inst_mod.build_instance_table(
+                self.instance_objects, self.instance_rows, device)
+            n_vprims = int(inst_table.n_vprims)
+            none = -np.ones(n_vprims, np.int32)
+            prim_mat = np.concatenate([prim_mat, vprim_mat])
+            prim_light = np.concatenate([prim_light, none])
+            med_in = np.concatenate([med_in, none])
+            med_out = np.concatenate([med_out, none])
+            # world bounds: each instance's transformed object-box corners
+            lo_np = inst_table.obj_lo.cpu().numpy()
+            hi_np = inst_table.obj_hi.cpu().numpy()
+            for (obj_id, m) in self.instance_rows:
+                lo, hi = lo_np[obj_id], hi_np[obj_id]
+                corners = np.array([[x, y, z] for z in (lo[2], hi[2])
+                                    for y in (lo[1], hi[1])
+                                    for x in (lo[0], hi[0])], np.float32)
+                pts.append(corners @ m[:3, :3].T + m[:3, 3])
+        if prim_mat.size == 0:
+            prim_mat = np.zeros(1, np.int32)
+            prim_light = med_in = med_out = -np.ones(1, np.int32)
+
         allp = np.concatenate([p for p in pts if p.size]) \
             if any(p.size for p in pts) else np.zeros((1, 3), np.float32)
         world_lo, world_hi = allp.min(0) - 1e-3, allp.max(0) + 1e-3
         scene = Scene(
-            geom=geom, prim_mat=t(ids("mat")), prim_light=t(ids("light")),
+            geom=geom, prim_mat=t(prim_mat), prim_light=t(prim_light),
             materials=mat_mod.make_material_table(
                 self.materials or [dict()], self.n_channels, device),
             lights=lights_mod.build_light_table(self, world_lo, world_hi,
                                                 device),
             world_lo=t(world_lo), world_hi=t(world_hi),
             n_tri=nt, n_sph=ns, n_pln=npl, n_dsk=nd,
-            n_channels=self.n_channels)
+            n_channels=self.n_channels, inst=inst_table, n_vprims=n_vprims,
+            media=to_device(tuple(self.media), device),
+            prim_med_in=t(med_in), prim_med_out=t(med_out),
+            camera_med=self.camera_med)
+        if self.texture_rows:
+            from pbrt_tpu_torch.scene import textures as tex_mod
+            scene = dataclasses.replace(
+                scene, textures=tex_mod.make_texture_table(
+                    self.texture_rows, self.images, self.n_channels,
+                    spread=tex_spread, filtering=self.tex_filtering,
+                    device=device))
         if use_bvh == "always" or (use_bvh == "auto" and nt > 256):
             from pbrt_tpu_torch.scene import bvh as bvh_mod
             scene = dataclasses.replace(
@@ -341,17 +441,21 @@ class SceneBuilder:
 
         The kernel shades every row as matte: a row of another type, or
         with a key beyond (type, kd, sigma), or with Oren–Nayar roughness,
-        rules the scene out, as in pbrt_tpu's gate. Disks are ruled out as
-        there; the other families it rules out (curves, instances, motion,
-        media, textures, SSS, Fourier) cannot be built here at all. A built
-        BVH does not disqualify: the fused kernel reads the builder-order
-        triangles and culls by its own clusters.
+        rules the scene out, as in pbrt_tpu's gate. Disks, instances,
+        textures and media (any medium, or a camera medium) are ruled out
+        as there; the other families it rules out (curves, motion, SSS,
+        Fourier) cannot be built here at all. A built BVH does not
+        disqualify: the fused kernel reads the builder-order triangles and
+        culls by its own clusters.
         The triangle cap is the kernel's shared memory plan
         (fused_path.MAX_TRI). Returns (axis, plane_facing,
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 
-        if scene.n_sph or scene.n_dsk:
+        if scene.n_sph or scene.n_dsk or scene.inst is not None:
+            return None
+        if (self.media or self.camera_med != -1
+                or scene.textures is not None):
             return None
         if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > MAX_TRI:
             return None

@@ -3,13 +3,16 @@
 pbrt_tpu/utils/cli.py; main() of src/main/pbrt.cpp:76-173).
 
 It parses the file, builds the scene on the card, renders it with the
-file's integrator, sampler, filter and crop window, and writes the image
+file's integrator (every keyword the port has, `volpath` with the file's
+media among them), sampler, filter and crop window, and writes the image
 (.pfm, .exr, .png or .tga). It runs on the card and raises without one,
 unless asked for the CPU with ``--cpu``; it never falls back to the CPU
 by itself. Unless ``--quiet``, stderr gets the card's name, the phase
 times (the render also by CUDA events), pbrt's statistics and one
 ``pbrt_tpu_torch: summary {...}`` JSON line with the phase seconds, the
-launches of each kernel, the primitive counts and the image mean.
+launches of each kernel, the primitive counts (instanced prims among
+them), the number of media, whether there are textures, and the image
+mean.
 
 ``--debug-nans`` is the counterpart of pbrt_tpu's ``jax_debug_nans``: it
 raises on the first pass whose radiance holds a NaN or an infinity,
@@ -156,7 +159,9 @@ def main(argv=None):
             shape=list(img.shape), spp=spp, outfile=fname,
             integrator=integrator, channels=scene.n_channels,
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
-                       dsk=scene.n_dsk, bvh=scene.bvh is not None))))
+                       dsk=scene.n_dsk, vprims=scene.n_vprims,
+                       bvh=scene.bvh is not None),
+            media=len(scene.media), textures=scene.textures is not None)))
     return 0
 
 

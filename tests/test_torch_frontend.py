@@ -34,6 +34,9 @@ FILES = {
     "ao": os.path.join(ORACLE, "ao_oracle.pbrt"),
     "deltalights": os.path.join(ORACLE, "deltalights_oracle.pbrt"),
     "filter": os.path.join(ORACLE, "filter_oracle.pbrt"),
+    "texinst": os.path.join(ORACLE, "texinst_oracle.pbrt"),
+    "volpath": os.path.join(ORACLE, "volpath_oracle.pbrt"),
+    "gridvol": os.path.join(ORACLE, "gridvol_oracle.pbrt"),
 }
 OPTION_KEYS = ("integrator", "max_depth", "sampler", "spp", "film",
                "filter", "accelerator")
@@ -56,6 +59,11 @@ def assert_same(a, b, path="", rtol=0.0, atol=0.0):
         for f in dataclasses.fields(a):
             assert_same(getattr(a, f.name), getattr(b, f.name),
                         f"{path}.{f.name}", rtol, atol)
+    elif isinstance(a, tuple) and any(dataclasses.is_dataclass(x)
+                                      for x in a):
+        assert isinstance(b, tuple) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]", rtol, atol)
     else:
         assert a == b, (path, a, b)
 
@@ -73,8 +81,11 @@ def _both_text(text, base_dir=ORACLE, rtol=0.0):
 
 @pytest.mark.parametrize("name", sorted(FILES))
 def test_scene_files_parse_as_pbrt_tpu(name):
-    """The demo scene and the three oracle files the port can render:
-    scene, camera, options and filter tables equal to pbrt_tpu's."""
+    """The demo scene and the oracle files the port renders here (ao,
+    deltalights, filter; texinst with its texture table, mip atlas and
+    instance table; volpath and gridvol with their media, the prims'
+    media interface and the null material): scene, camera, options and
+    filter tables equal to pbrt_tpu's."""
     js, jc, jo = jparser.load_pbrt(FILES[name])
     ts, tc, to = tparser.load_pbrt(FILES[name], device="cpu")
     assert_same(ts, bridge.scene_from_jax(js), "scene")
@@ -264,6 +275,78 @@ SCENE_STRINGS = {
             "integer axis" [1] "bool facingFw" "false"
         AttributeEnd
         WorldEnd""",
+    "instancing": """
+        WorldBegin
+        ObjectBegin "tet"
+          Material "matte" "rgb Kd" [0.3 0.5 0.3]
+          Shape "trianglemesh" "integer indices" [0 1 2  0 2 3  0 3 1  1 3 2]
+            "point P" [0 0.45 0  -0.35 0 0.3  0.35 0 0.3  0 0 -0.4]
+            "float uv" [0.5 1  0 0  1 0  0.5 0.3]
+            "normal N" [0 1 0  -1 0 1  1 0 1  0 0 -1]
+        ObjectEnd
+        ObjectBegin "lamp"
+          Translate 0 2 0
+          AreaLightSource "diffuse" "rgb L" [3 3 3]
+          Shape "sphere" "float radius" [0.2]
+        ObjectEnd
+        AttributeBegin
+          Translate -1 0 0.3
+          ObjectInstance "tet"
+        AttributeEnd
+        AttributeBegin
+          Translate 0.9 0 -0.4
+          Rotate 120 0 1 0
+          Scale 1.4 0.7 1.4
+          ObjectInstance "tet"
+          ObjectInstance "lamp"
+        AttributeEnd
+        ObjectInstance "missing"
+        WorldEnd""",
+    "textures": f"""
+        WorldBegin
+        Texture "img" "spectrum" "imagemap"
+          "string filename" "{os.path.join(ORACLE, 'tex.png')}"
+          "float uscale" [2] "float vscale" [3] "bool trilinear" "true"
+        Texture "checks" "spectrum" "checkerboard" "rgb tex1" [0.9 0.1 0.1]
+          "rgb tex2" [0.1 0.1 0.9] "float uscale" [8] "float vscale" [8]
+        Texture "amt" "float" "fbm" "float roughness" [0.6]
+          "integer octaves" [5] "float scale" [3]
+        Texture "blend" "spectrum" "mix" "texture tex1" "img"
+          "texture tex2" "checks" "texture amount" "amt"
+        Texture "stone" "spectrum" "marble" "float variation" [0.3]
+          "float scale" [2]
+        Texture "gone" "spectrum" "imagemap" "string filename" "none.png"
+        Material "matte" "texture Kd" "blend"
+        Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+          "point P" [-3 0 -3  3 0 -3  3 0 3  -3 0 3]
+          "float uv" [0 0  1 0  1 1  0 1]
+        Material "plastic" "texture Kd" "stone"
+        Shape "sphere" "float radius" [0.5]
+        Material "matte" "texture Kd" "gone"
+        Shape "sphere" "float radius" [0.2]
+        WorldEnd""",
+    "media": """
+        MakeNamedMedium "air" "string type" "homogeneous"
+          "rgb sigma_a" [0.01 0.02 0.03] "rgb sigma_s" [0.1 0.1 0.1]
+          "float scale" [2]
+        MediumInterface "air" ""
+        WorldBegin
+        MakeNamedMedium "cloud" "string type" "heterogeneous"
+          "rgb sigma_a" [0.1 0.1 0.1] "rgb sigma_s" [0.5 0.5 0.5]
+          "float g" [0.3] "integer nx" [2] "integer ny" [3] "integer nz" [2]
+          "point p0" [-1 0 -1] "point p1" [1 2 1]
+          "float density" [0 1 2 3 4 5 6 7 8 9 10 11]
+        AttributeBegin
+          Material ""
+          MediumInterface "cloud" "air"
+          Translate 0 1 0
+          Shape "sphere" "float radius" [1]
+        AttributeEnd
+        Material "none"
+        MediumInterface "air"
+        Shape "trianglemesh" "integer indices" [0 1 2]
+          "point P" [-1 0 0  1 0 0  0 1 0]
+        WorldEnd""",
 }
 
 
@@ -295,8 +378,11 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     """Scene strings the test writes: the transform stack, named and mixed
     materials, the light types, the tessellated quadrics, a heightfield, a
     NURBS patch, a disk, a loop-subdivided mesh, PLY files (ascii and
-    binary little-endian) and spectrum / blackbody / xyz / .spd
-    parameters."""
+    binary little-endian), spectrum / blackbody / xyz / .spd parameters,
+    object instancing (true instances, a flattened emissive object, an
+    unknown name), textures (imagemap, operands, noise, an unreadable
+    image) and media (a camera medium, a grid medium inside a null
+    sphere, the null material)."""
     (tmp_path / "flat.spd").write_text("# a flat SPD\n400 0.6\n550 0.6\n"
                                        "700 0.6\n")
     if name == "plymesh":
@@ -316,6 +402,12 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     if name == "lights":
         assert set(ts.lights.present) == {tlights.POINT, tlights.SPOT,
                                          tlights.DISTANT, tlights.AREA}
+    if name == "instancing":
+        assert ts.n_vprims == 8 and ts.n_sph == 1
+    if name == "textures":
+        assert ts.textures.nest_depth == 1 and not ts.textures.ewa
+    if name == "media":
+        assert ts.camera_med == 0 and len(ts.media) == 2
 
 
 def test_portal_data_and_float_files(tmp_path):
@@ -396,12 +488,6 @@ def test_simple_scene_and_spd_light():
 
 
 UNPORTED = {
-    "ObjectBegin": ('WorldBegin\nObjectBegin "a"\nShape "sphere"\n'
-                    'ObjectEnd\nObjectInstance "a"\nWorldEnd', 6),
-    "Texture": ('WorldBegin\nTexture "t" "spectrum" "checkerboard"\n'
-                'WorldEnd', 8),
-    "medium": ('MakeNamedMedium "fog" "string type" "homogeneous"\n'
-               'WorldBegin\nWorldEnd', 9),
     "hair": 'WorldBegin\nMaterial "hair"\nWorldEnd',
     "subsurface": ('WorldBegin\nMaterial "subsurface"\nWorldEnd', 9),
     "curve": ('WorldBegin\nShape "curve" "point P" [0 0 0 1 0 0 1 1 0 '
@@ -417,8 +503,7 @@ UNPORTED = {
 }
 # (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
 # in the repo)
-UNPORTED_FILES = ("volpath", "texinst", "curves", "dofmotion", "gridvol",
-                  "sss", "disney_sss")
+UNPORTED_FILES = ("curves", "dofmotion", "sss", "disney_sss")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

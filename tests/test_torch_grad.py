@@ -1,0 +1,175 @@
+"""Gradients through the generic wavefront loop: torch autograd of the
+port's ``render_pass`` against ``jax.grad`` of pbrt_tpu's.
+
+The same scene (built by pbrt_tpu, carried over with
+``bridge.scene_from_jax``), the same camera, seed and spp go through both
+packages' ``render_pass`` with ``integrator="path"``, ``max_depth`` 3, at
+16² × 4 spp; the loss is the image mean. The port's fused gate is turned
+off (``fused_profile=None``) so its ``path`` runs ``_li_loop``, as
+pbrt_tpu's does on the CPU backend.
+
+- **Brute-force scene**: the layout of tests/test_grad.py
+  ``_portal_grad_scene`` (a floor, a vertical projection-strategy portal
+  in front of a vertical area light), as ``entry._fill_portal_grad_scene``
+  fills a builder; the port's own build of it gives the same gradients
+  (chip_smoke.py takes them on the card). Gradients with
+  respect to ``materials.kd``, ``lights.emit``, ``lights.portal_lo`` and
+  ``lights.portal_hi``: the NEE direction toward a portal sample depends
+  on the portal's corners, and one closest-hit trace along it serves both
+  visibility and emission.
+- **BVH scene**: the heightfield cornell scene at n = 8 with
+  ``use_bvh="always"`` (286 triangles, one sphere, one aaplane light).
+  Gradients with respect to kd and emit. Portal geometry is not taken
+  here: pbrt_tpu's CPU traversal is a ``lax.while_loop``
+  (pbrt_tpu/scene/bvh.py:483,544), and reverse mode cannot differentiate
+  a while-loop carry with a tangent, which a ray direction that depends
+  on the portal would give it. So pbrt_tpu gives no reference there.
+
+Each scene is one jitted pbrt_tpu program (``value_and_grad`` over all its
+parameters), shared by the file's tests through module-scoped fixtures.
+Tolerances: loss rtol 1e-5; every gradient atol 1e-6 + rtol 1e-4 of its
+largest entry, elementwise; each gradient is non-trivial (max |g| > 1e-3).
+"""
+
+import dataclasses as dc
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from pbrt_tpu.core import transform as jtransform
+from pbrt_tpu.core.spectrum import RGB
+from pbrt_tpu.scene import camera as jcam
+from pbrt_tpu.scene import film as jfilm
+from pbrt_tpu.scene.types import SceneBuilder as JaxBuilder
+from pbrt_tpu_torch import bridge, entry
+from pbrt_tpu_torch.integrators import render as trender
+from pbrt_tpu_torch.scene import film as tfilm
+
+jrender = importlib.import_module("pbrt_tpu.integrators.render")
+
+RES = 16
+SPP = 4
+DEPTH = 3
+BRUTE_PARAMS = ("kd", "emit", "portal_lo", "portal_hi")
+BVH_PARAMS = ("kd", "emit")
+
+
+def _portal_grad_builder():
+    """tests/test_grad.py ``_portal_grad_scene``'s layout."""
+    b = JaxBuilder(RGB)
+    entry._fill_portal_grad_scene(b)
+    return b.build()
+
+
+def _bvh_builder():
+    b = JaxBuilder(RGB)
+    entry._fill_heightfield_cornell(b, n=8, n_phi=8, n_z=4)
+    return b.build(use_bvh="always")
+
+
+def _camera(eye, target):
+    return jcam.make_perspective(jtransform.look_at(eye, target, (0, 1, 0)),
+                                 30.0, (RES, RES))
+
+
+def _with(scene, values):
+    """``scene`` with the named parameters replaced (both packages' tables
+    have the same field names)."""
+    mats = {k: v for k, v in values.items() if k == "kd"}
+    lts = {k: v for k, v in values.items() if k != "kd"}
+    return dc.replace(scene, materials=dc.replace(scene.materials, **mats),
+                      lights=dc.replace(scene.lights, **lts))
+
+
+def _table(scene, name):
+    return getattr(scene.materials if name == "kd" else scene.lights, name)
+
+
+def _both(js, cam, names):
+    """(jax loss, jax grads, torch loss, torch grads) of the image mean."""
+    cfg = jrender.RenderConfig(integrator="path", max_depth=DEPTH)
+
+    def loss_jax(*vals):
+        s = _with(js, dict(zip(names, vals)))
+        return jnp.mean(jrender.render_pass(
+            s, cam, jfilm.make_filter("box"), cfg, RES, RES, SPP,
+            jnp.asarray(0, jnp.uint32)) / SPP)
+
+    argnums = tuple(range(len(names)))
+    v, g = jax.value_and_grad(loss_jax, argnums=argnums)(
+        *(_table(js, n) for n in names))
+
+    ts = dc.replace(bridge.scene_from_jax(js), fused_profile=None)
+    leaves = {n: _table(ts, n).clone().requires_grad_() for n in names}
+    img = trender.render_pass(
+        _with(ts, leaves), bridge.camera_from_jax(cam),
+        tfilm.make_filter("box"),
+        trender.RenderConfig(integrator="path", max_depth=DEPTH),
+        RES, RES, SPP, 0, "cpu") / SPP
+    loss = img.mean()
+    loss.backward()
+    return (float(v), {n: np.asarray(x) for n, x in zip(names, g)},
+            float(loss.detach()), {n: leaves[n].grad.numpy()
+                                   for n in names})
+
+
+@pytest.fixture(scope="module")
+def brute():
+    js = _portal_grad_builder()
+    assert js.bvh is None
+    return _both(js, _camera((0, 2, -4), (0, 0.5, 0)), BRUTE_PARAMS)
+
+
+@pytest.fixture(scope="module")
+def bvh():
+    js = _bvh_builder()
+    assert js.bvh is not None
+    return _both(js, _camera((0.5, 0.5, -1.4), (0.5, 0.5, 1.0)), BVH_PARAMS)
+
+
+def _check(result, name):
+    v_jax, g_jax, v_t, g_t = result
+    np.testing.assert_allclose(v_t, v_jax, rtol=1e-5)
+    want, got = g_jax[name], g_t[name]
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    assert scale > 1e-3, (name, scale)
+    np.testing.assert_allclose(got, want, atol=1e-6 + 1e-4 * scale,
+                               rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("name", BRUTE_PARAMS)
+def test_brute_scene_gradients_match_jax_grad(brute, name):
+    _check(brute, name)
+
+
+@pytest.mark.parametrize("name", BVH_PARAMS)
+def test_bvh_scene_gradients_match_jax_grad(bvh, name):
+    _check(bvh, name)
+
+
+def test_port_built_grad_scene_gives_the_same_gradients(brute):
+    """The scene built by the port's SceneBuilder with the port's camera
+    (what chip_smoke.py renders on the card) gives the bridged scene's
+    loss and gradients, to the same tolerance."""
+    b = entry.SceneBuilder()
+    entry._fill_portal_grad_scene(b)
+    ts = dc.replace(b.build("cpu"), fused_profile=None)
+    leaves = {n: _table(ts, n).clone().requires_grad_()
+              for n in BRUTE_PARAMS}
+    img = trender.render_pass(
+        _with(ts, leaves), entry._grad_camera((RES, RES), "cpu"),
+        tfilm.make_filter("box"),
+        trender.RenderConfig(integrator="path", max_depth=DEPTH),
+        RES, RES, SPP, 0, "cpu") / SPP
+    img.mean().backward()
+    _, _, v_t, g_t = brute
+    np.testing.assert_allclose(float(img.mean().detach()), v_t, rtol=1e-5)
+    for n in BRUTE_PARAMS:
+        scale = float(np.abs(g_t[n]).max())
+        np.testing.assert_allclose(leaves[n].grad.numpy(), g_t[n],
+                                   atol=1e-6 + 1e-4 * scale, rtol=0,
+                                   err_msg=n)

@@ -21,6 +21,7 @@ within rtol 2e-5 throughout.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,17 @@ from pbrt_tpu_torch.scene import intersect as tisect
 from pbrt_tpu_torch.scene.types import SceneBuilder
 
 R = 4096
+
+# Under pytest-xdist every worker imports this module (the port's tests
+# import its helpers), and each worker shares the machine's cores with the
+# others: torch's default of one intra-op thread per core then
+# oversubscribes them, and every parallel region of a large render waits
+# for descheduled threads (a 20 s render was seen taking over 15 minutes).
+# So each worker takes its share of the cores.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // _XDIST_WORKERS))
 
 
 def jax_scene(fill, *args):

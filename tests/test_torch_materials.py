@@ -315,10 +315,8 @@ def test_new_keywords_parse_as_pbrt_tpu(tmp_path, camera):
 UNPORTED = {
     "subsurface": ('Material "subsurface"', 9),
     "kdsubsurface": ('Material "kdsubsurface"', 9),
-    "none": ('Material "none"', 9),
     "hair": ('Material "hair"', 8),
     "fourier": ('Material "fourier" "string bsdffile" "x.bsdf"', 8),
-    "textured_kd": ('Material "matte" "texture Kd" "checks"', 8),
     "disney_scatterdistance": ('Material "disney" '
                                '"rgb scatterdistance" [0.1 0.2 0.3]', 9),
 }
@@ -334,9 +332,10 @@ def test_left_out_materials_raise(name):
 
 
 def test_builder_rows_left_out_raise():
-    for row, item in ((dict(type=tm.MATTE, kd_tex=0), 8),
+    for row, item in ((dict(type=tm.MATTE, sigma_tex=0), 8),
                       (dict(type=tm.HAIR), 8), (dict(type=tm.FOURIER), 8),
-                      (dict(type=tm.SUBSURFACE), 9), (dict(type=tm.NONE), 9),
+                      (dict(type=tm.SUBSURFACE), 9),
+                      (dict(type=tm.MATTE, bump_tex=0), 8),
                       (dict(type=tm.SSS_EXIT), 9),
                       (dict(type=tm.MATTE, sss_sigma_a=0.1), 9),
                       (dict(type=tm.DISNEY, scatter_d=(0.1, 0.1, 0.1)), 9)):
@@ -366,7 +365,7 @@ def test_fused_gate_refuses_non_matte_rows():
 
 def test_bridge_raises_on_left_out_rows():
     js = jax_scene(entry._fill_portal_scene)
-    for k, v in (("mtype", tm.HAIR), ("kd_tex", 0)):
+    for k, v in (("mtype", tm.HAIR), ("sigma_tex", 0)):
         m = dataclasses.replace(
             js.materials, **{k: jnp.asarray(np.asarray(
                 getattr(js.materials, k)) * 0 + v)})
