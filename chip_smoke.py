@@ -283,6 +283,31 @@ MEDIA_MEAN_SPP = 8
 REF_MEDIA_MEANS = {"texinst": 0.03901138345819349,
                    "volpath": 0.04115201333742233,
                    "gridvol": 0.044565141245070834}
+# The subsurface phase (18): per file, the CLI's spp (the file's own), the
+# brute-force queries a pass makes (path with an area light on a sphere:
+# on each full bounce the closest hit, the probe chain's 8 segment
+# queries, the NEE ray and the BSDF half's ray; then the last bounce's
+# closest hit), the passes of at most 2^21 lanes the CLI cuts its spp into
+# (227 + 29 spp) and tests/test_oracle.py's limits (mean delta, block
+# rel-L1).
+SSS_FILES = {"sss": (256, 5 * 11 + 1, 2, 0.008, 0.05),
+             "disney_sss": (256, 5 * 11 + 1, 2, 0.05, 0.06)}
+SSS_PASS_SPP = 128       # the in-process pass: 96² × 128 = 1,179,648 lanes
+SSS_MEAN_SPP = 8
+# entry._fill_sss_heightfield's (n, n_phi, n_z) for the BVH probe pass
+SSS_HF = (64, 16, 8)
+# pbrt_tpu's float32 image means on the CPU backend with `path`, the
+# halton sampler, seed 0, 8 spp: the two files at their own resolution and
+# max depth, and the subsurface heightfield (SSS_HF, no fog) at 64² with
+# entry._camera, max_depth 5; printed by ``PYTHONPATH=. python
+# tests/test_torch_sss.py``.
+REF_SSS_MEANS = {"sss": 0.020924266349196165,
+                 "disney_sss": 0.025893649941324308,
+                 "heightfield": 0.353471971180386}
+# tests/test_torch_grad.py's hero and volpath scenes: (file, 60-bin
+# spectra, the parameters differentiated)
+SSS_GRADS = (("cornell_dielectric", True, ("kd", "emit")),
+             ("volpath", False, ("kd", "emit", "sigma_a", "sigma_s")))
 # the gradient scene (entry._fill_portal_grad_scene): 16² × 4 spp, `path`
 # through the generic loop at max_depth 3, the parameters differentiated
 # and tests/test_torch_grad.py's tolerance (atol 1e-6 + 1e-4 × max |g|)
@@ -1824,6 +1849,312 @@ def media_files(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. subsurface scattering
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_traversal():
+    """Record every traversal query the render makes (scene/bvh.py calls
+    ``bk.bvh_traverse``) as (its arguments, its outputs); the wrapper
+    still counts its launches."""
+    calls = []
+    inner = bk.bvh_traverse
+
+    def record(bvh, o, d, tmax, any_hit, **kw):
+        out = inner(bvh, o, d, tmax, any_hit, **kw)
+        calls.append(((o.detach().clone(), d.detach().clone(),
+                       tmax.detach().clone(), any_hit), out))
+        return out
+    # the wrapper counts through its module's name, which now names the
+    # recorder: the count is carried over and back
+    record.launches = inner.launches
+    bk.bvh_traverse = record
+    try:
+        yield calls
+    finally:
+        inner.launches = record.launches
+        bk.bvh_traverse = inner
+
+
+@contextlib.contextmanager
+def recording_brute_families():
+    """Record every brute-force query of a scene with a BVH (its spheres
+    and aaplanes after the traversal, scene/bvh.py::_brute_families) as
+    (the kernel's arguments, its outputs)."""
+    calls = []
+    inner = bvh_mod._brute_families
+
+    def record(scene, o, d, tmax):
+        out = inner(scene, o, d, tmax)
+        calls.append((ik.pack_scene(scene, tris=False) + (
+            o.contiguous(), d.contiguous(), tmax.contiguous(), 0,
+            scene.n_sph, scene.n_pln), out))
+        return out
+    bvh_mod._brute_families = record
+    try:
+        yield calls
+    finally:
+        bvh_mod._brute_families = inner
+
+
+def _hold_brute(name, calls):
+    """Every recorded brute-force query against the twin, bit for bit;
+    returns the largest |t − t_twin|."""
+    worst = 0.0
+    for args, (t, prim) in calls:
+        t_ref, prim_ref = ik._intersect_reference(*args)
+        worst = max(worst, float((t - t_ref).abs().max()))
+        check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
+              f"{name}: the kernel differs from its twin on the pass's "
+              f"rays ({args[3].shape[0]} rays, t err {worst})")
+    return worst
+
+
+def _file_grad_pass(dev, name, params, spectral):
+    """The image mean of a 16² window × 4 spp of an oracle file with its
+    own integrator (hero_path_mis for the spectral file) and the gradients
+    with respect to ``params`` (kd, emit, the first medium's sigma_a and
+    sigma_s) on ``dev``: tests/test_torch_grad.py's hero and volpath
+    scenes, built by the port's parser."""
+    from pbrt_tpu_torch.core import spectrum as spec_mod
+    scene, cam, opts = load_pbrt(
+        f"tests/oracle/{name}_oracle.pbrt", device=dev,
+        spectrum_cfg=spec_mod.SAMPLED if spectral else spec_mod.RGB)
+    leaves = {}
+    for n in params:
+        if n in ("sigma_a", "sigma_s"):
+            leaves[n] = getattr(scene.media[0], n).clone().requires_grad_()
+        else:
+            tab = scene.materials if n == "kd" else scene.lights
+            leaves[n] = getattr(tab, n).clone().requires_grad_()
+    med = {n: v for n, v in leaves.items() if n in ("sigma_a", "sigma_s")}
+    scene = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials,
+                                             kd=leaves["kd"]),
+        lights=dataclasses.replace(scene.lights, emit=leaves["emit"]))
+    if med:
+        scene = dataclasses.replace(scene, media=(dataclasses.replace(
+            scene.media[0], **med),) + tuple(scene.media[1:]))
+    cfg = render_mod.RenderConfig(
+        integrator="hero_path_mis" if spectral else opts["integrator"],
+        sampler=opts["sampler"], max_depth=opts["max_depth"])
+    img = render_mod.render_pass(
+        scene, cam, film_mod.make_filter("box", device=dev), cfg, 96, 96,
+        4, 0, dev, crop=(40, 40, 16, 16)) / 4
+    loss = img.mean()
+    loss.backward()
+    return float(loss.detach()), {n: v.grad.cpu() for n, v in
+                                  leaves.items()}
+
+
+def sss_files(dev):
+    """Phase 18: (a) the CLI on sss and disney_sss at their own spp against
+    the reference images, with the brute-force launches of the loop's
+    static rule; (b) one in-process pass of each, every brute-force query
+    (the probe chain's among them) held to the twin bit for bit, the
+    launches counted, the pass timed with its device time, the kernel's
+    share and its peak memory; (c) the 8-spp means against pbrt_tpu's, and
+    a `path` pass of the subsurface heightfield scene with a BVH, every
+    traversal and brute-force query held to the twins; (d) the hero and
+    volpath gradients on the card against the CPU's. Returns the numbers
+    for the JSON lines."""
+    out = {"cli": {}, "pass": {}, "means": {}, "file_s": {}}
+    t_phase = time.perf_counter()
+    # (a) the two CLIs at once
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {name: start_cli(f"tests/oracle/{name}_oracle.pbrt",
+                                   os.path.join(tmp, f"{name}.pfm"))
+                   for name in SSS_FILES}
+        for name, (spp, per_pass, n_pass, md_lim, bl_lim) in \
+                SSS_FILES.items():
+            sm = finish_cli(started[name])
+            img = imageio.read_pfm(os.path.join(tmp, f"{name}.pfm"))
+            ref = imageio.read_pfm(f"tests/oracle/{name}_ref.pfm")
+            row = {k: sm[k] for k in ("render_s", "render_cuda_ms",
+                                      "process_s", "launches", "spp",
+                                      "mean", "prims", "sss_rows",
+                                      "integrator")}
+            row["md"] = _mean_delta(img, ref)
+            row["bl"] = _block_rel_l1(img, ref, k=16)
+            print(f"subsurface file {name} (CLI, two at once): "
+                  + json.dumps(row))
+            lc = sm["launches"]
+            check(img.shape == ref.shape and np.isfinite(img).all()
+                  and sm["spp"] == spp and sm["sss_rows"],
+                  f"{name}: {img.shape}, {sm}")
+            check(lc["intersect_brute"] == per_pass * n_pass
+                  and lc["fused_bounce"] == 0 and lc["bvh_traverse"] == 0,
+                  f"{name}: launches {lc}, expected {per_pass * n_pass}")
+            check(row["md"] < md_lim and row["bl"] < bl_lim,
+                  f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs the "
+                  f"limits {md_lim}, {bl_lim}")
+            out["cli"][name] = row
+    out["cli_s"] = time.perf_counter() - t_phase
+
+    # (b) one pass of each file in process
+    kernel = {}
+    for name, (_, per_pass, _, _, _) in SSS_FILES.items():
+        t_file = time.perf_counter()
+        scene, cam, opts = load_pbrt(f"tests/oracle/{name}_oracle.pbrt",
+                                     device=dev)
+        check(scene.has_sss and scene.bvh is None
+              and scene.fused_profile is None, f"{name}: the scene")
+
+        def render(spp=SSS_PASS_SPP):
+            return render_mod.render(
+                scene, cam, spp=spp, integrator="path", sampler="halton",
+                max_depth=opts["max_depth"], seed=0, device=dev)
+        with recording_brute_force() as calls:
+            img = render()
+            torch.cuda.synchronize()
+        check(len(calls) == per_pass,
+              f"{name}: {len(calls)} brute-force queries in the pass")
+        worst = _hold_brute(name, calls)
+        # a probe query (the first bounce's first) timed against its twin
+        probe_args = calls[2][0]
+        n_rays = probe_args[3].shape[0]
+        k_ms = sync_ms(lambda: ik.intersect_brute(*probe_args), 20)
+        twin_ms = sync_ms(lambda: ik._intersect_reference(*probe_args), 3)
+        bound = intersect_bound(scene, n_rays)
+        del calls, probe_args
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        ik.intersect_brute.launches = 0
+        fp.fused_bounce.launches = 0
+        bk.bvh_traverse.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img2 = render()
+        stop.record()
+        torch.cuda.synchronize()
+        render_ms = start.elapsed_time(stop)
+        launches = (ik.intersect_brute.launches, fp.fused_bounce.launches,
+                    bk.bvh_traverse.launches)
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+        check(launches == (per_pass, 0, 0),
+              f"{name}: launches {launches} in the timed pass")
+        check(torch.equal(img, img2), f"{name}: two renders differ")
+        dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"],
+                                         cpu=False)
+        check(by["intersect_kernel"][1] == per_pass,
+              f"{name}: the profiler saw {by['intersect_kernel'][1]} "
+              "kernel launches")
+        row = {"spp": SSS_PASS_SPP, "lanes": n_rays,
+               "render_cuda_ms": render_ms,
+               "samples_per_s": 96 * 96 * SSS_PASS_SPP / (render_ms / 1e3),
+               "device_ms": dev_ms,
+               "intersect_device_ms": by["intersect_kernel"][0],
+               "intersect_share": by["intersect_kernel"][0] / dev_ms,
+               "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
+               "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
+               "launches": launches[0], "kernel_vs_twin_max_abs_err": worst,
+               "probe_kernel_ms": k_ms, "probe_twin_ms": twin_ms,
+               "probe_bound_ms": bound[0], "probe_bound_by": bound[1]}
+        print(f"subsurface pass {name} in process, {SSS_PASS_SPP} spp "
+              "halton: " + json.dumps(row))
+        out["pass"][name] = row
+        kernel[name] = {"launches": launches[0], "max_abs_err": worst,
+                        "ms": k_ms, "plain_ms": twin_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "rays": n_rays, "device_ms": by["intersect_kernel"][0]}
+
+        # (c) the 8-spp mean against pbrt_tpu's
+        m = float(render(SSS_MEAN_SPP).double().mean())
+        ref_mean = REF_SSS_MEANS[name]
+        rel = abs(m - ref_mean) / ref_mean
+        out["means"][name] = {"mean": m, "ref": ref_mean, "rel": rel}
+        print(f"subsurface file {name} in process, {SSS_MEAN_SPP} spp: "
+              + json.dumps(out["means"][name]))
+        check(rel < 1e-4, f"{name}: mean off pbrt_tpu's by rel {rel}")
+        del scene, img, img2
+        out["file_s"][name] = time.perf_counter() - t_file
+    out["kernel"] = kernel
+
+    # (c) the subsurface heightfield scene with a BVH: every traversal and
+    # brute-force query of a `path` pass held to the twins, the mean
+    # against pbrt_tpu's
+    t0 = time.perf_counter()
+    b = SceneBuilder()
+    entry._fill_sss_heightfield(b, *SSS_HF)
+    scene = b.build(dev, use_bvh="always")
+    check(scene.has_sss and scene.bvh is not None
+          and scene.fused_profile is None, "the subsurface heightfield")
+    ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
+
+    def render_hf():
+        return render_mod.render(
+            scene, entry._camera((64, 64), dev), spp=SSS_MEAN_SPP,
+            integrator="path", sampler="halton", max_depth=5, seed=0,
+            device=dev)
+    with recording_traversal() as tcalls, \
+            recording_brute_families() as bcalls:
+        img = render_hf()
+        torch.cuda.synchronize()
+    t_launches = bk.bvh_traverse.launches
+    check(len(tcalls) == t_launches == 5 * 11 + 1
+          and len(bcalls) == ik.intersect_brute.launches == t_launches,
+          f"heightfield: {len(tcalls)} traversal queries, "
+          f"{len(bcalls)} brute-force, launches {t_launches}")
+    t_worst = 0.0
+    for (o, d, tmax, any_hit), (t, i) in tcalls:
+        t_ref, i_ref = bk.traverse_reference(scene.bvh, o, d, tmax, any_hit)
+        t_worst = max(t_worst, float((t - t_ref).abs().max()))
+        check(torch.equal(t, t_ref) and torch.equal(i, i_ref),
+              f"heightfield: the traversal kernel differs from its twin on "
+              f"the pass's rays (t err {t_worst})")
+    b_worst = _hold_brute("heightfield", bcalls)
+    del tcalls, bcalls
+    # the pass's device time and the two kernels' shares of it
+    dev_ms, by = device_ms_by_kernel(
+        render_hf, ["bvh_traverse_kernel", "intersect_kernel"], cpu=False)
+    check(by["bvh_traverse_kernel"][1] == t_launches
+          and by["intersect_kernel"][1] == t_launches,
+          f"heightfield: the profiler saw {by} kernel launches")
+    m = float(img.double().mean())
+    ref_mean = REF_SSS_MEANS["heightfield"]
+    rel = abs(m - ref_mean) / ref_mean
+    out["heightfield"] = {
+        "tris": scene.n_tri, "traverse_launches": t_launches,
+        "traverse_max_abs_err": t_worst, "brute_max_abs_err": b_worst,
+        "device_ms": dev_ms,
+        "traverse_device_ms": by["bvh_traverse_kernel"][0],
+        "traverse_share": by["bvh_traverse_kernel"][0] / dev_ms,
+        "intersect_device_ms": by["intersect_kernel"][0],
+        "intersect_share": by["intersect_kernel"][0] / dev_ms,
+        "mean": m, "ref": ref_mean, "rel": rel,
+        "seconds": time.perf_counter() - t0}
+    print("subsurface heightfield with a BVH, 64² × 8 spp `path`: "
+          + json.dumps(out["heightfield"]))
+    check(rel < 1e-4, f"heightfield: mean off pbrt_tpu's by rel {rel}")
+    del scene, img
+
+    # (d) the hero and volpath gradients, card against CPU
+    t0 = time.perf_counter()
+    grads = {}
+    for name, spectral, params in SSS_GRADS:
+        loss_cpu, g_cpu = _file_grad_pass(torch.device("cpu"), name, params,
+                                          spectral)
+        loss_card, g_card = _file_grad_pass(dev, name, params, spectral)
+        row = {"loss_cpu": loss_cpu, "loss_card": loss_card,
+               "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+        check(row["loss_rel"] < 1e-5, f"{name} gradient loss {row}")
+        for n in params:
+            scale = float(g_cpu[n].abs().max())
+            err = float((g_card[n] - g_cpu[n]).abs().max())
+            row[n] = {"max_abs": scale, "max_abs_err": err}
+            check(scale > 1e-3 and err <= 1e-6 + 1e-4 * scale,
+                  f"{name} gradient {n} on the card: {row[n]}")
+        grads[name] = row
+        print(f"{name} gradients, card against CPU: " + json.dumps(row))
+    grads["seconds"] = time.perf_counter() - t0
+    out["grads"] = grads
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -2436,6 +2767,12 @@ def main():
     media["phase_s"] = time.perf_counter() - t0
     print(f"media phase {media['phase_s']:.1f} s")
 
+    # ---- 18. subsurface scattering
+    t0 = time.perf_counter()
+    sss = sss_files(dev)
+    sss["phase_s"] = time.perf_counter() - t0
+    print(f"subsurface phase {sss['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -2473,7 +2810,12 @@ def main():
         # the hero pass (phase 16): launches of its timed 128-spp render,
         # the largest error over all its queries, times and bound on its
         # camera rays
-        "hero_path": hero["kernel"]}, {
+        "hero_path": hero["kernel"],
+        # the subsurface passes (phase 18): launches of each timed 128-spp
+        # render, the largest error over all its queries (the probe
+        # chain's among them), times and bound on its first probe query,
+        # the kernel's device time inside the pass
+        "sss_path": sss["kernel"]}, {
         # the render path's kernel as the render launches it; camera rays
         # of the heightfield tree in the callers' order (bounce and shadow
         # rays, the other grid and the L2 window in the lines above)
@@ -2483,7 +2825,12 @@ def main():
         "launches": bvh_launches, "max_abs_err": traverse_err,
         "ms": tms["persistent_closest_camera"],
         "plain_ms": twin_ms, "bound_ms": tbound["camera"][0],
-        "bound_by": tbound["camera"][1], "library_ms": None}, {
+        "bound_by": tbound["camera"][1], "library_ms": None,
+        # the subsurface heightfield's `path` pass (phase 18): its
+        # traversal launches and largest error against the twin
+        "sss_heightfield": {k: sss["heightfield"][k] for k in (
+            "traverse_launches", "traverse_max_abs_err",
+            "traverse_device_ms", "traverse_share")}}, {
         # the render path's kernel before the 4-wide one, now the harness's
         # yardstick
         # (its launches: the harness run's); the same camera rays

@@ -9,9 +9,11 @@ flags) carry over as they are, so a scene of 60-bin sampled spectra
 carries its 60-channel materials, lights, power and map distribution.
 Textures (the table and its mip-atlas stack), instanced objects and media
 (with the per-prim media interface and the camera's medium; a legacy
-scene-global ``camera_medium`` becomes medium 0 of the camera) carry over.
-Only what the port models is carried: a scene with curves, subsurface,
-Fourier or hair rows, or motion raises. A BVH carries over as its flat
+scene-global ``camera_medium`` becomes medium 0 of the camera) carry over,
+and so do subsurface scattering's ``has_sss`` and BSSRDF tables
+(subsurface and Disney scatterdistance rows). Only what the port models is
+carried: a scene with curves, Fourier or hair rows, or motion raises. A
+BVH carries over as its flat
 node arrays and leaf-ordered triangles, repacked by the port into its own
 traversal layouts (pbrt_tpu's packet-kernel tables are left behind), so
 both packages walk the same tree; a kd-tree raises. This is the tests'
@@ -33,6 +35,7 @@ from pbrt_tpu_torch.scene.camera import Camera
 from pbrt_tpu_torch.scene.film import Filter
 from pbrt_tpu_torch.scene.lights import AREA, LightTable
 from pbrt_tpu_torch.scene.materials import MaterialTable
+from pbrt_tpu_torch.scene.bssrdf import SSSTables
 from pbrt_tpu_torch.scene.bvh import _finish_flat
 from pbrt_tpu_torch.scene.instances import InstanceTable
 from pbrt_tpu_torch.scene.media import Medium
@@ -90,15 +93,21 @@ def medium_from_jax(med, device="cpu") -> Medium:
     return _fields_from_jax(Medium, med, device, is_grid=bool(med.is_grid))
 
 
+def sss_from_jax(tabs, device="cpu"):
+    """pbrt_tpu's SSSTables (or None) as the port's."""
+    if tabs is None:
+        return None
+    return _fields_from_jax(SSSTables, tabs, device)
+
+
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {"n_crv": getattr(scene, "n_crv", 0),
-             "sss": getattr(scene, "sss", None) is not None}
+    extra = {"n_crv": getattr(scene, "n_crv", 0)}
     extra.update({k: bool(getattr(scene, k, False))
-                  for k in ("has_motion", "has_sss", "fourier")})
+                  for k in ("has_motion", "fourier")})
     if any(extra.values()):
         raise NotImplementedError(
-            f"bridge: curves, subsurface scattering, Fourier tables and "
-            f"motion are not ported ({extra})")
+            f"bridge: curves, Fourier tables and motion are not ported "
+            f"({extra})")
     media = tuple(medium_from_jax(m, device) for m in scene.media)
     camera_med = int(scene.camera_med)
     if not media and getattr(scene, "camera_medium", None) is not None:
@@ -138,25 +147,25 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         inst=instances_from_jax(scene.inst, device),
         n_vprims=int(scene.n_vprims), media=media,
         prim_med_in=_t(scene.prim_med_in, device),
-        prim_med_out=_t(scene.prim_med_out, device), camera_med=camera_med)
+        prim_med_out=_t(scene.prim_med_out, device), camera_med=camera_med,
+        has_sss=bool(scene.has_sss), sss=sss_from_jax(scene.sss, device))
 
 
 def materials_from_jax(m, device="cpu") -> MaterialTable:
     """pbrt_tpu's MaterialTable as the port's: every field of the ported
     families, the kd texture rows and the static flags. A row of another
-    type, a textured sigma or bump, or a DisneyBSSRDF row raises, as
+    type (hair, Fourier), or a textured sigma or bump, raises, as
     ``check_row`` does."""
     for t in np.unique(np.asarray(m.mtype)):
         mat_mod.check_row({"type": int(t)})
     for k in ("sigma_tex", "bump_tex", "fourier_id"):
         if (np.asarray(getattr(m, k)) != -1).any():
             mat_mod.check_row({k: 0})
-    if m.has_disney_sss:
-        mat_mod.check_row({"type": mat_mod.DISNEY, "scatter_d": 1.0})
     return MaterialTable(
         **{k: _t(getattr(m, k), device) for k in mat_mod.tensor_fields()},
         has_beckmann=bool(m.has_beckmann),
         has_disney_trans=bool(m.has_disney_trans),
+        has_disney_sss=bool(m.has_disney_sss),
         present=tuple(m.present))
 
 

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from pbrt_tpu_torch.core import vecmath
+
 PI = math.pi
 PI_OVER_2 = math.pi / 2
 PI_OVER_4 = math.pi / 4
@@ -124,14 +126,14 @@ def distribution_2d_pdf(d: Distribution2D, uv: torch.Tensor) -> torch.Tensor:
 
 def uniform_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
     z = u[..., 0]
-    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    r = vecmath.safe_sqrt(1.0 - z * z)
     phi = 2.0 * PI * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def uniform_sample_sphere(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[..., 0]
-    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    r = vecmath.safe_sqrt(1.0 - z * z)
     phi = 2.0 * PI * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -143,7 +145,7 @@ def uniform_cone_pdf(cos_theta_max: torch.Tensor) -> torch.Tensor:
 def uniform_sample_cone(u: torch.Tensor,
                         cos_theta_max: torch.Tensor) -> torch.Tensor:
     cos_theta = (1.0 - u[..., 0]) + u[..., 0] * cos_theta_max
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = vecmath.safe_sqrt(1.0 - cos_theta * cos_theta)
     phi = u[..., 1] * 2.0 * PI
     return torch.stack([torch.cos(phi) * sin_theta,
                         torch.sin(phi) * sin_theta, cos_theta], dim=-1)
@@ -179,6 +181,5 @@ def concentric_sample_disk(u: torch.Tensor) -> torch.Tensor:
 
 def cosine_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
     d = concentric_sample_disk(u)
-    z = torch.sqrt(torch.clamp_min(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2,
-                                   0.0))
+    z = vecmath.safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return torch.cat([d, z[..., None]], dim=-1)

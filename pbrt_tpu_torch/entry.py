@@ -20,6 +20,9 @@
   sphere above it, under a plain area light: 133,130 triangles, so the
   scene gets a BVH and renders through the BVH traversal kernel, with the
   sphere and the light's aaplane through the brute-force kernel.
+- ``_fill_sss_heightfield``: that scene with its cone and sphere made
+  of a kdsubsurface material: the subsurface probe chain through both
+  kernels.
 - ``_triangle_soup``: about 100,000 triangles of irregular size thrown
   into the unit box under the same area light: the kernel-experiment
   harness's second tree (tools/kexp_prep.py), a less regular mesh than the
@@ -238,6 +241,27 @@ def _fill_heightfield_cornell(b, n=256, n_phi=64, n_z=24):
     b.add_mesh(verts[:, [0, 2, 1]] + base, faces, mat=blue,
                normals=norms[:, [0, 2, 1]])
     b.add_sphere((0.32, 0.25, 0.45), 0.13, mat=white)
+
+
+def _fill_sss_heightfield(b, n=256, n_phi=64, n_z=24):
+    """The heightfield cornell scene of ``_fill_heightfield_cornell`` with
+    its sphere and its cone made of one kdsubsurface material (Kd (0.5,
+    0.3, 0.2), mean free path 0.03, η 1.33), inverted to (σa, σs) as the
+    parser inverts it: the BVH scene of the subsurface slice, whose probe
+    rays walk the cone's triangles through the traversal kernel and the
+    sphere through the brute-force kernel. Fills pbrt_tpu's builder as
+    well as the port's."""
+    from pbrt_tpu_torch.scene import bssrdf
+
+    _fill_heightfield_cornell(b, n, n_phi, n_z)
+    sa, ss = bssrdf.subsurface_from_diffuse((0.5, 0.3, 0.2), 0.03, 0.0,
+                                            1.33)
+    sss = b.add_material(type=11, kd=(0.5, 0.3, 0.2),
+                         sss_sigma_a=tuple(sa), sss_sigma_s=tuple(ss),
+                         sss_g=0.0, eta=1.33)
+    for tri in b.tris[-2 * n_phi * n_z:]:
+        tri["mat"] = sss
+    b.spheres[-1]["mat"] = sss
 
 
 def _heightfield_cornell(device="cuda", n=256):

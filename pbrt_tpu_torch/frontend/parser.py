@@ -14,12 +14,13 @@ Textures (``Texture`` and a textured Kd), media (``MakeNamedMedium``,
 ``MediumInterface``, the null material ``""`` / ``none``) and object
 instancing (``ObjectBegin`` / ``ObjectEnd`` / ``ObjectInstance``: true
 instances of pure triangle-mesh objects, flattened copies of any other)
-are read as pbrt_tpu reads them. Everything pbrt_tpu's parser reads and
-the port cannot build yet raises ``NotImplementedError`` naming its
-ROADMAP queue 1 item, at the directive that asks for it: curves, the
-subsurface, kdsubsurface, hair and fourier materials, a Disney material
-with scatterdistance on a solid surface, emissive disks, motion blur and
-the kd-tree. A ``spectrum_cfg`` of SAMPLED builds a 60-bin scene
+are read as pbrt_tpu reads them, and so are the subsurface, kdsubsurface
+(``SubsurfaceFromDiffuse`` through scene/bssrdf.py) and Disney
+scatterdistance materials. Everything pbrt_tpu's parser reads and the
+port cannot build yet raises ``NotImplementedError`` naming its ROADMAP
+queue 1 item, at the directive that asks for it: curves, the hair and
+fourier materials, emissive disks, motion blur and the kd-tree. A
+``spectrum_cfg`` of SAMPLED builds a 60-bin scene
 as pbrt_tpu's does: each spectrum-typed parameter resolves to RGB first
 (``Params.spectrum_rgb``) and the builder lifts it to 60 bins
 (``from_rgb``); the reference binary keeps an SPD as it is. An
@@ -199,10 +200,11 @@ _MATERIALS = {"matte": mat_mod.MATTE, "mirror": mat_mod.MIRROR,
               "dispersive_glass": mat_mod.DISPERSIVE_GLASS,
               "uber": mat_mod.UBER, "substrate": mat_mod.SUBSTRATE,
               "translucent": mat_mod.TRANSLUCENT, "disney": mat_mod.DISNEY,
+              "subsurface": mat_mod.SUBSURFACE,
+              "kdsubsurface": mat_mod.SUBSURFACE,
               "none": mat_mod.NONE, "": mat_mod.NONE}
 # the keywords the port cannot build yet, with their ROADMAP items
-_UNPORTED_MATERIALS = {"hair": 8, "fourier": 8, "subsurface": 9,
-                       "kdsubsurface": 9}
+_UNPORTED_MATERIALS = {"hair": 8, "fourier": 8}
 # Texture classes → scene/textures.py types
 _TEXTURES = {"constant": 0, "scale": 1, "mix": 2, "checkerboard": 3,
              "uv": 4, "dots": 5, "bilerp": 6, "imagemap": 7, "fbm": 8,
@@ -767,6 +769,43 @@ class PbrtParser:
                                         - 1.0 / (l_max * l_max))
             bb = eta_min - cc / (l_max * l_max)
             kw.update(cauchy_b=bb, cauchy_c=cc, eta=bb + cc / (0.55 * 0.55))
+        if name == "subsurface":
+            # CreateSubsurfaceMaterial's defaults as pbrt_tpu reads them
+            # (materials/subsurface.cpp:120-121)
+            scale_p = p.one("scale", 1.0)
+            sa = p.spectrum_rgb("sigma_a", (0.0011, 0.0024, 0.014))
+            ss = p.spectrum_rgb("sigma_s",
+                                p.spectrum_rgb("sigma_prime_s",
+                                               (2.55, 3.21, 3.77)))
+            kw["sss_sigma_a"] = tuple(np.asarray(sa) * scale_p)
+            kw["sss_sigma_s"] = tuple(np.asarray(ss) * scale_p)
+            kw["sss_g"] = p.one("g", 0.0)
+            kw["eta"] = p.one("eta", 1.33)
+        if name == "kdsubsurface":
+            # materials/kdsubsurface.cpp: a diffuse color and a mean free
+            # path, inverted through the beam-diffusion table
+            # (SubsurfaceFromDiffuse, core/bssrdf.cpp:174-184)
+            from pbrt_tpu_torch.scene import bssrdf as bssrdf_mod
+            kd_v = np.asarray(p.spectrum_rgb("Kd", (0.5, 0.5, 0.5)))
+            # mfp is a spectrum texture parameter (kdsubsurface.cpp:
+            # 104-105) and pbrt ignores a "float mfp"; pbrt_tpu honours it
+            # and warns
+            if "mfp" in p and p["mfp"][0] == "float":
+                import sys
+                print("pbrt_tpu_torch: warning: \"float mfp\" is honored "
+                      "here, but pbrt IGNORES it (mfp is a spectrum "
+                      "texture param) — use \"rgb mfp\" for parity",
+                      file=sys.stderr)
+            mfp = np.asarray(p.spectrum_rgb("mfp", p.one("mfp", 1.0))) \
+                * p.one("scale", 1.0)
+            g_p = p.one("g", 0.0)
+            eta_p = p.one("eta", 1.33)
+            sa, ss = bssrdf_mod.subsurface_from_diffuse(
+                np.clip(kd_v, 0.0, 1.0), mfp, g_p, eta_p)
+            kw["sss_sigma_a"] = tuple(sa)
+            kw["sss_sigma_s"] = tuple(ss)
+            kw["sss_g"] = g_p
+            kw["eta"] = eta_p
         return b.add_material(**kw)
 
     def _area_light(self, gs):

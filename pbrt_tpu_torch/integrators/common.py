@@ -1,13 +1,17 @@
-"""Shared integrator machinery: shading frames, light selection and next
-event estimation with MIS and the portal dispatch (port of
-pbrt_tpu/integrators/common.py:34-253).
+"""Shared integrator machinery: shading frames, light selection, next
+event estimation with MIS and the portal dispatch, and the subsurface
+transport (port of pbrt_tpu/integrators/common.py).
 
 Counterpart of ``core/integrator.cpp``'s UniformSampleOneLight and
-EstimateDirect, including the fork's portal dispatch, and of the
-uniform and power light distributions.
+EstimateDirect, including the fork's portal dispatch, of the uniform and
+power light distributions, and of SeparableBSSRDF::Sample_S
+(core/bssrdf.cpp:234-353) as path.cpp's BSSRDF block runs it.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -15,6 +19,7 @@ from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.sampling import (power_heuristic,
                                           sample_distribution_1d_discrete)
 from pbrt_tpu_torch.core.vecmath import absdot, dot
+from pbrt_tpu_torch.scene import bssrdf as bssrdf_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
@@ -208,3 +213,210 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     # divide by the light-selection pmf (UniformSampleOneLight,
     # integrator.cpp:116-121)
     return ld / torch.clamp_min(sel_pmf, 1e-20)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# subsurface scattering (core/bssrdf.{h,cpp} SeparableBSSRDF, materials/
+# {subsurface,kdsubsurface,disney}.cpp)
+# ---------------------------------------------------------------------------
+
+# probe-chain steps a bounce (pbrt's chain is unbounded; pbrt_tpu's bound)
+N_CHAIN = 8
+
+
+def subsurface_transport(scene, hit, mp, beta, wo_world, pid, sidx, sfn,
+                         seed, dims, eligible=None):
+    """Separable-BSSRDF transport at the lanes that hit a SUBSURFACE row
+    or a solid Disney row with scatterdistance, as pbrt_tpu runs it.
+
+    A SUBSURFACE lane reflects specularly with probability Fr (its row
+    becomes MIRROR for the bounce) or enters; a Disney lane enters through
+    the census's delta-transmission slot with probability 1/n and weight
+    n·(1 − Fr). An entering lane picks a projection axis (normal ½, the
+    two tangents ¼ each) and a channel, both from one uniform, samples an
+    exit radius from that channel's profile (``bssrdf.sample_sr``) and
+    walks a probe segment of half-length √(rMax² − r²) through the disk
+    point, in ``N_CHAIN`` closest-hit queries on the scene's kernels. Of
+    the admissible hits (a SUBSURFACE hit for a SUBSURFACE lane: pbrt_tpu
+    admits by family; the same row for a Disney lane) one is picked
+    uniformly and the pdf divided by their count. The lane moves to the
+    exit with weight Sr / Pdf_Sp (the three-axis MIS, clamped at 1e3;
+    a Disney row also times its reflectance diffuseWeight·color), its row
+    becomes SSS_EXIT (the Sw lobe) and wo points along the exit's shading
+    normal. A lane with no admissible exit dies. ``eligible`` leaves out
+    lanes that are not at a surface vertex this bounce (volpath's medium
+    events).
+
+    Returns (hit', mp', beta', entered, wo')."""
+    C = scene.n_channels
+    R = hit.p.shape[0]
+    valid = hit.valid if eligible is None else hit.valid & eligible
+    is_tab = (mp.mtype == mat_mod.SUBSURFACE) & valid
+    has_dis = scene.materials.has_disney_sss
+    if has_dis:
+        is_dis = ((mp.mtype == mat_mod.DISNEY) & mat_mod._disney_sss_mask(mp)
+                  & valid)
+    else:
+        is_dis = torch.zeros_like(is_tab)
+    sseed = seed ^ 0x5550
+    u_f = sfn(pid, sidx, dims["select"], sseed)
+    u_ch = sfn(pid, sidx, dims["mis_lobe"], sseed)
+    u_r = sfn(pid, sidx, dims["light_u"][0], sseed)
+    u_phi = sfn(pid, sidx, dims["light_u"][1], sseed)
+
+    # the interface's Fresnel about the outward-facing normal, so a mesh's
+    # winding cannot flip a lane into the total-reflection branch
+    ns_o = vecmath.face_forward(hit.ns, wo_world)
+    cos_o = dot(wo_world, ns_o)
+    f_in = mat_mod.fr_dielectric(cos_o, torch.ones_like(cos_o), mp.eta)
+    spec_refl = is_tab & (u_f < f_in)
+    enter = is_tab & ~spec_refl
+    if has_dis:
+        # BSDF::Sample_f picks the delta entry with probability 1/n and
+        # divides its pdf by the matching count (reflection.h:575-580):
+        # the surviving weight is n·(1 − Fr); Fr only attenuates
+        n_dis = mat_mod._disney_lobe_counts(mp)[4]
+        p_entry = 1.0 / torch.clamp_min(n_dis, 1.0)
+        enter_dis = is_dis & (u_f < p_entry)
+        enter = enter | enter_dis
+        beta = torch.where(enter_dis[:, None],
+                           beta * (n_dis * (1.0 - f_in))[:, None], beta)
+
+    # the projection axis (Sample_Sp:336-353: ns ½, ss ¼, ts ¼) and the
+    # channel (uniform, :355-357), both folded into u_ch as pbrt reuses u1
+    tabs = scene.sss
+    mat_id = scene.mat_at(hit.prim_id)
+    t1, t2 = make_frame(ns_o)
+    ax = torch.where(u_ch < 0.5, 0, torch.where(u_ch < 0.75, 1, 2))
+    u_ch2 = torch.where(u_ch < 0.5, u_ch * 2.0,
+                        torch.where(u_ch < 0.75, (u_ch - 0.5) * 4.0,
+                                    (u_ch - 0.75) * 4.0))
+
+    def pick3(a, b, c):
+        axn = ax[:, None]
+        return torch.where(axn == 0, a, torch.where(axn == 1, b, c))
+
+    # (vx, vy, vz): normal axis (t1, t2, ns), ss axis (t2, ns, t1), ts
+    # axis (ns, t1, t2)
+    vx = pick3(t1, t2, ns_o)
+    vy = pick3(t2, ns_o, t1)
+    vz = pick3(ns_o, t1, t2)
+    ch = torch.clamp_max((u_ch2 * C).to(torch.int32), C - 1)
+    row_id = mat_id.clamp_min(0) * C + ch
+    r, r_valid = bssrdf_mod.sample_sr(tabs, row_id,
+                                      u_r.clamp(1e-6, 1.0 - 1e-6))
+    rmax_c = vecmath.take(tabs.r_max, bssrdf_mod._rows(tabs, row_id))
+    in_prof = r_valid & (r > 0) & (r < rmax_c)
+    r = torch.minimum(torch.clamp_min(r, 1e-5), torch.clamp_min(rmax_c,
+                                                                2e-5))
+
+    # the probe segment of length 2·√(rMax² − r²) through the disk point,
+    # along −vz (Sample_Sp:359-366)
+    phi = 2.0 * math.pi * u_phi
+    disk = (torch.cos(phi)[:, None] * vx + torch.sin(phi)[:, None] * vy) \
+        * r[:, None]
+    h_probe = torch.clamp_min(torch.sqrt(torch.clamp_min(
+        rmax_c * rmax_c - r * r, 0.0)), 1e-3)
+    o_cur = hit.p + disk + vz * h_probe[:, None]
+    t_rem = 2.0 * h_probe
+    eps = 1e-4 * torch.clamp_min(h_probe, 1.0)
+    # the intersection chain (Sample_Sp:294-329): walk the segment and
+    # collect the admissible hits
+    mtypes = scene.materials.mtype
+    chain = []
+    for _ in range(N_CHAIN):
+        pr = isect_mod.intersect(scene, o_cur, -vz, t_rem,
+                                 surface_only=True)
+        pr_mat = scene.mat_at(pr.prim_id)
+        adm_kind = vecmath.take(mtypes, pr_mat.long().clamp(
+            0, mtypes.shape[0] - 1)) == mat_mod.SUBSURFACE
+        if has_dis:
+            # pbrt admits hits on the same material (Sample_Sp:311); a
+            # Disney lane matches its row exactly, a SUBSURFACE lane its
+            # family (pbrt_tpu's approximation)
+            adm_kind = torch.where(is_dis, pr_mat == mat_id, adm_kind)
+        chain.append((pr.valid & adm_kind, pr))
+        o_cur = pr.p - vz * eps[:, None]
+        t_rem = torch.clamp_min(t_rem - pr.t - eps, 0.0)
+    n_found = sum(a.to(torch.int32) for a, _ in chain)
+    # a uniform pick among the admissible hits, by the rest of u_ch
+    u_pick = u_ch2 * C - ch.to(torch.float32)
+    sel = torch.minimum((u_pick * n_found).to(torch.int32),
+                        torch.clamp_min(n_found - 1, 0))
+    rank = torch.zeros_like(sel)
+    first = chain[0][1]
+    pick_p, pick_ns, pick_ng = first.p, first.ns, first.ng
+    for a, pr in chain:
+        take = a & (rank == sel)
+        pick_p = torch.where(take[:, None], pr.p, pick_p)
+        pick_ns = torch.where(take[:, None], pr.ns, pick_ns)
+        pick_ng = torch.where(take[:, None], pr.ng, pick_ng)
+        rank = rank + a.to(torch.int32)
+    ok = enter & in_prof & (n_found > 0)
+
+    # Sp and Pdf_Sp at the exit (bssrdf.cpp:198-231, 331-353): the value
+    # Sr_c(|pi − po|), the pdf Σ_axis P(axis)·|n_exit·axis|·mean_c
+    # Pdf_Sr_c(radius projected along the axis). The exit normal is the
+    # surface's own (pbrt's pi.shading.n), not one facing the entry
+    d_vec = hit.p - pick_p
+    dl = torch.stack([dot(d_vec, t1), dot(d_vec, t2), dot(d_vec, ns_o)],
+                     dim=-1)
+    nl = torch.stack([dot(pick_ns, t1), dot(pick_ns, t2),
+                      dot(pick_ns, ns_o)], dim=-1)
+    r_act = torch.clamp_min(vecmath.length(d_vec), 1e-6)
+    r_proj = torch.clamp_min(torch.stack([
+        torch.sqrt(dl[:, 1] ** 2 + dl[:, 2] ** 2),       # along ss
+        torch.sqrt(dl[:, 2] ** 2 + dl[:, 0] ** 2),       # along ts
+        torch.sqrt(dl[:, 0] ** 2 + dl[:, 1] ** 2),       # along ns
+    ], dim=-1), 1e-6)
+    sr_all = []
+    pdf_axis_sum = 0.0
+    base_row = mat_id.clamp_min(0) * C
+    for c in range(C):
+        (sr_c, p_ss, p_ts, p_ns), _, rhoeff_c = bssrdf_mod.eval_profile_multi(
+            tabs, base_row + c,
+            [r_act, r_proj[:, 0], r_proj[:, 1], r_proj[:, 2]])
+        sr_all.append(sr_c)
+        inv_rho = 1.0 / torch.clamp_min(rhoeff_c, 1e-6)
+        pdf_axis_sum = pdf_axis_sum + inv_rho * (
+            p_ss * nl[:, 0].abs() * 0.25
+            + p_ts * nl[:, 1].abs() * 0.25
+            + p_ns * nl[:, 2].abs() * 0.5)
+    sr_all = torch.stack(sr_all, dim=-1)
+    # the pdf over the uniform pick among the chain's hits (Sample_Sp:327)
+    pdf_mix = pdf_axis_sum / C / torch.clamp_min(n_found, 1)
+    # no second (1 − Fr): the entry was chosen with probability 1 − Fr
+    w_ss = sr_all / torch.clamp_min(pdf_mix, 1e-12)[:, None]
+    # a probe in another channel's profile tail gives unbounded ratios
+    w_ss = torch.clamp_max(w_ss, 1e3)
+    if has_dis:
+        # the Disney rows tabulate the normalized profile: the reflectance
+        # R = diffuseWeight·color (disney.cpp:524-525, textured at the
+        # entry) scales it here
+        kd_here = torch.clamp_min(tex_mod.resolve_kd(scene, mp, hit), 0.0)
+        dw_dis = ((1.0 - mp.metallic) * (1.0 - mp.spec_trans))[:, None]
+        w_ss = torch.where(is_dis[:, None], w_ss * kd_here * dw_dis, w_ss)
+
+    # no admissible exit: the sample dies (path.cpp's `if (S.IsBlack() ||
+    # pdf == 0) break`)
+    dead = enter & ~ok
+    new_hit = dataclasses.replace(
+        hit,
+        p=torch.where(ok[:, None], pick_p, hit.p),
+        ns=torch.where(enter[:, None],
+                       torch.where(ok[:, None], pick_ns, ns_o), hit.ns),
+        ng=torch.where(ok[:, None], pick_ng, hit.ng))
+    white = torch.ones((R, C), device=beta.device)
+    # the exit lobe SSS_EXIT (SeparableBSSRDFAdapter's Sw,
+    # core/bssrdf.h:87-95)
+    new_mp = dataclasses.replace(
+        mp,
+        mtype=torch.where(spec_refl, mat_mod.MIRROR,
+                          torch.where(enter, mat_mod.SSS_EXIT, mp.mtype)),
+        kd=torch.where(enter[:, None], white, mp.kd),
+        kr=torch.where(spec_refl[:, None], white, mp.kr))
+    new_beta = torch.where(ok[:, None], beta * w_ss,
+                           torch.where(dead[:, None], 0.0, beta))
+    # pbrt re-points wo along the exit's shading normal (Sample_Sp:369)
+    wo_eff = torch.where(ok[:, None], new_hit.ns, wo_world)
+    return new_hit, new_mp, new_beta, enter, wo_eff

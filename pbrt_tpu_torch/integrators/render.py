@@ -192,6 +192,13 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         mp = mat_mod.gather_materials(scene.materials,
                                       scene.mat_at(hit.prim_id))
         wo_w = -d_cur
+        if scene.has_sss and indirect:
+            # subsurface: a BSSRDF lane reflects at its interface or moves
+            # to its sampled exit, where NEE and the continuation run
+            # about the exit's frame (wo along the exit normal)
+            hit, mp, beta, _, wo_w = common.subsurface_transport(
+                scene, hit, mp, beta, -d_cur, pid, sidx, sfn, cfg.seed,
+                dims)
 
         if nee:
             u_sel = sfn(pid, sidx, dims["select"], cfg.seed)
@@ -212,7 +219,7 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         wo = common.to_local(t1, t2, hit.ns, wo_w)
         u_cl = sfn(pid, sidx, dims["cont_lobe"], cfg.seed)
         u_cu = _sample2(sfn, pid, sidx, dims["cont_u"], cfg.seed)
-        kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=wo_w)
+        kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=-d_cur)
         wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu,
                                                     kd_override=kd_eff)
         wi = common.to_world(t1, t2, hit.ns, wi_loc)
@@ -265,6 +272,10 @@ _INTEGRATORS = {"path": li_path, "direct": li_direct,
                 "hero_path_mis": hero_mod.li_hero_path_mis}
 
 
+# pbrt_tpu's integrators the port has not yet, by ROADMAP queue 1 item
+_UNPORTED_INTEGRATORS = {"bdpt": "9c", "sppm": "9d", "mlt": "9d"}
+
+
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
                 chunk: int, spp_offset: int, device, crop=None):
     """The pass's lanes: lane r = s·(pixels) + pixel, over the whole image
@@ -301,10 +312,12 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
     device = require_device(device)
     if cfg.integrator not in _INTEGRATORS:
         raise NotImplementedError(
-            f"integrator {cfg.integrator!r}: ROADMAP queue 1 item 9")
+            f"integrator {cfg.integrator!r}: ROADMAP queue 1 item "
+            f"{_UNPORTED_INTEGRATORS.get(cfg.integrator, '9')}")
     if cfg.light_strategy not in ("uniform", "power"):
         raise NotImplementedError(
-            f"light strategy {cfg.light_strategy!r}: ROADMAP queue 1 item 9")
+            f"light strategy {cfg.light_strategy!r}: ROADMAP queue 1 item "
+            "9c")
     rays, pid, sidx, w_filt = camera_rays(cam, filt, cfg, width, height,
                                           chunk, spp_offset, device, crop)
     sfn = make_sampler(cfg.sampler, resolution=(width, height))
@@ -369,11 +382,16 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
                        light_strategy=light_strategy,
                        rr_threshold=rr_threshold)
     if chunk_spp is None:
-        # bound the rays per pass: 2^21 lanes fill the GPU (32 spp of a
-        # 256² film, the main path's chunk); the CPU twin materializes
-        # per-lane intermediates, so keep its passes small
-        target = 2_097_152 if device.type == "cuda" else 65_536
-        chunk_spp = max(1, min(spp, target // (width * height) or 1))
+        # bound the lanes per pass: 2^21 fill the GPU (32 spp of a 256²
+        # film, the main path's chunk); the CPU twins materialize per-lane
+        # intermediates (≈ 2 KB a lane at 3 channels), so their passes
+        # hold 2^18 lanes (2^16 at 60 channels). Then as few passes as
+        # that allows, of equal size: a CPU pass's fixed cost is most of
+        # a small pass's time
+        target = (2_097_152 if device.type == "cuda"
+                  else max(65_536, 786_432 // scene.n_channels))
+        max_chunk = max(1, min(spp, target // (width * height) or 1))
+        chunk_spp = -(-spp // -(-spp // max_chunk))
     crop = (crop_bounds(crop_window, width, height)
             if crop_window is not None else None)
     _, _, wc, hc = crop if crop is not None else (0, 0, width, height)

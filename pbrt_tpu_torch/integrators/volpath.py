@@ -248,6 +248,12 @@ def li_volpath(scene, o, d, pid, sidx, sfn, cfg, power_distr):
                                       scene.mat_at(hit.prim_id))
         is_null = mp.mtype == mat_mod.NONE
         wo_w = -d_cur
+        if scene.has_sss:
+            # the BSSRDF block of path, as pbrt's volpath runs it
+            # (volpath.cpp:151-163), at surface vertices only
+            hit, mp, beta, _, wo_w = common.subsurface_transport(
+                scene, hit, mp, beta, -d_cur, pid, sidx, sfn, cfg.seed,
+                dims, eligible=~in_medium)
         # NEE from the vertex: the medium point or the surface point; a
         # null-material surface is not a scattering vertex
         p_v = torch.where(in_medium[..., None], p_med, hit.p)

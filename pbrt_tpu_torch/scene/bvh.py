@@ -346,7 +346,7 @@ def _query_args(o, d, tmax):
             tmax.detach().contiguous())
 
 
-def intersect_bvh(scene, o, d, tmax):
+def intersect_bvh(scene, o, d, tmax, surface_only=False):
     """Closest hit of a scene with a BVH: the triangles through the
     traversal kernel, then the spheres and aaplanes brute force with the
     traversal's ``best_t`` as their tmax (the kernel's strict ``t <
@@ -369,7 +369,8 @@ def intersect_bvh(scene, o, d, tmax):
                                                  prim_id)
         best_t, prim_id = inst_mod.update_closest(scene, o_q, d_q, best_t,
                                                   prim_id)
-    return isect_mod.finalize_hit(scene, o, d, best_t, prim_id)
+    return isect_mod.finalize_hit(scene, o, d, best_t, prim_id,
+                                  surface_only)
 
 
 def intersect_p_bvh(scene, o, d, tmax):

@@ -29,7 +29,7 @@ import math
 import torch
 
 from pbrt_tpu_torch.core import vecmath
-from pbrt_tpu_torch.core.vecmath import normalize
+from pbrt_tpu_torch.core.vecmath import normalize, take
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import instances as inst_mod
@@ -91,13 +91,15 @@ def any_disk(scene, o, d, tmax):
     return _disk_hits(scene, o, d, tmax)[1].any(-1)
 
 
-def intersect(scene, o, d, tmax) -> Hit:
-    """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...)."""
+def intersect(scene, o, d, tmax, surface_only=False) -> Hit:
+    """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...);
+    with ``surface_only`` its uv, dpdu and dpdv are left out (see
+    ``finalize_hit``)."""
     if _has_bvh(scene):
-        return bvh_mod.intersect_bvh(scene, o, d, tmax)
+        return bvh_mod.intersect_bvh(scene, o, d, tmax, surface_only)
     t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax))
     t, prim = inst_mod.update_closest(scene, o, d, t, prim)
-    return finalize_hit(scene, o, d, t, prim)
+    return finalize_hit(scene, o, d, t, prim, surface_only)
 
 
 def intersect_p(scene, o, d, tmax):
@@ -112,12 +114,73 @@ def intersect_p(scene, o, d, tmax):
     return occ
 
 
-def finalize_hit(scene, o, d, t, prim_id) -> Hit:
-    """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id)."""
+def _attach_t(scene, o, d, t, prim_id):
+    """The kernels' ``t`` of the hit primitive with the gradient of that
+    primitive's ray distance with respect to the ray (its value stays the
+    kernel's): a ray whose origin or direction depends on a
+    differentiated parameter (volpath's medium events, a portal's NEE
+    direction) moves its hit along the surface, as pbrt_tpu's
+    brute-force ``t`` does. Triangles, disks and aaplanes by their plane,
+    spheres by the quadratic's root nearer the kernel's t; an instanced
+    hit keeps a constant t."""
     g = scene.geom
+    nt, ns, npl, nd = scene.n_tri, scene.n_sph, scene.n_pln, scene.n_dsk
+    ta = torch.zeros_like(t)
+    fam = torch.zeros_like(prim_id, dtype=torch.bool)
+
+    def plane_t(p0, n):
+        den = vecmath.dot(d, n)
+        return vecmath.dot(p0 - o, n) / torch.where(den.abs() > 1e-30, den,
+                                                    1e-30)
+    if nt:
+        on = (prim_id >= 0) & (prim_id < nt)
+        i = prim_id.clamp(0, nt - 1)
+        v0 = take(g.tri_v0, i)
+        n = vecmath.cross(take(g.tri_v1, i) - v0, take(g.tri_v2, i) - v0)
+        ta = torch.where(on, plane_t(v0, n), ta)
+        fam = fam | on
+    if ns:
+        on = (prim_id >= nt) & (prim_id < nt + ns)
+        i = (prim_id - nt).clamp(0, ns - 1)
+        oc = o - take(g.sph_center, i)
+        a = torch.clamp_min(vecmath.dot(d, d), 1e-20)
+        b = vecmath.dot(oc, d)
+        disc = b * b - a * (vecmath.dot(oc, oc) - take(g.sph_radius, i) ** 2)
+        sq = vecmath.safe_sqrt(disc)
+        t_n, t_f = (-b - sq) / a, (-b + sq) / a
+        near = (t_n - t.detach()).abs() <= (t_f - t.detach()).abs()
+        ta = torch.where(on, torch.where(near, t_n, t_f), ta)
+        fam = fam | on
+    if npl:
+        on = (prim_id >= nt + ns) & (prim_id < nt + ns + npl)
+        i = (prim_id - nt - ns).clamp(0, npl - 1)
+        axis = torch.nn.functional.one_hot(take(g.pln_ax, i).long(), 3)
+        ta = torch.where(on, plane_t(take(g.pln_lo, i), axis.to(o.dtype)),
+                         ta)
+        fam = fam | on
+    if nd:
+        base = nt + ns + npl
+        on = (prim_id >= base) & (prim_id < base + nd)
+        i = (prim_id - base).clamp(0, nd - 1)
+        ta = torch.where(on, plane_t(take(g.dsk_center, i),
+                                     take(g.dsk_normal, i)), ta)
+        fam = fam | on
+    return t.detach() + torch.where(fam, ta - ta.detach(), 0.0)
+
+
+def finalize_hit(scene, o, d, t, prim_id, surface_only=False) -> Hit:
+    """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id). Where
+    the ray carries a gradient, ``t`` takes the hit primitive's
+    (``_attach_t``). ``surface_only`` (the subsurface probe chain, which
+    reads the point and the normals) leaves uv zero and dpdu / dpdv None,
+    but on a scene with instances."""
+    g = scene.geom
+    surface_only = surface_only and scene.inst is None
     R = o.shape[0]
     dev = o.device
     prim_id = prim_id.long()   # the kernel's int32 ids index tables below
+    if torch.is_grad_enabled() and (o.requires_grad or d.requires_grad):
+        t = _attach_t(scene, o, d, t, prim_id)
     valid = prim_id >= 0
     # park missed rays at their origin: a t of 1e30 would overflow squared
     # distances downstream (inf → NaN in masked-lane gradients)
@@ -131,7 +194,8 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
     if nt:
         ti = prim_id.clamp(0, nt - 1)
         is_tri = (valid & (prim_id < nt))[..., None]
-        hv0, hv1, hv2 = g.tri_v0[ti], g.tri_v1[ti], g.tri_v2[ti]
+        hv0, hv1, hv2 = (take(g.tri_v0, ti), take(g.tri_v1, ti),
+                         take(g.tri_v2, ti))
         ngt = shapes.triangle_normal(hv0, hv1, hv2)
         # barycentrics recomputed at the hit point (the kernel carries only
         # t and the prim id): project onto the triangle basis
@@ -147,13 +211,15 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
         bu = torch.clamp((d11 * d20 - d01 * d21) / denom, 0.0, 1.0)
         bv = torch.clamp((d00 * d21 - d01 * d20) / denom, 0.0, 1.0)
         w = torch.clamp(1.0 - bu - bv, 0.0, 1.0)
-        nst = normalize(w[..., None] * g.tri_n0[ti]
-                        + bu[..., None] * g.tri_n1[ti]
-                        + bv[..., None] * g.tri_n2[ti])
-        uv0, uv1, uv2 = g.tri_uv0[ti], g.tri_uv1[ti], g.tri_uv2[ti]
-        uvt = w[..., None] * uv0 + bu[..., None] * uv1 + bv[..., None] * uv2
+        nst = normalize(w[..., None] * take(g.tri_n0, ti)
+                        + bu[..., None] * take(g.tri_n1, ti)
+                        + bv[..., None] * take(g.tri_n2, ti))
         ng = torch.where(is_tri, ngt, ng)
         ns = torch.where(is_tri, nst, ns)
+    if nt and not surface_only:
+        uv0, uv1, uv2 = (take(g.tri_uv0, ti), take(g.tri_uv1, ti),
+                         take(g.tri_uv2, ti))
+        uvt = w[..., None] * uv0 + bu[..., None] * uv1 + bv[..., None] * uv2
         uv = torch.where(is_tri, uvt, uv)
         # ∂p/∂u, ∂p/∂v from the uv parameterization (triangle.cpp:157-168)
         duv1 = uv1 - uv0
@@ -171,11 +237,16 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
     if nsp:
         si = (prim_id - nt).clamp(0, nsp - 1)
         is_sph = (valid & (prim_id >= nt) & (prim_id < nt + nsp))[..., None]
-        sph_c = g.sph_center[si]
-        nsph, uvs = shapes.sphere_normal_uv(p, sph_c, g.sph_radius[si])
+        sph_c = take(g.sph_center, si)
+        if surface_only:
+            nsph = normalize(p - sph_c)
+        else:
+            nsph, uvs = shapes.sphere_normal_uv(p, sph_c,
+                                                take(g.sph_radius, si))
+            uv = torch.where(is_sph, uvs, uv)
         ng = torch.where(is_sph, nsph, ng)
         ns = torch.where(is_sph, nsph, ns)
-        uv = torch.where(is_sph, uvs, uv)
+    if nsp and not surface_only:
         # ∂p/∂u = 2π·(−y, x, 0) in sphere-local coords (sphere.cpp:145)
         pl = p - sph_c
         dpdu_s = 2.0 * math.pi * torch.stack(
@@ -189,7 +260,8 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
         pi = (prim_id - nt - nsp).clamp(0, npl - 1)
         is_pln = (valid & (prim_id >= nt + nsp)
                   & (prim_id < nt + nsp + npl))[..., None]
-        npln = shapes.aaplane_normal(g.pln_ax[pi], g.pln_facing[pi])
+        npln = shapes.aaplane_normal(take(g.pln_ax, pi),
+                                     take(g.pln_facing, pi))
         ng = torch.where(is_pln, npln, ng)
         ns = torch.where(is_pln, npln, ns)
     if scene.n_dsk:
@@ -197,12 +269,15 @@ def finalize_hit(scene, o, d, t, prim_id) -> Hit:
         di = (prim_id - base).clamp(0, scene.n_dsk - 1)
         is_dsk = (valid & (prim_id >= base)
                   & (prim_id < base + scene.n_dsk))[..., None]
-        ng = torch.where(is_dsk, g.dsk_normal[di], ng)
-        ns = torch.where(is_dsk, g.dsk_normal[di], ns)
+        ng = torch.where(is_dsk, take(g.dsk_normal, di), ng)
+        ns = torch.where(is_dsk, take(g.dsk_normal, di), ns)
 
     # the geometric normal keeps its own orientation (as pbrt's); the
     # shading normal is flipped to its side
     ns = vecmath.face_forward(ns, ng)
+    if surface_only:
+        return Hit(valid=valid, t=t, p=p, ng=ng, ns=ns, uv=uv,
+                   prim_id=torch.where(valid, prim_id, -1))
     # ∂p/∂v: exact for triangles, the frame-completing cross product for
     # the analytic shapes
     dpdv = vecmath.cross(ng, dpdu)

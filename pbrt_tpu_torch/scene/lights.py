@@ -29,7 +29,7 @@ from pbrt_tpu_torch.core.sampling import (INV_4PI, Distribution2D,
                                           make_distribution_2d,
                                           sample_distribution_2d,
                                           uniform_sample_sphere)
-from pbrt_tpu_torch.core.vecmath import absdot, dot, normalize
+from pbrt_tpu_torch.core.vecmath import absdot, dot, normalize, take
 from pbrt_tpu_torch.scene import shapes
 
 POINT = 0
@@ -255,15 +255,12 @@ def gather_lights(lt: LightTable, idx: torch.Tensor) -> LightTable:
     """Per-ray light rows (idx: (R,), clipped into range); ``power`` stays
     the whole table's."""
     idx = idx.long().clamp(0, lt.n - 1)
+    rows = {k: vecmath.take(getattr(lt, k), idx) for k in (
+        "ltype", "emit", "pos", "dir", "cos_total", "cos_falloff", "prim_id",
+        "two_sided", "strategy", "n_portals", "portal_lo", "portal_hi",
+        "portal_ax", "portal_facing", "proj_fov")}
     return LightTable(
-        ltype=lt.ltype[idx], emit=lt.emit[idx], pos=lt.pos[idx],
-        dir=lt.dir[idx], cos_total=lt.cos_total[idx],
-        cos_falloff=lt.cos_falloff[idx], prim_id=lt.prim_id[idx],
-        two_sided=lt.two_sided[idx], strategy=lt.strategy[idx],
-        n_portals=lt.n_portals[idx], portal_lo=lt.portal_lo[idx],
-        portal_hi=lt.portal_hi[idx], portal_ax=lt.portal_ax[idx],
-        portal_facing=lt.portal_facing[idx], gonio_map=lt.gonio_map,
-        proj_fov=lt.proj_fov[idx], env_map=lt.env_map,
+        **rows, gonio_map=lt.gonio_map, env_map=lt.env_map,
         env_distr=lt.env_distr, power=lt.power, present=lt.present,
         has_portals=lt.has_portals, has_plain_area=lt.has_plain_area)
 
@@ -296,10 +293,10 @@ def gather_area_prim(scene, prim_id: torch.Tensor) -> AreaPrim:
         is_tri=(prim_id >= 0) & (prim_id < nt),
         is_sph=(prim_id >= nt) & (prim_id < nt + ns),
         is_pln=(prim_id >= nt + ns) & (prim_id < nt + ns + npl),
-        v0=g.tri_v0[ti], v1=g.tri_v1[ti], v2=g.tri_v2[ti],
-        center=g.sph_center[si], radius=g.sph_radius[si],
-        lo=g.pln_lo[pi], hi=g.pln_hi[pi], ax=g.pln_ax[pi],
-        facing=g.pln_facing[pi])
+        v0=take(g.tri_v0, ti), v1=take(g.tri_v1, ti), v2=take(g.tri_v2, ti),
+        center=take(g.sph_center, si), radius=take(g.sph_radius, si),
+        lo=take(g.pln_lo, pi), hi=take(g.pln_hi, pi), ax=take(g.pln_ax, pi),
+        facing=take(g.pln_facing, pi))
 
 
 def area_light_L(lt_emit, two_sided, n_light, w):

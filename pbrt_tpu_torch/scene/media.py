@@ -130,7 +130,7 @@ def sample_hg(wo, u, g):
     cos_theta_g = -(1.0 + g * g - sq * sq) / (2.0 * g_safe)
     cos_theta_iso = 1.0 - 2.0 * u[..., 0]
     cos_theta = torch.where(g.abs() < 1e-3, cos_theta_iso, cos_theta_g)
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = vecmath.safe_sqrt(1.0 - cos_theta * cos_theta)
     phi = 2.0 * torch.pi * u[..., 1]
     v1, v2 = vecmath.coordinate_system(wo)
     wi = ((sin_theta * torch.cos(phi))[..., None] * v1

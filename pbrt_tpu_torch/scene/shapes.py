@@ -97,7 +97,7 @@ def intersect_sphere_paired(o, d, tmax, center, radius):
     c = torch.sum(oc * oc, dim=-1) - radius * radius
     disc = b * b - 4.0 * a * c
     ok = disc >= 0.0
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = vecmath.safe_sqrt(disc)
     q = -0.5 * (b + torch.sign(b) * sq)
     q = torch.where(b == 0.0, -0.5 * sq, q)
     t0 = q / torch.clamp_min(a, 1e-20)
@@ -130,7 +130,7 @@ def sample_sphere_from_ref(center, radius, ref_p, u):
     # outside: sample the cone of directions subtending the sphere
     dist = torch.sqrt(torch.clamp_min(dist2, 1e-20))
     sin_theta_max2 = torch.clamp(r2 / dist2, 0.0, 1.0)
-    cos_theta_max = torch.sqrt(torch.clamp_min(1.0 - sin_theta_max2, 0.0))
+    cos_theta_max = vecmath.safe_sqrt(1.0 - sin_theta_max2)
     wc = normalize(dc)
     wcx, wcy = vecmath.coordinate_system(wc)
     dir_local = uniform_sample_cone(u, cos_theta_max)
@@ -138,8 +138,8 @@ def sample_sphere_from_ref(center, radius, ref_p, u):
          + dir_local[..., 2:3] * wc)
     cos_theta = dir_local[..., 2]
     ds = (dist * cos_theta
-          - torch.sqrt(torch.clamp_min(
-              r2 - dist2 * (1.0 - cos_theta * cos_theta), 0.0)))
+          - vecmath.safe_sqrt(
+              r2 - dist2 * (1.0 - cos_theta * cos_theta)))
     p_out = ref_p + ds[..., None] * w
     n_out = normalize(p_out - center)
     pdf_out = uniform_cone_pdf(cos_theta_max)
@@ -168,7 +168,7 @@ def sphere_pdf_wi(center, radius, ref_p, wi):
     r2 = radius * radius
     inside = dist2 <= r2 * (1.0 + 1e-4)
     sin_theta_max2 = torch.clamp(r2 / torch.clamp_min(dist2, 1e-20), 0.0, 1.0)
-    cos_theta_max = torch.sqrt(torch.clamp_min(1.0 - sin_theta_max2, 0.0))
+    cos_theta_max = vecmath.safe_sqrt(1.0 - sin_theta_max2)
     pdf_cone = uniform_cone_pdf(cos_theta_max)
     t, hit = intersect_sphere_paired(ref_p, wi, torch.full_like(radius, BIG),
                                      center, radius)

@@ -351,7 +351,7 @@ def _ewa_one_level(tt: TextureTable, img_id, uv, duv0, duv1, level):
         for auu, bu, xi in cols:
             e = auu + bu * vv + cvv
             w = torch.where(e < 1.0, torch.exp(-2.0 * e) - exp_neg2, 0.0)
-            acc = acc + flat[row + xi] * w[..., None]
+            acc = acc + torch.index_select(flat, 0, row + xi) * w[..., None]
             wsum = wsum + w
     return acc / torch.clamp_min(wsum, 1e-9)[..., None]
 

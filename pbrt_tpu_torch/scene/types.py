@@ -1,6 +1,6 @@
 """Scene container and host-side builder (port of pbrt_tpu/scene/types.py
-for triangles, spheres, aaplanes, disks, instanced objects, textures and
-media).
+for triangles, spheres, aaplanes, disks, instanced objects, textures,
+media and subsurface scattering).
 
 The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
 then spheres ``[nT, nT+nS)``, then aaplanes, then disks, then the
@@ -12,8 +12,10 @@ and outside it (MediumInterface, −1 = vacuum).
 ``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
 ``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
 pbrt_tpu does. Disks and instances are intersected outside the kernels,
-in plain torch, as pbrt_tpu does (scene/intersect.py). Emissive disks,
-curves, motion and the kd-tree belong to later slices and raise
+in plain torch, as pbrt_tpu does (scene/intersect.py). A scene with a
+subsurface row (or a solid Disney row with scatterdistance) carries
+``has_sss`` and the BSSRDF's radial tables (scene/bssrdf.py). Emissive
+disks, curves, motion and the kd-tree belong to later slices and raise
 ``NotImplementedError``. A scene's spectra have 3 channels (RGB) or 60
 (sampled, for the hero-wavelength integrators): the builder's
 ``SpectrumConfig`` decides, and lifts RGB parameters to 60 bins with
@@ -84,6 +86,10 @@ class Scene:
     prim_med_in: Optional[torch.Tensor] = None   # (N,) int32, −1 vacuum
     prim_med_out: Optional[torch.Tensor] = None
     camera_med: int = -1
+    # subsurface scattering: any BSSRDF row, and the tables
+    # (scene/bssrdf.py SSSTables) of those rows
+    has_sss: bool = False
+    sss: Any = None
 
     @property
     def n_base_prims(self) -> int:
@@ -99,11 +105,12 @@ class Scene:
     # per-ray primitive-table lookups; the index is clipped into range as
     # pbrt_tpu's fastgather.gather_rows does (a miss carries −1)
     def mat_at(self, prim_id: torch.Tensor) -> torch.Tensor:
-        return self.prim_mat[prim_id.clamp(0, self.prim_mat.shape[0] - 1)]
+        return torch.index_select(self.prim_mat, 0, prim_id.clamp(
+            0, self.prim_mat.shape[0] - 1))
 
     def light_at(self, prim_id: torch.Tensor) -> torch.Tensor:
-        return self.prim_light[prim_id.clamp(0,
-                                             self.prim_light.shape[0] - 1)]
+        return torch.index_select(self.prim_light, 0, prim_id.clamp(
+            0, self.prim_light.shape[0] - 1))
 
 
 def to_device(obj, device):
@@ -414,6 +421,11 @@ class SceneBuilder:
             media=to_device(tuple(self.media), device),
             prim_med_in=t(med_in), prim_med_out=t(med_out),
             camera_med=self.camera_med)
+        from pbrt_tpu_torch.scene import bssrdf as bssrdf_mod
+        if any(bssrdf_mod.row_has_sss(r) for r in self.materials):
+            scene = dataclasses.replace(
+                scene, has_sss=True, sss=bssrdf_mod.build_scene_tables(
+                    self.materials, self.n_channels, device))
         if self.texture_rows:
             from pbrt_tpu_torch.scene import textures as tex_mod
             scene = dataclasses.replace(
@@ -442,9 +454,10 @@ class SceneBuilder:
         The kernel shades every row as matte: a row of another type, or
         with a key beyond (type, kd, sigma), or with Oren–Nayar roughness,
         rules the scene out, as in pbrt_tpu's gate. Disks, instances,
-        textures and media (any medium, or a camera medium) are ruled out
-        as there; the other families it rules out (curves, motion, SSS,
-        Fourier) cannot be built here at all. A built BVH does not
+        textures, media (any medium, or a camera medium) and subsurface
+        scattering (``has_sss``) are ruled out as there; the other families
+        it rules out (curves, motion, Fourier) cannot be built here at all.
+        A built BVH does not
         disqualify: the fused kernel reads the builder-order triangles and
         culls by its own clusters.
         The triangle cap is the kernel's shared memory plan
@@ -454,7 +467,7 @@ class SceneBuilder:
 
         if scene.n_sph or scene.n_dsk or scene.inst is not None:
             return None
-        if (self.media or self.camera_med != -1
+        if (scene.has_sss or self.media or self.camera_med != -1
                 or scene.textures is not None):
             return None
         if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > MAX_TRI:

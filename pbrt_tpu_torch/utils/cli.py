@@ -11,8 +11,9 @@ by itself. Unless ``--quiet``, stderr gets the card's name, the phase
 times (the render also by CUDA events), pbrt's statistics and one
 ``pbrt_tpu_torch: summary {...}`` JSON line with the phase seconds, the
 launches of each kernel, the primitive counts (instanced prims among
-them), the number of media, whether there are textures, and the image
-mean.
+them), the number of media, whether there are textures, the material
+rows that scatter below their surface (subsurface, kdsubsurface and
+Disney scatterdistance rows), and the image mean.
 
 ``--debug-nans`` is the counterpart of pbrt_tpu's ``jax_debug_nans``: it
 raises on the first pass whose radiance holds a NaN or an infinity,
@@ -161,8 +162,23 @@ def main(argv=None):
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
                        dsk=scene.n_dsk, vprims=scene.n_vprims,
                        bvh=scene.bvh is not None),
-            media=len(scene.media), textures=scene.textures is not None)))
+            media=len(scene.media), textures=scene.textures is not None,
+            sss_rows=_sss_rows(scene))))
     return 0
+
+
+def _sss_rows(scene):
+    """The material rows with a BSSRDF: SUBSURFACE rows and solid Disney
+    rows with scatterdistance."""
+    import torch
+
+    from pbrt_tpu_torch.scene import materials as mat_mod
+    if not scene.has_sss:
+        return []
+    m = scene.materials
+    rows = (m.mtype == mat_mod.SUBSURFACE) | (
+        (m.mtype == mat_mod.DISNEY) & mat_mod._disney_sss_mask(m))
+    return torch.nonzero(rows).flatten().tolist()
 
 
 if __name__ == "__main__":

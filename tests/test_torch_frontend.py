@@ -37,6 +37,8 @@ FILES = {
     "texinst": os.path.join(ORACLE, "texinst_oracle.pbrt"),
     "volpath": os.path.join(ORACLE, "volpath_oracle.pbrt"),
     "gridvol": os.path.join(ORACLE, "gridvol_oracle.pbrt"),
+    "sss": os.path.join(ORACLE, "sss_oracle.pbrt"),
+    "disney_sss": os.path.join(ORACLE, "disney_sss_oracle.pbrt"),
 }
 OPTION_KEYS = ("integrator", "max_depth", "sampler", "spp", "film",
                "filter", "accelerator")
@@ -84,8 +86,9 @@ def test_scene_files_parse_as_pbrt_tpu(name):
     """The demo scene and the oracle files the port renders here (ao,
     deltalights, filter; texinst with its texture table, mip atlas and
     instance table; volpath and gridvol with their media, the prims'
-    media interface and the null material): scene, camera, options and
-    filter tables equal to pbrt_tpu's."""
+    media interface and the null material; sss and disney_sss with their
+    BSSRDF tables): scene, camera, options and filter tables equal to
+    pbrt_tpu's."""
     js, jc, jo = jparser.load_pbrt(FILES[name])
     ts, tc, to = tparser.load_pbrt(FILES[name], device="cpu")
     assert_same(ts, bridge.scene_from_jax(js), "scene")
@@ -325,6 +328,35 @@ SCENE_STRINGS = {
         Material "matte" "texture Kd" "gone"
         Shape "sphere" "float radius" [0.2]
         WorldEnd""",
+    "subsurface": """
+        WorldBegin
+        Material "subsurface"
+        Shape "sphere" "float radius" [1]
+        Material "subsurface" "rgb sigma_a" [0.2 0.3 0.4]
+          "rgb sigma_prime_s" [5 6 7] "float scale" [3] "float g" [0.2]
+          "float eta" [1.4]
+        Translate 3 0 0
+        Shape "sphere" "float radius" [1]
+        Material "subsurface" "rgb sigma_s" [2 3 4] "float index" [1.6]
+        Translate 3 0 0
+        Shape "sphere" "float radius" [1]
+        Material "disney" "rgb color" [0.8 0.4 0.25]
+          "rgb scatterdistance" [1.0 0.6 0.3] "float roughness" [0.3]
+        Translate 3 0 0
+        Shape "sphere" "float radius" [1]
+        WorldEnd""",
+    "kdsubsurface_float_mfp": """
+        WorldBegin
+        Material "kdsubsurface" "rgb Kd" [0.5 0.3 0.2] "float mfp" [0.4]
+        Shape "sphere" "float radius" [1]
+        Material "kdsubsurface" "rgb Kd" [0.7 0.6 0.1] "rgb mfp" [1 2 3]
+          "float scale" [0.5] "float eta" [1.5] "float g" [0.1]
+        Translate 3 0 0
+        Shape "sphere" "float radius" [1]
+        Material "kdsubsurface"
+        Translate 3 0 0
+        Shape "sphere" "float radius" [1]
+        WorldEnd""",
     "media": """
         MakeNamedMedium "air" "string type" "homogeneous"
           "rgb sigma_a" [0.01 0.02 0.03] "rgb sigma_s" [0.1 0.1 0.1]
@@ -381,8 +413,11 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     binary little-endian), spectrum / blackbody / xyz / .spd parameters,
     object instancing (true instances, a flattened emissive object, an
     unknown name), textures (imagemap, operands, noise, an unreadable
-    image) and media (a camera medium, a grid medium inside a null
-    sphere, the null material)."""
+    image), media (a camera medium, a grid medium inside a null
+    sphere, the null material) and subsurface materials (subsurface with
+    its defaults, sigma_prime_s, scale and index; kdsubsurface with a
+    "float mfp", which pbrt_tpu honours and warns about, an "rgb mfp" and
+    its defaults; a Disney row with scatterdistance)."""
     (tmp_path / "flat.spd").write_text("# a flat SPD\n400 0.6\n550 0.6\n"
                                        "700 0.6\n")
     if name == "plymesh":
@@ -408,6 +443,9 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
         assert ts.textures.nest_depth == 1 and not ts.textures.ewa
     if name == "media":
         assert ts.camera_med == 0 and len(ts.media) == 2
+    if name.startswith(("subsurface", "kdsubsurface")):
+        assert ts.has_sss and ts.sss is not None
+        assert ts.materials.has_disney_sss == (name == "subsurface")
 
 
 def test_portal_data_and_float_files(tmp_path):
@@ -489,7 +527,6 @@ def test_simple_scene_and_spd_light():
 
 UNPORTED = {
     "hair": 'WorldBegin\nMaterial "hair"\nWorldEnd',
-    "subsurface": ('WorldBegin\nMaterial "subsurface"\nWorldEnd', 9),
     "curve": ('WorldBegin\nShape "curve" "point P" [0 0 0 1 0 0 1 1 0 '
               '0 1 0]\nWorldEnd'),
     "emissive_disk": ('WorldBegin\nAreaLightSource "diffuse"\n'
@@ -503,7 +540,7 @@ UNPORTED = {
 }
 # (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
 # in the repo)
-UNPORTED_FILES = ("curves", "dofmotion", "sss", "disney_sss")
+UNPORTED_FILES = ("curves", "dofmotion")
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

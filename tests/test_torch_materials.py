@@ -313,12 +313,8 @@ def test_new_keywords_parse_as_pbrt_tpu(tmp_path, camera):
 
 
 UNPORTED = {
-    "subsurface": ('Material "subsurface"', 9),
-    "kdsubsurface": ('Material "kdsubsurface"', 9),
     "hair": ('Material "hair"', 8),
     "fourier": ('Material "fourier" "string bsdffile" "x.bsdf"', 8),
-    "disney_scatterdistance": ('Material "disney" '
-                               '"rgb scatterdistance" [0.1 0.2 0.3]', 9),
 }
 
 
@@ -334,17 +330,18 @@ def test_left_out_materials_raise(name):
 def test_builder_rows_left_out_raise():
     for row, item in ((dict(type=tm.MATTE, sigma_tex=0), 8),
                       (dict(type=tm.HAIR), 8), (dict(type=tm.FOURIER), 8),
-                      (dict(type=tm.SUBSURFACE), 9),
-                      (dict(type=tm.MATTE, bump_tex=0), 8),
-                      (dict(type=tm.SSS_EXIT), 9),
-                      (dict(type=tm.MATTE, sss_sigma_a=0.1), 9),
-                      (dict(type=tm.DISNEY, scatter_d=(0.1, 0.1, 0.1)), 9)):
+                      (dict(type=tm.HAIR, sss_sigma_a=0.1), 8),
+                      (dict(type=tm.MATTE, bump_tex=0), 8)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}$"):
             SceneBuilder().add_material(**row)
-    # a thin Disney row ignores its scatterdistance, as pbrt does
-    SceneBuilder().add_material(type=tm.DISNEY, thin=1.0,
-                                scatter_d=(0.1, 0.1, 0.1))
+    # the BSSRDF rows build; a thin Disney row ignores its
+    # scatterdistance, as pbrt does
+    for row in (dict(type=tm.SUBSURFACE), dict(type=tm.SSS_EXIT),
+                dict(type=tm.MATTE, sss_sigma_a=0.1),
+                dict(type=tm.DISNEY, scatter_d=(0.1, 0.1, 0.1)),
+                dict(type=tm.DISNEY, thin=1.0, scatter_d=(0.1, 0.1, 0.1))):
+        SceneBuilder().add_material(**row)
 
 
 def test_fused_gate_refuses_non_matte_rows():

@@ -6,6 +6,7 @@ On the CPU pbrt_tpu's render_pass goes through the generic wavefront loop
 the twin of its CUDA kernel, so this also holds the port against the
 reference's generic path. Per pixel: atol 1e-5, i.e. 2 samples × the
 5e-6 per-lane bound tests/test_fused_path.py holds the fused path to.
+pbrt_tpu's integrators the port lacks raise, naming their ROADMAP item.
 """
 
 import importlib
@@ -163,3 +164,17 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         trender.render_pass(scene, cam, tfilm.make_filter("box"),
                             trender.RenderConfig(max_depth=2), 8, 8, 1, 0)
+
+
+@pytest.mark.parametrize("integrator, strategy, item", [
+    ("bdpt", "uniform", "9c"), ("sppm", "uniform", "9d"),
+    ("mlt", "uniform", "9d"), ("path", "spatial", "9c")])
+def test_unported_integrators_raise_with_their_item(integrator, strategy,
+                                                    item):
+    """pbrt_tpu's integrators and light strategy the port lacks raise
+    when a pass is asked for, naming their ROADMAP queue 1 item."""
+    scene, cam = entry._sphere_cornell("cpu"), entry._camera((8, 8), "cpu")
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1 item {item}$"):
+        trender.render(scene, cam, spp=1, integrator=integrator,
+                       light_strategy=strategy, device="cpu")
