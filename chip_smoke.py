@@ -63,7 +63,10 @@ Run from the root of a checkout, with no arguments:
    counts the loop implies (13 of the 4-wide kernel and of the brute-force
    kernel per pass), that no ray sort ran and neither the binary nor the
    fused kernel was launched, and, at 64² × 4 spp, pbrt_tpu's image mean
-   to rel 1e-3 (pbrt_tpu's CPU traversal is too slow for the full size).
+   to rel 1e-3 (pbrt_tpu's CPU traversal is too slow for the full size);
+   the full-width render's sample index 0 (one 256² × 1-spp pass) against
+   pbrt_tpu's CPU pass (tests/torch_bvh_full_width.json): the mean and
+   the 16 × 16 block means to rel 1e-3, a block off on at most 1% of them.
 11. Times 2,097,152-ray closest-hit and any-hit launches on the big tree
    (camera rays, bounce rays and shadow rays with finite tmax): the binary
    kernel and the 4-wide kernel's plain and persistent grids in turns, in
@@ -103,7 +106,8 @@ Run from the root of a checkout, with no arguments:
    ray and the agreement with the binary twin, and checks that each kernel
    was launched exactly as often as the experiments imply.
 15. Scene files. (a) Runs the CLI, ``python -m pbrt_tpu_torch.utils.cli``,
-   as a subprocess on tests/oracle/{ao,deltalights,filter}_oracle.pbrt,
+   as subprocesses, three at once, on
+   tests/oracle/{ao,deltalights,filter}_oracle.pbrt,
    scenes/cornell_portal.pbrt and the zoo's oracle files
    tests/oracle/{whitted,caustic,disney,envcavity,envcam}_oracle.pbrt
    (mirror, glass, Disney, the infinite light, the environment camera) at
@@ -162,6 +166,37 @@ Run from the root of a checkout, with no arguments:
    gradients with respect to kd, emit and the portal's corners through
    the generic loop on the card against the CPU twins' within
    tests/test_torch_grad.py's tolerance.
+18. Subsurface scattering: the CLI on sss and disney_sss against their
+   reference images, every brute-force query of an in-process pass of
+   each and every traversal query of a subsurface heightfield pass held to
+   the twins, the 8-spp means against pbrt_tpu's, and the hero and
+   volpath gradients on the card against the CPU's.
+19. Bidirectional path tracing, the spatial light strategy and MLT. (a)
+   The CLI with ``--integrator bdpt`` on caustic (96², 512 spp),
+   deltalights (96², 256) and envcavity (48², 1024), three processes at
+   once, against their reference images with tests/test_oracle.py's
+   limits, with the launches ``bdpt.queries_per_chunk`` gives. (b) In
+   process, ``render_bdpt`` of each file at 8 spp at pbrt_tpu's CPU chunk:
+   every brute-force query held to the twin bit for bit, the mean against
+   pbrt_tpu's op-by-op mean (REF_BDPT_MEANS) to rel 1e-4; envcavity's
+   whole mean, which a few seam-flipped lanes move, to 1e-3, its pass lane
+   for lane against the CPU twins (at most 2% of the lanes off) and its
+   image pixel for pixel against the CPU twins' and theirs against
+   pbrt_tpu's op-by-op image, the mean over the pixels where all three
+   agree to rel 1e-4; one chunk timed (CUDA events, the device-only
+   profiler, idle share, peak bytes a lane). (c) One
+   256² × 32-spp chunk of ``_sphere_cornell()`` (2,097,152 camera lanes
+   and as many light paths) with its peak, and a bdpt chunk of a
+   heightfield with a BVH, every traversal and brute-force query held to
+   the twins. (d) MLT on caustic with tests/test_oracle.py's budget
+   against the reference image, its launches against the count from the
+   code, its chain steps a second and the share of the steps spent in the
+   splats; four steps of the same shapes with every query held to the
+   twin; and MLT on the portal scene, every launch of the fused kernel
+   held to its twin. (e) A 256² × 32-spp `path` pass under the spatial
+   strategy of tests/test_lightdistrib.py's two-light scene against
+   pbrt_tpu's mean (REF_SPATIAL_MEAN), its launches against the loop's
+   count, and a second render with every query held to the twin.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -186,17 +221,22 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch import entry
+from pbrt_tpu_torch.core import transform
 from pbrt_tpu_torch.frontend import load_pbrt
+from pbrt_tpu_torch.integrators import bdpt as bdpt_mod
+from pbrt_tpu_torch.integrators import mlt as mlt_mod
 from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import bvh_binary as bb
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import bvh as bvh_mod
+from pbrt_tpu_torch.scene import camera as cam_mod
 from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
-from pbrt_tpu_torch.scene.types import SceneBuilder
+from pbrt_tpu_torch.scene.types import SceneBuilder, to_device
 from pbrt_tpu_torch.tools import kexp_kernels as kk
 from pbrt_tpu_torch.tools import kexp_prep, kexp_run
 from pbrt_tpu_torch.utils import imageio
@@ -230,6 +270,57 @@ REF_LOOP_MEANS = {
 # is too slow for 256² × 64 spp, so the mean is held at this size and the
 # full-width render is checked for its launches, shape and finiteness.
 REF_BVH_MEAN = {("heightfield_cornell", "path", 64, 4): 0.3574122070165071}
+# sample index 0 of the 256² × 64-spp render (one 256² × 1-spp pass):
+# pbrt_tpu's CPU mean and 16 × 16 block means, written by ``PYTHONPATH=.
+# python tests/test_torch_bvh.py``
+BVH_FULL_WIDTH = "tests/torch_bvh_full_width.json"
+# phase 19: bdpt through the CLI at each file's own spp (--integrator bdpt)
+# and the limits of tests/test_oracle.py (caustic and deltalights: md, bl;
+# envcavity: the gap rule against its path and bdpt reference images)
+BDPT_FILES = {"caustic": (512, 0.05, 0.30), "deltalights": (256, 0.02, 0.03),
+              "envcavity": (1024, None, None)}
+BDPT_MEAN_SPP = 8
+# pbrt_tpu's float32 means on the CPU backend of render_bdpt of the three
+# files at 8 spp, seed 0, the file's depth, its CPU chunk, printed by
+# ``PYTHONPATH=. python tests/test_torch_bdpt_oracle.py``: evaluated op by
+# op (``jax.disable_jit``), which rounds every operation as the port does;
+# pbrt_tpu's jitted chunk contracts multiply-adds and so moves its hit
+# points in the last bits. A bdpt lane whose ray grazes an edge flips on
+# such bits, and envcavity's mean moves with a few flipped lanes: on an
+# H100 the mean read rel 3.8e-4 from the op-by-op mean and 1.09e-3 from
+# the jitted one (0.42151010650074267), the CPU twins' 2.3e-4 and 9.4e-4. So
+# envcavity's whole mean is held to 1e-3, and rel 1e-4 holds pixel for
+# pixel: the card's image against the CPU twins' and the twins' against
+# pbrt_tpu's op-by-op image (BDPT_ENV_REF, written by the same script),
+# rtol 2e-5 / atol 1e-6, the mean over the pixels where all three agree
+# to rel 1e-4 and at most BDPT_PIXELS_OFF_SHARE of the pixels off (a
+# pixel sums 2 × 8 lanes, its camera samples and about as many light
+# paths; a seam tie may send 2% of the lanes elsewhere,
+# tests/test_torch_bdpt.py)
+REF_BDPT_MEANS = {"caustic": 0.04212470132969691,
+                  "deltalights": 0.4407145513244575,
+                  "envcavity": 0.42180969940252705}
+BDPT_MEAN_REL = {"caustic": 1e-4, "deltalights": 1e-4, "envcavity": 1e-3}
+BDPT_ENV_REF = "tests/torch_bdpt_envcavity_ref.npy"
+BDPT_PIXELS_OFF_SHARE = 2 * BDPT_MEAN_SPP * 0.02
+# phase 19's MLT runs: brute-force queries of one `path` pass on caustic
+# (max_depth 6, a sphere light: a closest hit, the NEE ray and the BSDF
+# half's ray per full bounce, then the last bounce's closest hit), and
+# fused launches of one pass on the portal scene. A render evaluates its
+# target once a bootstrap block of at most MLT_BOOT_BLOCK lanes on the
+# card (integrators/mlt.py::bootstrap), once for the start states and
+# once a step.
+MLT_CAUSTIC_PER_PASS = 6 * 3 + 1
+MLT_PORTAL_PER_PASS = 1
+MLT_BOOT_BLOCK = 1 << 21
+# the spatial pass: two point lights, so a closest hit and the NEE ray a
+# full bounce, then the last bounce's closest hit
+SPATIAL_PER_PASS = MAX_DEPTH * 2 + 1
+# pbrt_tpu's float32 CPU mean of a 256² × 32-spp `path` render of
+# tests/test_lightdistrib.py's two-light scene under the spatial strategy
+# (max_depth 4, seed 0), printed by ``PYTHONPATH=. python
+# tests/test_torch_lightdistrib_mlt.py``
+REF_SPATIAL_MEAN = 0.0034579210927496717
 # pbrt_tpu's float32 image means on the CPU backend for three scene files
 # at their own resolution, integrator, max depth and filter, 16 spp, the
 # halton sampler, seed 0, printed by ``PYTHONPATH=. python
@@ -883,15 +974,19 @@ def intersect_design(design):
 def intersect_in_pass(pass_fn, n_launches):
     """The brute-force kernel's device time inside one pass of pass_fn, by
     torch.profiler, for each design of INTERSECT_DESIGNS in turns (a, b,
-    ..., b, a): {design: ms per pass, mean of the two turns}."""
-    out = {}
+    ..., b, a): {design: ms per pass, mean of the two turns, and
+    "profile_traces": the traces taken in all}."""
+    out, n_traces = {}, 0
     for dsg in list(INTERSECT_DESIGNS) + list(reversed(INTERSECT_DESIGNS)):
         with intersect_design(dsg):
-            _, by = device_ms_by_kernel(pass_fn, ["intersect_kernel"])
+            _, by, traces = device_ms_by_kernel(
+                pass_fn, ["intersect_kernel"], want=n_launches)
         ms_k, n_k = by["intersect_kernel"]
         check(n_k == n_launches, f"{n_k} brute-force launches in a pass")
         out[dsg] = out.get(dsg, 0.0) + ms_k / 2
-    return {dsg: round(v, 4) for dsg, v in out.items()}
+        n_traces += traces
+    return {**{dsg: round(v, 4) for dsg, v in out.items()},
+            "profile_traces": n_traces}
 
 
 def check_bvh_vs_brute(dev):
@@ -979,16 +1074,35 @@ def traverse_bound(table_bytes, n_rays, *stats):
     return bound_ms(n_bytes, n_ops)
 
 
-def device_ms_by_kernel(fn, frags, cpu=True):
+def device_ms_by_kernel(fn, frags, cpu=True, want=None):
     """Device time by kernel over one run of ``fn``, from torch.profiler:
-    (total ms, {kernel-name fragment: [ms, launches]}). Only the device's
-    own rows count: a CPU op's row carries the device time of the kernels
-    it launched again, so summing every row counts each kernel twice.
+    (total ms, {kernel-name fragment: [ms, launches]}, traces taken).
+    Only the device's own rows count: a CPU op's row carries the device
+    time of the kernels it launched again, so summing every row counts
+    each kernel twice.
     ``cpu=False`` traces the device alone (no CPU op rows, a fraction of
-    the overhead on a pass of many small launches)."""
+    the overhead on a pass of many small launches). With ``want``, the
+    launches each fragment's kernel must show: a trace of a pass of
+    thousands of launches now and then lacks one record (seen: 9 of 10,
+    33 of 34, 55 of 56, while the wrappers counted every launch), so such
+    a trace is said and taken again, up to three times in all; the caller
+    checks the last one's counts and keeps the number of traces in its
+    row."""
+    for traces in range(1, 4):
+        total, by_name = _profile_once(fn, frags, cpu)
+        seen = [by_name[frag][1] for frag in frags]
+        if want is None or seen == [want] * len(frags):
+            break
+        print(f"the profiler saw {seen} launches of {frags}, not {want} "
+              f"each (trace {traces} of at most 3)")
+    return total, by_name, traces
+
+
+def _profile_once(fn, frags, cpu):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]
                  + [ProfilerActivity.CPU] * cpu) as prof:
         fn()
@@ -1048,10 +1162,10 @@ def check_probe(dev):
     def twenty(fn):
         return lambda: [fn() for _ in range(20)]
 
-    _, k_dev = device_ms_by_kernel(twenty(lambda: kk._probe_launch(x, top)),
-                                   ["smem_probe_kernel"])
-    _, a_dev = device_ms_by_kernel(twenty(lambda: torch.add(x, x[0, 1])),
-                                   ["add"])
+    _, k_dev, _ = device_ms_by_kernel(
+        twenty(lambda: kk._probe_launch(x, top)), ["smem_probe_kernel"])
+    _, a_dev, _ = device_ms_by_kernel(
+        twenty(lambda: torch.add(x, x[0, 1])), ["add"])
     device_ms = k_dev["smem_probe_kernel"][0] / max(
         k_dev["smem_probe_kernel"][1], 1)
     library_device_ms = a_dev["add"][0] / max(a_dev["add"][1], 1)
@@ -1406,10 +1520,18 @@ def scene_files(dev, hf_mean, hf_tris):
     BVH-scale file. Returns the numbers for the JSON line."""
     out = {"cli": {}, "in_process": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        # (a) the CLI on each file at full width
-        for name, (path, (per_pass, passes), limits) in SCENE_FILES.items():
+        # (a) the CLI on each file at full width, three processes at once
+        names = list(SCENE_FILES)
+        started = {}
+        for i, name in enumerate(names):
+            if i % 3 == 0:
+                started.update(
+                    (n, start_cli(SCENE_FILES[n][0],
+                                  os.path.join(tmp, f"{n}.pfm")))
+                    for n in names[i:i + 3])
+            path, (per_pass, passes), limits = SCENE_FILES[name]
             pfm = os.path.join(tmp, f"{name}.pfm")
-            sm = run_cli(path, pfm)
+            sm = finish_cli(started.pop(name))
             img = imageio.read_pfm(pfm)
             check(list(img.shape) == sm["shape"] and np.isfinite(img).all(),
                   f"{name}: image {img.shape}")
@@ -1433,7 +1555,8 @@ def scene_files(dev, hf_mean, hf_tris):
                       and (bl_lim is None or row["bl"] < bl_lim),
                       f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs "
                       f"the limits {limits}")
-            print(f"scene file {name} (CLI): " + json.dumps(row))
+            print(f"scene file {name} (CLI, three at once): "
+                  + json.dumps(row))
             out["cli"][name] = row
         # (d) a BVH-scale file the script writes
         hpath = os.path.join(tmp, "heightfield_cornell.pbrt")
@@ -1477,12 +1600,17 @@ def scene_files(dev, hf_mean, hf_tris):
         images = []
 
         def run():
+            # a profile taken again counts its own run's launches
+            ik.intersect_brute.launches = 0
+            fp.fused_bounce.launches = 0
+            images.clear()
             images.append(render_mod.render(
                 scene, cam, spp=spp, integrator=opts["integrator"],
                 sampler="halton", max_depth=opts["max_depth"],
                 filter_name=fname, filter_kwargs=fkw, seed=0, device=dev))
         if zoo:
-            dev_ms, by = device_ms_by_kernel(run, ["intersect_kernel"])
+            dev_ms, by, traces = device_ms_by_kernel(
+                run, ["intersect_kernel"], want=per_pass)
         else:
             run()
         torch.cuda.synchronize()
@@ -1494,7 +1622,7 @@ def scene_files(dev, hf_mean, hf_tris):
         if zoo:
             row.update(device_ms=dev_ms, intersect_device_ms=by[
                 "intersect_kernel"][0], intersect_in_profile=by[
-                "intersect_kernel"][1])
+                "intersect_kernel"][1], profile_traces=traces)
             check(ik.intersect_brute.launches == per_pass
                   and by["intersect_kernel"][1] == per_pass
                   and fp.fused_bounce.launches == 0,
@@ -1642,7 +1770,8 @@ def hero_files(dev):
           and bk.bvh_traverse.launches == 0,
           f"hero render: {launches} brute-force launches")
     check(torch.equal(img, img2), "two renders of the hero pass differ")
-    dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"])
+    dev_ms, by, traces = device_ms_by_kernel(render, ["intersect_kernel"],
+                                             want=launches)
     check(by["intersect_kernel"][1] == launches,
           f"the profiler saw {by['intersect_kernel'][1]} kernel launches")
     # the film's conversion: no TF32 (a float64 product for reference)
@@ -1660,6 +1789,7 @@ def hero_files(dev):
         "samples_per_s": 96 * 96 * spp / (render_ms / 1e3),
         "device_ms": dev_ms, "intersect_device_ms": by["intersect_kernel"][0],
         "intersect_share": by["intersect_kernel"][0] / dev_ms,
+        "profile_traces": traces,
         "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
         "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
         "launches": launches,
@@ -1799,8 +1929,8 @@ def media_files(dev):
         check(launches == (per_pass, 0, 0),
               f"{name}: launches {launches} in the timed pass")
         check(torch.equal(img, img2), f"{name}: two renders differ")
-        dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"],
-                                         cpu=False)
+        dev_ms, by, traces = device_ms_by_kernel(
+            render, ["intersect_kernel"], cpu=False, want=per_pass)
         check(by["intersect_kernel"][1] == per_pass,
               f"{name}: the profiler saw {by['intersect_kernel'][1]} "
               "kernel launches")
@@ -1810,6 +1940,7 @@ def media_files(dev):
                "device_ms": dev_ms,
                "intersect_device_ms": by["intersect_kernel"][0],
                "intersect_share": by["intersect_kernel"][0] / dev_ms,
+               "profile_traces": traces,
                "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
                "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
                "launches": launches[0], "kernel_vs_twin_max_abs_err": worst}
@@ -2037,8 +2168,8 @@ def sss_files(dev):
         check(launches == (per_pass, 0, 0),
               f"{name}: launches {launches} in the timed pass")
         check(torch.equal(img, img2), f"{name}: two renders differ")
-        dev_ms, by = device_ms_by_kernel(render, ["intersect_kernel"],
-                                         cpu=False)
+        dev_ms, by, traces = device_ms_by_kernel(
+            render, ["intersect_kernel"], cpu=False, want=per_pass)
         check(by["intersect_kernel"][1] == per_pass,
               f"{name}: the profiler saw {by['intersect_kernel'][1]} "
               "kernel launches")
@@ -2048,6 +2179,7 @@ def sss_files(dev):
                "device_ms": dev_ms,
                "intersect_device_ms": by["intersect_kernel"][0],
                "intersect_share": by["intersect_kernel"][0] / dev_ms,
+               "profile_traces": traces,
                "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
                "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
                "launches": launches[0], "kernel_vs_twin_max_abs_err": worst,
@@ -2109,8 +2241,9 @@ def sss_files(dev):
     b_worst = _hold_brute("heightfield", bcalls)
     del tcalls, bcalls
     # the pass's device time and the two kernels' shares of it
-    dev_ms, by = device_ms_by_kernel(
-        render_hf, ["bvh_traverse_kernel", "intersect_kernel"], cpu=False)
+    dev_ms, by, traces = device_ms_by_kernel(
+        render_hf, ["bvh_traverse_kernel", "intersect_kernel"], cpu=False,
+        want=t_launches)
     check(by["bvh_traverse_kernel"][1] == t_launches
           and by["intersect_kernel"][1] == t_launches,
           f"heightfield: the profiler saw {by} kernel launches")
@@ -2125,7 +2258,7 @@ def sss_files(dev):
         "traverse_share": by["bvh_traverse_kernel"][0] / dev_ms,
         "intersect_device_ms": by["intersect_kernel"][0],
         "intersect_share": by["intersect_kernel"][0] / dev_ms,
-        "mean": m, "ref": ref_mean, "rel": rel,
+        "profile_traces": traces, "mean": m, "ref": ref_mean, "rel": rel,
         "seconds": time.perf_counter() - t0}
     print("subsurface heightfield with a BVH, 64² × 8 spp `path`: "
           + json.dumps(out["heightfield"]))
@@ -2152,6 +2285,495 @@ def sss_files(dev):
         print(f"{name} gradients, card against CPU: " + json.dumps(row))
     grads["seconds"] = time.perf_counter() - t0
     out["grads"] = grads
+    return out
+
+
+def full_width_sample0(hf):
+    """Sample index 0 of the 256² × 64-spp BVH render (one 256² × 1-spp
+    pass) against pbrt_tpu's CPU pass: the mean and the 16 × 16 block
+    means (blocks of 16² pixels) to rel 1e-3, a block off on at most 1%
+    of them (a seam tie sends a lane elsewhere)."""
+    with open(BVH_FULL_WIDTH) as f:
+        ref = json.load(f)
+    img = render_mod.render(hf, entry._camera((W, H)), spp=1,
+                            integrator="path", max_depth=MAX_DEPTH,
+                            device="cuda").double().cpu().numpy()
+    mean = float(img.mean())
+    rel = abs(mean - ref["mean"]) / ref["mean"]
+    blocks = img.reshape(16, 16, 16, 16, 3).mean((1, 3, 4))
+    want = np.asarray(ref["blocks"])
+    rel_b = np.abs(blocks - want) / np.maximum(np.abs(want), 1e-12)
+    out = {"mean": mean, "rel": rel,
+           "blocks_off": int((rel_b > 1e-3).sum()), "blocks": rel_b.size,
+           "block_rel_max": float(rel_b.max()),
+           "block_rel_median": float(np.median(rel_b))}
+    # the reference's mean and its CPU seconds come from the data file,
+    # not this run: printed, not returned
+    print("BVH slice heightfield_cornell path 256², sample index 0, against "
+          "pbrt_tpu's CPU pass: " + json.dumps(dict(
+              out, ref=ref["mean"],
+              pbrt_tpu_cpu_seconds=ref["pbrt_tpu_cpu_seconds"])))
+    check(rel < 1e-3, f"full-width sample 0: mean off by rel {rel}")
+    check(out["blocks_off"] <= 0.01 * rel_b.size,
+          f"full-width sample 0: {out['blocks_off']} blocks off by over "
+          "1e-3")
+    return out
+
+
+@contextlib.contextmanager
+def timing_mlt():
+    """CUDA events at the start of every MLT chain step (its ``_mutate``)
+    and around every ``film.splat`` call: (steps [(event, splats made
+    before it)], splats [(start, stop)]); both still run."""
+    steps, splats = [], []
+    splat, mutate = mlt_mod.film_mod.splat, mlt_mod._mutate
+
+    def timed_splat(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = splat(*a)
+        ev[1].record()
+        splats.append(ev)
+        return out
+
+    def timed_mutate(*a):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append((ev, len(splats)))
+        return mutate(*a)
+    mlt_mod.film_mod.splat, mlt_mod._mutate = timed_splat, timed_mutate
+    try:
+        yield steps, splats
+    finally:
+        mlt_mod.film_mod.splat, mlt_mod._mutate = splat, mutate
+
+
+@contextlib.contextmanager
+def recording_fused():
+    """Record every launch of the fused kernel as (its arguments, its
+    keywords, its outputs); the wrapper still counts its launches."""
+    calls = []
+    inner = fp.fused_bounce
+
+    def record(*args, **kw):
+        out = inner(*args, **kw)
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                            for a in args), kw, out))
+        return out
+    # the wrapper counts through its module's name, which now names the
+    # recorder: the count is carried over and back
+    record.launches = inner.launches
+    fp.fused_bounce = record
+    try:
+        yield calls
+    finally:
+        inner.launches = record.launches
+        fp.fused_bounce = inner
+
+
+def _hold_fused(name, scene, calls):
+    """Every recorded fused launch on the portal scene against the twin
+    with phase 3's bounds for it: codes equal and knee / kc to rtol 1e-5
+    / atol 1e-6 on live lanes, the replayed radiance to atol 5e-6.
+    Returns the largest |L − L_twin|."""
+    worst = 0.0
+    for args, kw, got in calls:
+        want = fp._kernel_reference(*args, **kw)
+        live = fp.live_mask(want[0])
+        check(torch.equal(got[0][live], want[0][live]),
+              f"{name}: the fused kernel's codes differ from its twin's")
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g[live], w[live], rtol=1e-5,
+                                       atol=1e-6)
+        worst = max(worst, float((replay_of(scene, got)
+                                  - replay_of(scene, want)).abs().max()))
+        check(worst <= 5e-6, f"{name}: fused L err {worst}")
+    return worst
+
+
+def _mlt_launches(width, height, mpp, n_chains, n_bootstrap, per_pass):
+    """Kernel launches of render_mlt: one target pass a bootstrap block,
+    one for the start states, one a chain step."""
+    n_steps = max(1, width * height * mpp // n_chains)
+    return (-(-n_bootstrap // MLT_BOOT_BLOCK) + 1 + n_steps) * per_pass
+
+
+def bdpt_env_pixels(scene, cam, depth, chunk, img):
+    """envcavity's 8-spp ``render_bdpt`` image pixel for pixel: the
+    card's against the CPU twins' and the twins' against pbrt_tpu's
+    op-by-op image (BDPT_ENV_REF), rtol 2e-5 / atol 1e-6; the mean over
+    the pixels where all three agree to rel 1e-4, with at most
+    BDPT_PIXELS_OFF_SHARE of the pixels off."""
+    cpu = torch.device("cpu")
+    twin = bdpt_mod.render_bdpt(to_device(scene, cpu), to_device(cam, cpu),
+                                spp=BDPT_MEAN_SPP, max_depth=depth, seed=0,
+                                chunk_spp=chunk, device=cpu).numpy()
+    card = img.cpu().numpy()
+    ref = np.load(BDPT_ENV_REF)
+    check(card.shape == twin.shape == ref.shape,
+          f"envcavity images {card.shape}, {twin.shape}, {ref.shape}")
+    off_card = ~np.isclose(card, twin, rtol=2e-5, atol=1e-6).all(-1)
+    off_twin = ~np.isclose(twin, ref, rtol=2e-5, atol=1e-6).all(-1)
+    agree = ~(off_card | off_twin)
+    m, m_ref = (float(a[agree].astype(np.float64).mean())
+                for a in (card, ref))
+    row = {"pixels": int(agree.size),
+           "pixels_off_card_vs_cpu": int(off_card.sum()),
+           "pixels_off_cpu_vs_pbrt_tpu": int(off_twin.sum()),
+           "agreeing_mean": m, "agreeing_rel": abs(m - m_ref) / m_ref,
+           "cpu_mean": float(twin.astype(np.float64).mean())}
+    check(int((~agree).sum()) <= BDPT_PIXELS_OFF_SHARE * agree.size
+          and row["agreeing_rel"] < 1e-4,
+          f"envcavity pixels against the CPU twins and pbrt_tpu: {row}")
+    return row
+
+
+def bdpt_lanes_vs_cpu(scene, cam, depth, spp):
+    """A `bdpt_t1` pass's radiance, lane for lane, on the card and on the
+    CPU twins: the share of lanes off (rtol 2e-5 / atol 1e-5) must stay
+    within tests/test_torch_bdpt.py's 2%. Returns [lanes off, lanes]."""
+    cpu = torch.device("cpu")
+    w, h = cam.resolution
+    L = []
+    for sc, cm, d in ((scene, cam, scene.world_lo.device),
+                      (to_device(scene, cpu), to_device(cam, cpu), cpu)):
+        cfg = render_mod.RenderConfig(integrator="bdpt_t1", max_depth=depth)
+        rays, pid, sidx, _ = render_mod.camera_rays(
+            cm, film_mod.make_filter("box", device=d), cfg, w, h, spp, 0, d)
+        L.append(bdpt_mod.li_bdpt_t1(
+            sc, rays.o, rays.d, pid, sidx, make_sampler("independent"), cfg,
+            None, cam=cm).cpu())
+    off = int((~torch.isclose(L[0], L[1], rtol=2e-5, atol=1e-5)).any(-1)
+              .sum())
+    check(off <= 0.02 * L[0].shape[0],
+          f"bdpt lanes: {off} of {L[0].shape[0]} off the CPU twins")
+    return [off, L[0].shape[0]]
+
+
+def _bdpt_launches(scene, depth, spp, chunk):
+    """Brute-force launches of render_bdpt: per chunk the queries
+    ``bdpt.queries_per_chunk`` counts from the loops."""
+    return -(-spp // chunk) * bdpt_mod.queries_per_chunk(scene, depth)
+
+
+def bdpt_files(dev):
+    """Phase 19: bdpt, the spatial strategy and MLT (see the module's
+    docstring). Returns the numbers for the JSON lines."""
+    out = {"cli": {}, "pass": {}, "means": {}}
+    t_phase = time.perf_counter()
+    # (a) the three CLIs at once
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {name: start_cli(f"tests/oracle/{name}_oracle.pbrt",
+                                   os.path.join(tmp, f"{name}.pfm"),
+                                   "--integrator", "bdpt", "--spp", str(spp))
+                   for name, (spp, _, _) in BDPT_FILES.items()}
+        for name, (spp, md_lim, bl_lim) in BDPT_FILES.items():
+            sm = finish_cli(started[name])
+            img = imageio.read_pfm(os.path.join(tmp, f"{name}.pfm"))
+            ref = imageio.read_pfm(f"tests/oracle/{name}_ref.pfm"
+                                   if name != "envcavity" else
+                                   "tests/oracle/envcavity_path_ref.pfm")
+            scene, cam, opts = load_pbrt(f"tests/oracle/{name}_oracle.pbrt",
+                                         device=dev)
+            w, h = cam.resolution
+            want = _bdpt_launches(scene, opts["max_depth"], spp,
+                                  bdpt_mod.default_chunk_spp(dev, w, h, spp))
+            row = {k: sm[k] for k in ("render_s", "render_cuda_ms",
+                                      "process_s", "launches", "spp",
+                                      "mean", "integrator")}
+            row["md"] = _mean_delta(img, ref)
+            row["bl"] = _block_rel_l1(img, ref, k=16)
+            row["launches_expected"] = want
+            if name == "envcavity":
+                ref_b = imageio.read_pfm(
+                    "tests/oracle/envcavity_bdpt_ref.pfm")
+                row["gap"] = float(abs(img.mean() - ref.mean()) / ref.mean())
+                row["pbrt_gap"] = float(abs(ref_b.mean() - ref.mean())
+                                        / ref.mean())
+            print(f"bdpt file {name} (CLI, three at once): "
+                  + json.dumps(row))
+            lc = sm["launches"]
+            check(img.shape == ref.shape and np.isfinite(img).all()
+                  and sm["spp"] == spp and sm["integrator"] == "bdpt",
+                  f"{name}: {img.shape}, {sm}")
+            check(lc["intersect_brute"] == want and lc["fused_bounce"] == 0
+                  and lc["bvh_traverse"] == 0,
+                  f"{name}: launches {lc}, expected {want}")
+            if name == "envcavity":
+                check(row["pbrt_gap"] > 0.08
+                      and row["gap"] < 0.6 * row["pbrt_gap"],
+                      f"envcavity: gap {row['gap']:.4f}, the reference "
+                      f"binary's {row['pbrt_gap']:.4f}")
+            else:
+                check(row["md"] < md_lim and row["bl"] < bl_lim,
+                      f"{name}: md {row['md']:.4f} bl {row['bl']:.4f} vs "
+                      f"the limits {md_lim}, {bl_lim}")
+            out["cli"][name] = row
+    out["cli_s"] = time.perf_counter() - t_phase
+
+    # (b) each file in process at pbrt_tpu's CPU chunk
+    kernel = {"launches": 0, "max_abs_err": 0.0}
+    for name in BDPT_FILES:
+        scene, cam, opts = load_pbrt(f"tests/oracle/{name}_oracle.pbrt",
+                                     device=dev)
+        depth = opts["max_depth"]
+        w, h = cam.resolution
+        chunk = bdpt_mod.default_chunk_spp("cpu", w, h, BDPT_MEAN_SPP)
+
+        def render(spp=BDPT_MEAN_SPP):
+            return bdpt_mod.render_bdpt(scene, cam, spp=spp, max_depth=depth,
+                                        seed=0, chunk_spp=chunk, device=dev)
+        with recording_brute_force() as calls:
+            img = render()
+            torch.cuda.synchronize()
+        check(len(calls) == _bdpt_launches(scene, depth, BDPT_MEAN_SPP,
+                                           chunk),
+              f"{name}: {len(calls)} brute-force queries")
+        worst = _hold_brute(f"bdpt {name}", calls)
+        n_rays = calls[0][0][3].shape[0]
+        del calls
+        m = float(img.double().mean())
+        rel = abs(m - REF_BDPT_MEANS[name]) / REF_BDPT_MEANS[name]
+        out["means"][name] = {
+            "mean": m, "ref": REF_BDPT_MEANS[name], "rel": rel,
+            "chunk_spp": chunk}
+        if name == "envcavity":
+            out["means"][name]["lanes_off_cpu"] = bdpt_lanes_vs_cpu(
+                scene, cam, depth, BDPT_MEAN_SPP)
+            out["means"][name].update(bdpt_env_pixels(scene, cam, depth,
+                                                      chunk, img))
+        print(f"bdpt file {name} in process, {BDPT_MEAN_SPP} spp at chunk "
+              f"{chunk}: " + json.dumps(out["means"][name]))
+        check(rel < BDPT_MEAN_REL[name],
+              f"{name}: bdpt mean off pbrt_tpu's by rel {rel}")
+        # one chunk timed, its launches counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        ik.intersect_brute.launches = 0
+        fp.fused_bounce.launches = 0
+        bk.bvh_traverse.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        render(chunk)
+        stop.record()
+        torch.cuda.synchronize()
+        render_ms = start.elapsed_time(stop)
+        launches = (ik.intersect_brute.launches, fp.fused_bounce.launches,
+                    bk.bvh_traverse.launches)
+        per = bdpt_mod.queries_per_chunk(scene, depth)
+        check(launches == (per, 0, 0), f"{name}: launches {launches}")
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+        dev_ms, by, traces = device_ms_by_kernel(
+            lambda: render(chunk), ["intersect_kernel"], cpu=False, want=per)
+        check(by["intersect_kernel"][1] == per,
+              f"{name}: the profiler saw {by['intersect_kernel'][1]} "
+              "kernel launches")
+        row = {"chunk_spp": chunk, "camera_lanes": n_rays,
+               "render_cuda_ms": render_ms, "device_ms": dev_ms,
+               "intersect_device_ms": by["intersect_kernel"][0],
+               "intersect_share": by["intersect_kernel"][0] / dev_ms,
+               "profile_traces": traces,
+               "idle_share": 1.0 - dev_ms / render_ms, "peak_mib": peak_mb,
+               "peak_bytes_per_lane": peak_mb * 2**20 / n_rays,
+               "launches": per, "kernel_vs_twin_max_abs_err": worst}
+        print(f"bdpt chunk {name} in process: " + json.dumps(row))
+        out["pass"][name] = row
+        kernel["launches"] += per
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], worst)
+        del scene, img
+
+    # (c) full width: one 256² × 32-spp chunk of the sphere cornell
+    scene = entry._sphere_cornell(dev)
+    cam = entry._camera((W, H), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    ik.intersect_brute.launches = 0
+    fp.fused_bounce.launches = 0
+    bk.bvh_traverse.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    img = bdpt_mod.render_bdpt(scene, cam, spp=CHUNK, max_depth=MAX_DEPTH,
+                               seed=0, chunk_spp=CHUNK, device=dev)
+    stop.record()
+    torch.cuda.synchronize()
+    per = bdpt_mod.queries_per_chunk(scene, MAX_DEPTH)
+    launches = (ik.intersect_brute.launches, fp.fused_bounce.launches,
+                bk.bvh_traverse.launches)
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+    full = {"lanes": W * H * CHUNK, "render_cuda_ms": start.elapsed_time(stop),
+            "peak_mib": peak_mb,
+            "peak_bytes_per_lane": peak_mb * 2**20 / (W * H * CHUNK),
+            "launches": launches[0], "mean": float(img.double().mean())}
+    print(f"bdpt sphere_cornell {W}² × {CHUNK} spp, one chunk: "
+          + json.dumps(full))
+    check(launches == (per, 0, 0), f"full-width bdpt launches {launches}")
+    check(img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+          and full["mean"] > 0.05, "the full-width bdpt image")
+    kernel["full_width_launches"] = launches[0]
+    out["full_width"] = full
+    del scene, img
+
+    # a bdpt chunk of a heightfield with a BVH: every traversal and
+    # brute-force query held to the twins
+    b = SceneBuilder()
+    entry._fill_heightfield_cornell(b, *SSS_HF)
+    scene = b.build(dev, use_bvh="always")
+    check(scene.bvh is not None, "the heightfield has no BVH")
+    ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
+    with recording_traversal() as tcalls, \
+            recording_brute_families() as bcalls:
+        img = bdpt_mod.render_bdpt(scene, entry._camera((64, 64), dev),
+                                   spp=4, max_depth=MAX_DEPTH, seed=0,
+                                   chunk_spp=4, device=dev)
+        torch.cuda.synchronize()
+    per = bdpt_mod.queries_per_chunk(scene, MAX_DEPTH)
+    check(len(tcalls) == bk.bvh_traverse.launches == per
+          and len(bcalls) == ik.intersect_brute.launches == per,
+          f"bdpt heightfield: {len(tcalls)} traversal queries, "
+          f"{len(bcalls)} brute-force, launches {bk.bvh_traverse.launches}")
+    t_worst = 0.0
+    for (o, d, tmax, any_hit), (t, i) in tcalls:
+        t_ref, i_ref = bk.traverse_reference(scene.bvh, o, d, tmax, any_hit)
+        t_worst = max(t_worst, float((t - t_ref).abs().max()))
+        check(torch.equal(t, t_ref) and torch.equal(i, i_ref),
+              f"bdpt heightfield: the traversal kernel differs from its "
+              f"twin (t err {t_worst})")
+    b_worst = _hold_brute("bdpt heightfield", bcalls)
+    out["bvh"] = {"tris": scene.n_tri, "traverse_launches": per,
+                  "traverse_max_abs_err": t_worst,
+                  "brute_max_abs_err": b_worst,
+                  "mean": float(img.double().mean())}
+    print("bdpt heightfield with a BVH, 64² × 4 spp: "
+          + json.dumps(out["bvh"]))
+    check(bool(torch.isfinite(img).all()) and out["bvh"]["mean"] > 0.05,
+          "the BVH bdpt image")
+    del tcalls, bcalls, scene, img
+
+    # (d) MLT on caustic with tests/test_oracle.py's budget
+    scene, cam, opts = load_pbrt("tests/oracle/caustic_oracle.pbrt",
+                                 device=dev)
+    w, h = cam.resolution
+    mlt_args = dict(n_bootstrap=1 << 18, n_chains=8192,
+                    max_depth=opts["max_depth"], seed=5, device=dev)
+    want = _mlt_launches(w, h, 64, 8192, 1 << 18, MLT_CAUSTIC_PER_PASS)
+    ik.intersect_brute.launches = 0
+    t0 = time.perf_counter()
+    with timing_mlt() as (steps, splats):
+        img = mlt_mod.render_mlt(scene, cam, mutations_per_pixel=64,
+                                 **mlt_args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # from the first step's start to the last one's: their time and their
+    # splats' share
+    chain_ms = steps[0][0].elapsed_time(steps[-1][0])
+    splat_ms = sum(a.elapsed_time(z)
+                   for a, z in splats[steps[0][1]:steps[-1][1]])
+    ref = imageio.read_pfm("tests/oracle/caustic_ref.pfm")
+    img = img.cpu().numpy()
+    mlt = {"steps": len(steps), "chains": 8192,
+           "steps_per_s": (len(steps) - 1) / (chain_ms / 1e3),
+           "mutations_per_s": 8192 * (len(steps) - 1) / (chain_ms / 1e3),
+           "splat_share": splat_ms / chain_ms, "wall_s": wall,
+           "intersect_launches": ik.intersect_brute.launches,
+           "launches_expected": want, "md": _mean_delta(img, ref)}
+    print("mlt caustic, 64 mutations a pixel, 2^18 bootstrap samples, 8,192 "
+          "chains: " + json.dumps(mlt))
+    check(ik.intersect_brute.launches == want,
+          f"mlt caustic: {ik.intersect_brute.launches} launches, the code "
+          f"implies {want}")
+    check(np.isfinite(img).all() and mlt["md"] < 0.05,
+          f"mlt caustic md {mlt['md']:.4f}")
+    kernel["mlt_launches"] = ik.intersect_brute.launches
+    # the same shapes for four steps: every query held to the twin
+    with recording_brute_force() as calls:
+        mlt_mod.render_mlt(scene, cam, mutations_per_pixel=4, **mlt_args)
+        torch.cuda.synchronize()
+    want = _mlt_launches(w, h, 4, 8192, 1 << 18, MLT_CAUSTIC_PER_PASS)
+    check(len(calls) == want, f"mlt caustic, four steps: {len(calls)} "
+          f"brute-force queries, the code implies {want}")
+    mlt["held_queries"] = len(calls)
+    mlt["kernel_vs_twin_max_abs_err"] = _hold_brute("mlt caustic", calls)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"],
+                                mlt["kernel_vs_twin_max_abs_err"])
+    print(f"mlt caustic, four steps: {len(calls)} brute-force queries, each "
+          "bit-equal to the twin")
+    out["mlt"] = mlt
+    del calls
+    # MLT on a scene of the fused profile runs the fused kernel: every
+    # launch held to its twin
+    portal = entry._portal_scene(dev)
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    with recording_fused() as fcalls:
+        img = mlt_mod.render_mlt(portal, entry._camera((64, 64), dev),
+                                 mutations_per_pixel=1, n_chains=4096,
+                                 n_bootstrap=16384, max_depth=MAX_DEPTH,
+                                 seed=1, device=dev)
+        torch.cuda.synchronize()
+    want = _mlt_launches(64, 64, 1, 4096, 16384, MLT_PORTAL_PER_PASS)
+    check(fp.fused_bounce.launches == len(fcalls) == want
+          and ik.intersect_brute.launches == 0
+          and bool(torch.isfinite(img).all()),
+          f"MLT on the portal scene: {fp.fused_bounce.launches} fused "
+          f"launches, the code implies {want}")
+    out["mlt_fused"] = {"launches": want, "kernel_vs_twin_max_abs_err":
+                        _hold_fused("mlt portal", portal, fcalls)}
+    print("mlt portal scene, fused kernel: " + json.dumps(out["mlt_fused"]))
+    del scene, img, fcalls, portal
+
+    # (e) a 256² × 32-spp `path` pass under the spatial strategy
+    b = SceneBuilder()
+    m = b.add_material(type=0, kd=0.6)
+    b.add_mesh([(-10, 0, -2), (10, 0, -2), (10, 0, 2), (-10, 0, 2)],
+               [(0, 1, 2), (0, 2, 3)], mat=m)
+    b.add_light(type="point", I=10.0, pos=(-8, 1, 0))
+    b.add_light(type="point", I=10.0, pos=(8, 1, 0))
+    scene = b.build(dev)
+    cam = cam_mod.make_perspective(
+        transform.look_at((0, 4, -6), (0, 0, 0), (0, 1, 0), device=dev), 50.0,
+        (W, H), device=dev)
+    def render_spatial():
+        return render_mod.render(scene, cam, spp=CHUNK, integrator="path",
+                                 max_depth=MAX_DEPTH,
+                                 light_strategy="spatial", chunk_spp=CHUNK,
+                                 device=dev)
+    ik.intersect_brute.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    img = render_spatial()
+    stop.record()
+    torch.cuda.synchronize()
+    m = float(img.double().mean())
+    rel = abs(m - REF_SPATIAL_MEAN) / REF_SPATIAL_MEAN
+    out["spatial"] = {"mean": m, "ref": REF_SPATIAL_MEAN, "rel": rel,
+                      "render_cuda_ms": start.elapsed_time(stop),
+                      "launches": ik.intersect_brute.launches}
+    check(ik.intersect_brute.launches == SPATIAL_PER_PASS,
+          f"spatial pass: {ik.intersect_brute.launches} launches, the loop "
+          f"implies {SPATIAL_PER_PASS}")
+    # a second render, every query held to the twin
+    with recording_brute_force() as calls:
+        render_spatial()
+        torch.cuda.synchronize()
+    check(len(calls) == SPATIAL_PER_PASS,
+          f"spatial pass: {len(calls)} brute-force queries")
+    out["spatial"]["kernel_vs_twin_max_abs_err"] = _hold_brute(
+        "spatial pass", calls)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"],
+                                out["spatial"]["kernel_vs_twin_max_abs_err"])
+    kernel["spatial_launches"] = SPATIAL_PER_PASS
+    del calls
+    print(f"spatial strategy, two lights, `path` {W}² × {CHUNK} spp: "
+          + json.dumps(out["spatial"]))
+    check(rel < 1e-4, f"spatial pass mean off pbrt_tpu's by rel {rel}")
+    out["kernel"] = kernel
     return out
 
 
@@ -2499,6 +3121,7 @@ def main():
           f"spp mean differs from it by rel "
           f"{abs(mean_full - mean_s) / mean_s:.3g}")
     check(rel < 1e-3, f"image mean off by rel {rel}")
+    bvh_full = full_width_sample0(hf)
 
     # ---- 11. timings of the traversal kernels and the BVH pass
     tree = hf.bvh
@@ -2623,7 +3246,7 @@ def main():
             stack.enter_context(kk.l2_window(hf.bvh, window))
             if not persistent:
                 stack.enter_context(plain_grid())
-            dev_ms, by_kernel = device_ms_by_kernel(bpass_fn, frags)
+            dev_ms, by_kernel, _ = device_ms_by_kernel(bpass_fn, frags)
         ms_k, n_k = by_kernel["bvh_traverse_kernel"]
         check(n_k == per_pass_bvh, f"{n_k} traversal launches in a pass")
         label = (f"{'persistent' if persistent else 'plain'}_"
@@ -2637,7 +3260,7 @@ def main():
           "in turns (torch.profiler): "
           + json.dumps(in_pass_i["heightfield_cornell"]))
     with old_bvh_path():
-        dev_old, by_old = device_ms_by_kernel(bpass_fn, frags)
+        dev_old, by_old, _ = device_ms_by_kernel(bpass_fn, frags)
     in_pass["old_path"] = {"pass_device_ms": round(dev_old, 3), **{
         k: [round(v[0], 4), v[1]] for k, v in by_old.items()}}
     print(f"traversal and BVH-pass times (ms, CUDA events; twins: host clock "
@@ -2773,6 +3396,12 @@ def main():
     sss["phase_s"] = time.perf_counter() - t0
     print(f"subsurface phase {sss['phase_s']:.1f} s")
 
+    # ---- 19. bdpt, the spatial strategy and MLT
+    t0 = time.perf_counter()
+    bdpt = bdpt_files(dev)
+    bdpt["phase_s"] = time.perf_counter() - t0
+    print(f"bdpt phase {bdpt['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -2787,7 +3416,10 @@ def main():
         # 32 paths, and of 64 as two per thread would run), registers and
         # spills of every instantiation
         "dead_share": {k: v["dead_share"] for k, v in dead.items()},
-        "ptxas": ptxas["fused_path"]}, {
+        "ptxas": ptxas["fused_path"],
+        # phase 19's MLT on the portal scene: its launches, each held to
+        # the twin, and the largest radiance error
+        "mlt_path": bdpt["mlt_fused"]}, {
         "name": "intersect", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/intersect.cu",
         "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
@@ -2815,7 +3447,12 @@ def main():
         # render, the largest error over all its queries (the probe
         # chain's among them), times and bound on its first probe query,
         # the kernel's device time inside the pass
-        "sss_path": sss["kernel"]}, {
+        "sss_path": sss["kernel"],
+        # phase 19: the in-process bdpt chunks' launches and the largest
+        # error over all the queries held (theirs, MLT's four-step run's
+        # and the spatial pass's), the full-width chunk's, the MLT
+        # render's and the spatial pass's launches
+        "bdpt_path": bdpt["kernel"]}, {
         # the render path's kernel as the render launches it; camera rays
         # of the heightfield tree in the callers' order (bounce and shadow
         # rays, the other grid and the L2 window in the lines above)
@@ -2830,7 +3467,12 @@ def main():
         # traversal launches and largest error against the twin
         "sss_heightfield": {k: sss["heightfield"][k] for k in (
             "traverse_launches", "traverse_max_abs_err",
-            "traverse_device_ms", "traverse_share")}}, {
+            "traverse_device_ms", "traverse_share")},
+        # phase 19's bdpt chunk on a heightfield with a BVH
+        "bdpt_heightfield": {k: bdpt["bvh"][k] for k in (
+            "traverse_launches", "traverse_max_abs_err")},
+        # phase 10's full-width render's sample index 0 against pbrt_tpu
+        "full_width_sample0": bvh_full}, {
         # the render path's kernel before the 4-wide one, now the harness's
         # yardstick
         # (its launches: the harness run's); the same camera rays
@@ -2871,7 +3513,7 @@ def main():
         "bound_by": "bytes", "library_ms": probe["library_ms"],
         "device_ms": probe["device_ms"],
         "library_device_ms": probe["library_device_ms"]}],
-        "scene_files": files, "hero": hero}))
+        "scene_files": files, "hero": hero, "bdpt": bdpt}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,6 +21,7 @@ from pbrt_tpu_torch.core.sampling import (power_heuristic,
 from pbrt_tpu_torch.core.vecmath import absdot, dot
 from pbrt_tpu_torch.scene import bssrdf as bssrdf_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
+from pbrt_tpu_torch.scene import lightdistrib
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene import portals as portals_mod
@@ -55,10 +56,17 @@ def to_world(t1, t2, n, w):
 # light selection (lightdistrib.h Uniform/Power)
 # ---------------------------------------------------------------------------
 
-def choose_light(scene, u, power_distr=None):
+def choose_light(scene, u, power_distr=None, p=None):
     """Pick a light per ray. Returns (idx (R,), select_pmf (R,)).
-    ``power_distr`` is a Distribution1D (power strategy) or None
-    (uniform)."""
+    ``power_distr`` is a Distribution1D (power strategy), a
+    SpatialLightDistribution (spatial strategy, drawn in the voxel of the
+    shading point ``p``; without ``p``, in the voxel of the world origin,
+    as pbrt_tpu does) or None (uniform): the three lightdistrib.h
+    variants."""
+    if isinstance(power_distr, lightdistrib.SpatialLightDistribution):
+        if p is None:
+            p = torch.zeros(u.shape + (3,), device=u.device)
+        return lightdistrib.sample_spatial(power_distr, scene, p, u)
     if power_distr is not None:
         return sample_distribution_1d_discrete(power_distr, u)
     n = scene.lights.n
@@ -104,7 +112,8 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     without portals or an infinite light; a scene with neither skips its
     trace."""
     lt = scene.lights
-    light_idx, sel_pmf = choose_light(scene, u_select, power_distr)
+    light_idx, sel_pmf = choose_light(scene, u_select, power_distr,
+                                      p=hit.p)
     g = lights_mod.gather_lights(lt, light_idx)
     is_portal_light = (g.ltype == AREA) & (g.n_portals > 0)
 

@@ -182,7 +182,7 @@ def _li_hero(scene, o, d, pid, sidx, sfn, cfg, power_distr, use_nee):
             u_sel = sfn(pid, sidx, dims["select"], cfg.seed)
             u_l = _sample2(sfn, pid, sidx, dims["light_u"], cfg.seed)
             light_idx, sel_pmf = common.choose_light(scene, u_sel,
-                                                     power_distr)
+                                                     power_distr, p=hit.p)
             ls = lights_mod.sample_li(scene, light_idx, hit.p, u_l)
             vis = isect_mod.unoccluded(scene, hit.p, hit.ns,
                                        ls["p_light"]) \

@@ -2,13 +2,17 @@
 programs (port of pbrt_tpu/integrators/render.py: RenderConfig, the integrators
 `path`, `mypath`, `directlighting`, `whitted` and `ambientocclusion`, the
 volumetric `volpath` of integrators/volpath.py, the hero-wavelength
-`hero_path` and `hero_path_mis` of integrators/hero.py, render_pass and
-render).
+`hero_path` and `hero_path_mis` of integrators/hero.py, the camera
+strategies of bidirectional path tracing, `bdpt` and `bdpt_t1`, of
+integrators/bdpt.py, render_pass and render).
 
 ``render_pass`` evaluates ``chunk`` samples of every pixel in one batch
 of rays: the (pixel, sample) lane layout, the pcg4d sample dimensions and
 the film reduction are pbrt_tpu's, so both packages trace the same rays.
-``render`` loops over spp chunks, over the whole film or a crop window.
+``render`` loops over spp chunks, over the whole film or a crop window,
+or, as pbrt_tpu's does, hands `bdpt` (with its light-tracing splats) and
+`mlt` to their own render functions (integrators/bdpt.py,
+integrators/mlt.py).
 `path` runs the fused path-bounce kernel (ops/fused_path.py) on scenes
 inside its profile (the independent sampler only); every other scene,
 sampler and integrator goes through the generic wavefront loop
@@ -29,6 +33,7 @@ from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.sampling import (cosine_sample_hemisphere,
                                           uniform_sample_hemisphere)
 from pbrt_tpu_torch.core.vecmath import absdot
+from pbrt_tpu_torch.integrators import bdpt as bdpt_mod
 from pbrt_tpu_torch.integrators import common
 from pbrt_tpu_torch.integrators import hero as hero_mod
 from pbrt_tpu_torch.integrators import volpath as volpath_mod
@@ -37,6 +42,7 @@ from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import camera as cam_mod
 from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
+from pbrt_tpu_torch.scene import lightdistrib
 from pbrt_tpu_torch.scene import lights as lights_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene import textures as tex_mod
@@ -54,7 +60,7 @@ class RenderConfig:
     sampler: str = "independent"
     max_depth: int = 5
     rr_threshold: float = 1.0
-    light_strategy: str = "uniform"   # uniform | power
+    light_strategy: str = "uniform"   # uniform | power | spatial
     ao_radius: float = 1e6
     ao_cos_sample: bool = True
     seed: int = 0
@@ -269,11 +275,15 @@ _INTEGRATORS = {"path": li_path, "direct": li_direct,
                 "ao": li_ao, "ambientocclusion": li_ao, "mypath": li_mypath,
                 "volpath": volpath_mod.li_volpath,
                 "hero_path": hero_mod.li_hero_path,
-                "hero_path_mis": hero_mod.li_hero_path_mis}
+                "hero_path_mis": hero_mod.li_hero_path_mis,
+                "bdpt": bdpt_mod.li_bdpt, "bdpt_t1": bdpt_mod.li_bdpt_t1}
+# integrators that read the camera (bdpt's first-segment density)
+_CAMERA_INTEGRATORS = ("bdpt", "bdpt_t1")
+_LIGHT_STRATEGIES = ("uniform", "power", "spatial")
 
 
 # pbrt_tpu's integrators the port has not yet, by ROADMAP queue 1 item
-_UNPORTED_INTEGRATORS = {"bdpt": "9c", "sppm": "9d", "mlt": "9d"}
+_UNPORTED_INTEGRATORS = {"sppm": "9d"}
 
 
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
@@ -314,17 +324,16 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
         raise NotImplementedError(
             f"integrator {cfg.integrator!r}: ROADMAP queue 1 item "
             f"{_UNPORTED_INTEGRATORS.get(cfg.integrator, '9')}")
-    if cfg.light_strategy not in ("uniform", "power"):
-        raise NotImplementedError(
-            f"light strategy {cfg.light_strategy!r}: ROADMAP queue 1 item "
-            "9c")
+    if cfg.light_strategy not in _LIGHT_STRATEGIES:
+        raise ValueError(f"unknown light strategy {cfg.light_strategy!r}")
     rays, pid, sidx, w_filt = camera_rays(cam, filt, cfg, width, height,
                                           chunk, spp_offset, device, crop)
     sfn = make_sampler(cfg.sampler, resolution=(width, height))
-    if power_distr is None and cfg.light_strategy == "power":
-        power_distr = lights_mod.power_distribution(scene.lights)
+    if power_distr is None:
+        power_distr = light_distribution(scene, cfg.light_strategy)
+    kw = {"cam": cam} if cfg.integrator in _CAMERA_INTEGRATORS else {}
     L = _INTEGRATORS[cfg.integrator](scene, rays.o, rays.d, pid, sidx, sfn,
-                                     cfg, power_distr)
+                                     cfg, power_distr, **kw)
     if check_finite and not bool(torch.isfinite(L).all()):
         raise FloatingPointError(
             f"non-finite radiance in the pass at spp offset {spp_offset}")
@@ -335,6 +344,27 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
     _, _, wc, hc = crop if crop is not None else (0, 0, width, height)
     img = contrib.reshape(chunk, wc * hc, -1).sum(0)
     return img.reshape(hc, wc, -1)
+
+
+def light_distribution(scene, strategy: str):
+    """The light-selection distribution of a strategy: None (uniform),
+    the power CDF, or the spatial voxel table
+    (scene/lightdistrib.py)."""
+    if strategy == "power":
+        return lights_mod.power_distribution(scene.lights)
+    if strategy == "spatial":
+        return lightdistrib.build_spatial_distribution(scene)
+    return None
+
+
+def _iparam(ip, name, default):
+    """One integrator parameter from the parser's Params bag (``.one``)
+    or a plain dict (programmatic callers)."""
+    if ip is None:
+        return default
+    if hasattr(ip, "one"):
+        return ip.one(name, default)
+    return ip.get(name, default)
 
 
 def crop_bounds(crop_window, width: int, height: int):
@@ -364,14 +394,37 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
     ``crop_window`` = (x0, x1, y0, y1) NDC fractions (Film "float
     cropwindow"); the image is then the cropped region only, with the
     full frame's samples. ``integrator_params`` is the scene file's
-    Integrator ParamSet, as pbrt_tpu's ``render`` takes it; the ported
-    integrators read nothing from it (pbrt_tpu reads it only for bdpt,
-    mlt and sppm). ``check_finite`` raises on the first pass whose
-    radiance holds a NaN or an infinity, before the clamp to black (the
-    CLI's ``--debug-nans``). ``progress`` (a
-    ``utils.progress.ProgressReporter``) advances by each pass's spp."""
-    del integrator_params   # read only by integrators not ported yet
+    Integrator ParamSet, as pbrt_tpu's ``render`` takes it: `mlt` reads
+    ``mutationsperpixel`` (default ``spp``), ``chains`` and
+    ``bootstrapsamples`` from it. ``check_finite`` raises on the first
+    pass whose radiance holds a NaN or an infinity, before the clamp to
+    black (the CLI's ``--debug-nans``). ``progress`` (a
+    ``utils.progress.ProgressReporter``) advances by each pass's spp.
+
+    As pbrt_tpu's ``render`` (and pbrt's MakeIntegrator, which lets bdpt
+    and mlt override Render), `bdpt` goes to ``bdpt.render_bdpt`` and
+    `mlt` to ``mlt.render_mlt``: both take the whole film, the box filter
+    and their own samplers, so the sampler, filter, chunk, light strategy
+    and crop window do not reach them."""
     device = require_device(device)
+    ip = integrator_params
+    if integrator in _UNPORTED_INTEGRATORS:
+        raise NotImplementedError(
+            f"integrator {integrator!r}: ROADMAP queue 1 item "
+            f"{_UNPORTED_INTEGRATORS[integrator]}")
+    if integrator == "bdpt":
+        return bdpt_mod.render_bdpt(scene, cam, spp=spp, max_depth=max_depth,
+                                    seed=seed, progress=progress,
+                                    device=device)
+    if integrator == "mlt":
+        from pbrt_tpu_torch.integrators import mlt as mlt_mod
+        # pbrt ignores the sampler's pixelsamples for MLT (mlt.cpp:270-276)
+        return mlt_mod.render_mlt(
+            scene, cam,
+            mutations_per_pixel=int(_iparam(ip, "mutationsperpixel", spp)),
+            n_chains=int(_iparam(ip, "chains", 4096)),
+            n_bootstrap=int(_iparam(ip, "bootstrapsamples", 16384)),
+            max_depth=max_depth, seed=seed, device=device)
     width, height = cam.resolution
     scene = to_device(scene, device)
     cam = to_device(cam, device)
@@ -396,12 +449,13 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
             if crop_window is not None else None)
     _, _, wc, hc = crop if crop is not None else (0, 0, width, height)
     img = torch.zeros((hc, wc, scene.n_channels), device=device)
+    power_distr = light_distribution(scene, light_strategy)
     done = 0
     while done < spp:
         c = min(chunk_spp, spp - done)
         img = img + render_pass(scene, cam, filt, cfg, width, height, c,
-                                done, device, crop=crop,
-                                check_finite=check_finite)
+                                done, device, power_distr=power_distr,
+                                crop=crop, check_finite=check_finite)
         done += c
         if progress is not None:
             progress.update(c)

@@ -152,6 +152,9 @@ def li_volpath(scene, o, d, pid, sidx, sfn, cfg, power_distr):
         or −d at a medium vertex."""
         u_sel = sfn(pid, sidx, dims["select"], cfg.seed)
         u_l = _sample2(sfn, pid, sidx, dims["light_u"], cfg.seed)
+        # no shading point, as in pbrt_tpu (volpath.py:128): under the
+        # spatial strategy every lane draws from the voxel that holds
+        # the world origin (unbiased; ROADMAP queue 3)
         light_idx, sel_pmf = common.choose_light(scene, u_sel, power_distr)
         ls = lights_mod.sample_li(scene, light_idx, p, u_l)
         ism = is_medium[..., None]

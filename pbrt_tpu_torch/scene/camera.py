@@ -1,5 +1,7 @@
 """Perspective (thin lens), orthographic and environment cameras (port of
-pbrt_tpu/scene/camera.py:33-164).
+pbrt_tpu/scene/camera.py:33-209): ray generation, and the perspective
+camera's importance (``camera_we``) and directional density
+(``camera_pdf_dir``) that bidirectional path tracing reads.
 
 Camera motion blur (shutter times) is not ported yet (ROADMAP queue 1
 item 8).
@@ -15,7 +17,7 @@ import torch
 
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
 from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.core.vecmath import Ray, make_ray, normalize
+from pbrt_tpu_torch.core.vecmath import Ray, length, make_ray, normalize
 
 PERSPECTIVE = 0
 ORTHOGRAPHIC = 1
@@ -122,3 +124,66 @@ def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor,
     d = torch.where(use_dof, d_dof, d)
     return make_ray(cam.cam_to_world.apply_point(o),
                     cam.cam_to_world.apply_vector(d))
+
+
+def _perspective_only(cam: Camera, what: str):
+    """pbrt_tpu's ``camera_we`` and ``camera_pdf_dir`` read the
+    perspective camera's screen window whatever the camera is, so they
+    return wrong values for the orthographic and environment cameras
+    (ROADMAP queue 3). The port raises instead."""
+    if cam.cam_type != PERSPECTIVE:
+        name = {ORTHOGRAPHIC: "orthographic",
+                ENVIRONMENT: "environment"}[cam.cam_type]
+        raise NotImplementedError(
+            f"{what} of an {name} camera: only the perspective camera has "
+            "an importance function (bidirectional path tracing needs it)")
+
+
+def _screen_area(cam: Camera) -> torch.Tensor:
+    """Area of the screen window at z = 1 in camera space."""
+    return ((cam.screen_max[0] - cam.screen_min[0]) * cam.fov_scale
+            * (cam.screen_max[1] - cam.screen_min[1]) * cam.fov_scale)
+
+
+def camera_pdf_dir(cam: Camera, ray_d_world: torch.Tensor) -> torch.Tensor:
+    """Directional density of GenerateRay for a perspective camera:
+    p(ω) = 1/(A·cos³θ) with A the screen area at z=1
+    (PerspectiveCamera::Pdf_We, cameras/perspective.cpp:158-176)."""
+    _perspective_only(cam, "the directional density")
+    d_cam = cam.cam_to_world.inverse().apply_vector(ray_d_world)
+    cos_theta = torch.clamp_min(
+        d_cam[..., 2] / torch.clamp_min(length(d_cam), 1e-9), 1e-4)
+    return 1.0 / (_screen_area(cam) * cos_theta ** 3)
+
+
+def camera_we(cam: Camera, ray_o: torch.Tensor, ray_d: torch.Tensor):
+    """Importance We(ray) + raster position (perspective.cpp:120-155).
+    Returns (we (R,), p_raster (R,2), valid (R,))."""
+    _perspective_only(cam, "the importance")
+    w2c = cam.cam_to_world.inverse()
+    d_cam = w2c.apply_vector(ray_d)
+    len_d = torch.clamp_min(length(d_cam), 1e-9)
+    cos_theta = d_cam[..., 2] / len_d
+    valid = cos_theta > 1e-6
+    o_cam = w2c.apply_point(ray_o)
+    ft = torch.where(cam.lens_radius > 0, cam.focal_distance, 1.0)
+    p_focus = o_cam + (ft / torch.clamp_min(cos_theta, 1e-6))[..., None] \
+        * d_cam / len_d[..., None]
+    z = torch.clamp_min(p_focus[..., 2], 1e-6)
+    sx = p_focus[..., 0] / z / cam.fov_scale
+    sy = p_focus[..., 1] / z / cam.fov_scale
+    ndc_x = (sx - cam.screen_min[0]) / (cam.screen_max[0]
+                                        - cam.screen_min[0])
+    ndc_y = (-sy - cam.screen_min[1]) / (cam.screen_max[1]
+                                         - cam.screen_min[1])
+    res_x, res_y = float(cam.resolution[0]), float(cam.resolution[1])
+    p_raster = torch.stack([ndc_x * res_x, ndc_y * res_y], dim=-1)
+    inside = ((p_raster[..., 0] >= 0) & (p_raster[..., 0] < res_x)
+              & (p_raster[..., 1] >= 0) & (p_raster[..., 1] < res_y))
+    valid = valid & inside
+    lens_area = torch.where(cam.lens_radius > 0,
+                            math.pi * cam.lens_radius ** 2, 1.0)
+    c2 = cos_theta * cos_theta
+    we = torch.where(valid, 1.0 / (_screen_area(cam) * lens_area * c2 * c2),
+                     0.0)
+    return we, p_raster, valid

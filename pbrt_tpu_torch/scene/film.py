@@ -123,3 +123,24 @@ def sample_filter_offset(filt: Filter, u: torch.Tensor):
     iy = (u[..., 1] * _N_TAB).to(torch.int32).clamp(0, _N_TAB - 1).long()
     off = torch.stack([filt.inv_cdf[ix], filt.inv_cdf_y[iy]], dim=-1)
     return off, filt.w_x[ix] * filt.w_y[iy]
+
+
+def splat(image: torch.Tensor, p_raster: torch.Tensor, value: torch.Tensor,
+          valid: torch.Tensor) -> torch.Tensor:
+    """Film::AddSplat analogue (film.h:83-87): scatter-add ``value``
+    (R, C) at the raster positions ``p_raster`` (R, 2) into a copy of
+    ``image`` (H, W, C); lanes where ``valid`` is false add zero.
+
+    One ``index_add_`` over the flattened pixels. On the card it sums
+    with atomics in no fixed order, so two runs may differ in the last
+    bits of a pixel that several lanes hit; sorting the lanes by pixel
+    first would fix the order at the price of a sort of every pass's 2^21
+    lanes, five times a chunk. The tests compare each lane's contribution
+    exactly and the summed film within a stated tolerance."""
+    h, w = image.shape[0], image.shape[1]
+    xi = p_raster[..., 0].to(torch.int32).clamp(0, w - 1).long()
+    yi = p_raster[..., 1].to(torch.int32).clamp(0, h - 1).long()
+    value = torch.where(valid[..., None], value, 0.0)
+    flat = image.reshape(h * w, -1).clone()
+    flat.index_add_(0, yi * w + xi, value)
+    return flat.reshape(image.shape)

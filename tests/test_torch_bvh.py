@@ -696,9 +696,10 @@ def reference_means():
     """pbrt_tpu's float32 image mean on the CPU backend for the render of
     ``_heightfield_cornell()`` that chip_smoke.py checks on the card (same
     scene, same sample streams). 64² × 4 spp: pbrt_tpu's CPU traversal of
-    133,130 triangles is too slow for 256² × 64 spp. Run this file as a
-    script from the root of the checkout, ``PYTHONPATH=. python
-    tests/test_torch_bvh.py``, to print it."""
+    133,130 triangles is too slow for 256² × 64 spp, so the full-width
+    render is held through its sample index 0, ``full_width_pass``. Run
+    this file as a script from the root of the checkout, ``PYTHONPATH=.
+    python tests/test_torch_bvh.py``, to print both."""
     js = jax_scene(entry._fill_heightfield_cornell)
     out = {"n_tri": js.n_tri}
     for res, spp in ((64, 4),):
@@ -709,7 +710,40 @@ def reference_means():
     return out
 
 
+# sample index 0 of chip_smoke.py's 256² × 64-spp BVH render (samples are
+# keyed by absolute index, so it is one 256² × 1-spp pass): its mean and
+# 16 × 16 block means (blocks of 16² pixels), from pbrt_tpu on the CPU
+FULL_WIDTH_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "torch_bvh_full_width.json")
+
+
+def full_width_pass():
+    """pbrt_tpu's CPU render of that pass: its image mean, block means and
+    the seconds it took (one jitted program; the tier-1 suite does not
+    run it). ``PYTHONPATH=. python tests/test_torch_bvh.py`` writes them
+    to FULL_WIDTH_FILE for chip_smoke.py."""
+    import time
+    js = jax_scene(entry._fill_heightfield_cornell)
+    t0 = time.perf_counter()
+    img = np.asarray(jrender.render(js, ge._camera((256, 256)), spp=1,
+                                    integrator="path", max_depth=4),
+                     np.float64)
+    seconds = time.perf_counter() - t0
+    return {"scene": "heightfield_cornell", "integrator": "path",
+            "res": 256, "spp_index": 0, "max_depth": 4,
+            "pbrt_tpu_cpu_seconds": seconds, "mean": float(img.mean()),
+            "blocks": img.reshape(16, 16, 16, 16, 3).mean((1, 3, 4)
+                                                          ).tolist()}
+
+
 if __name__ == "__main__":
+    import json
+
     import conftest  # noqa: F401  (pins JAX to the CPU backend)
     for key, mean in reference_means().items():
         print(key, repr(mean))
+    full = full_width_pass()
+    print("heightfield_cornell/path/256x256/sample 0", repr(full["mean"]),
+          f"({full['pbrt_tpu_cpu_seconds']:.1f} s)")
+    with open(FULL_WIDTH_FILE, "w") as f:
+        json.dump(full, f)
