@@ -197,6 +197,33 @@ Run from the root of a checkout, with no arguments:
    strategy of tests/test_lightdistrib.py's two-light scene against
    pbrt_tpu's mean (REF_SPATIAL_MEAN), its launches against the loop's
    count, and a second render with every query held to the twin.
+20. SPPM and two-keyframe motion blur. (a) The CLI as two subprocesses
+   at once: caustic with ``--integrator sppm`` at pbrt's defaults (64
+   iterations of the pixel count of photons, radius 1.0), its launches
+   ``sppm.queries_per_iteration`` an iteration, its image mean against
+   pbrt_tpu's at the same call to rel 1e-4 (REF_SPPM_CLI_MEAN) and its md
+   against the reference image recorded (pbrt_tpu's own is 0.2724 at that
+   radius); dofmotion at the file's 256 spp against its reference image
+   with tests/test_oracle.py's limits, every launch on the brute-force
+   kernel's motion variant, as many as the loop implies. (b) caustic with
+   tests/test_oracle.py's call (12 iterations of 65,536 photons, seed 1):
+   every query of one iteration held to the twin bit for bit, the launches
+   of the twelve, the time an iteration and the deposits' share (CUDA
+   events), md < 0.04. (c) The full-width cell: ``_sphere_cornell()`` at
+   256², 2^20 photons an iteration, 4 iterations: ms an iteration, peak
+   MiB, launches, one iteration's device time (device-only profiler),
+   idle share, and the deposit's device share (the same iteration
+   profiled with the deposit left out). (d) A 96² × 64-spp `path` pass
+   of dofmotion in process: every query on the motion variant held to its
+   twin bit for bit, its launches (counts set to 0 just before), the
+   camera rays' query timed against the twin and, in turns, against the
+   static kernel on the same rays. (e) Phase 10's heightfield file with
+   its cone moving (``ActiveTransform``; pbrt_tpu moves only
+   ``trianglemesh`` shapes): a BVH over both keyframes without spatial
+   splits, and a 256² × 32-spp `path` pass whose every traversal runs the
+   traversal kernel's motion variant, each held to its twin bit for bit,
+   the camera rays' query timed against the twin and, in turns, the
+   static kernel.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -226,6 +253,7 @@ from pbrt_tpu_torch.frontend import load_pbrt
 from pbrt_tpu_torch.integrators import bdpt as bdpt_mod
 from pbrt_tpu_torch.integrators import mlt as mlt_mod
 from pbrt_tpu_torch.integrators import render as render_mod
+from pbrt_tpu_torch.integrators import sppm as sppm_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import bvh_binary as bb
@@ -316,6 +344,21 @@ MLT_BOOT_BLOCK = 1 << 21
 # the spatial pass: two point lights, so a closest hit and the NEE ray a
 # full bounce, then the last bounce's closest hit
 SPATIAL_PER_PASS = MAX_DEPTH * 2 + 1
+# phase 20: SPPM on caustic at tests/test_oracle.py's call (iterations,
+# photons an iteration, seed) and its limit; the CLI at pbrt's defaults
+# (64 iterations, the pixel count of photons, radius 1.0, seed 0), held to
+# pbrt_tpu's image mean at the same call (`PYTHONPATH=.:tests python
+# tests/test_torch_sppm.py`, its jitted render_sppm on the CPU; its md
+# against the reference is 0.2724: the wide radius's estimate, not the
+# port's); the full-width cell (iterations,
+# photons an iteration on _sphere_cornell() at 256²)
+SPPM_ORACLE, SPPM_ORACLE_MD = (12, 1 << 16, 1), 0.04
+REF_SPPM_CLI_MEAN, SPPM_CLI_MEAN_REL = 0.05425266715198202, 1e-4
+SPPM_FULL = (4, 1 << 20)
+# dofmotion through the CLI at the file's 256 spp, tests/test_oracle.py's
+# limits (md, block rel-L1); the in-process pass of every query held
+DOFMOTION_SPP, DOFMOTION_LIMITS = 256, (0.01, 0.03)
+DOF_PASS_SPP = 64
 # pbrt_tpu's float32 CPU mean of a 256² × 32-spp `path` render of
 # tests/test_lightdistrib.py's two-light scene under the spatial strategy
 # (max_depth 4, seed 0), printed by ``PYTHONPATH=. python
@@ -450,6 +493,10 @@ OPS_TRI, OPS_SPH, OPS_PLN = 46, 31, 8
 # one slab test of bvh_traverse.cu: 6 subtracts, 6 multiplies, 10 min/max,
 # the conservative scale
 OPS_SLAB = 23
+# the motion variants' triangle test: OPS_TRI on the edges of the moved
+# vertices, plus the lerp v + time·dv (9 multiplies, 9 adds) and the
+# edges (6 subtracts)
+OPS_TRI_MOTION = OPS_TRI + 24
 # the brute-force kernel's designs timed in turns (bits of
 # ops/intersect.py); 0 has neither step
 INTERSECT_DESIGNS = ik.DESIGNS
@@ -912,13 +959,14 @@ def old_bvh_path():
         leaf_i[perm] = i_s
         return t, leaf_i
 
-    def tris(bvh, o, d, tmax):
+    # (static scenes only: ``time`` is None)
+    def tris(bvh, o, d, tmax, time=None):
         t, leaf_i = sorted_binary(bvh, o, d, tmax, False)
         hit = leaf_i >= 0
         return t, torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)],
                               -1), hit
 
-    def p_tris(bvh, o, d, tmax):
+    def p_tris(bvh, o, d, tmax, time=None):
         return sorted_binary(bvh, o, d, tmax, True)[1] >= 0
 
     saved = bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris
@@ -934,13 +982,14 @@ def plain_grid():
     """Inside the block the render path's BVH queries launch the 4-wide
     kernel on its plain grid (one thread per ray) in place of the
     persistent one."""
-    def tris(bvh, o, d, tmax):
+    # (static scenes only: ``time`` is None)
+    def tris(bvh, o, d, tmax, time=None):
         t, leaf_i = bk.bvh_traverse(bvh, o, d, tmax, False, persistent=False)
         hit = leaf_i >= 0
         return t, torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)],
                               -1), hit
 
-    def p_tris(bvh, o, d, tmax):
+    def p_tris(bvh, o, d, tmax, time=None):
         return bk.bvh_traverse(bvh, o, d, tmax, True, persistent=False)[1] >= 0
 
     saved = bvh_mod.bvh_intersect_tris, bvh_mod.bvh_intersect_p_tris
@@ -1669,8 +1718,8 @@ def recording_brute_force():
     calls = []
     inner = isect_mod._closest
 
-    def record(scene, o, d, tmax):
-        out = inner(scene, o, d, tmax)
+    def record(scene, o, d, tmax, time=None):
+        out = inner(scene, o, d, tmax, time)
         calls.append((ik.pack_scene(scene) + (
             o.detach().contiguous(), d.detach().contiguous(),
             tmax.detach().contiguous(), scene.n_tri, scene.n_sph,
@@ -2777,6 +2826,448 @@ def bdpt_files(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: SPPM and two-keyframe motion blur
+# ---------------------------------------------------------------------------
+
+def _loop_queries(scene, max_depth):
+    """Closest-hit queries of one generic-loop `path` pass (``_li_loop``):
+    a trace each bounce, NEE's trace each bounce but the last, and its
+    BSDF-strategy trace where a light takes it."""
+    half = int(render_mod.lights_mod.takes_bsdf_half(scene.lights))
+    return (max_depth + 1) + max_depth * (1 + half)
+
+
+def _cli_passes(width, height, spp):
+    """The passes of ``render`` on the card (its chunk of ≤ 2^21 lanes)."""
+    max_chunk = max(1, min(spp, 2_097_152 // (width * height) or 1))
+    chunk = -(-spp // -(-spp // max_chunk))
+    return -(-spp // chunk)
+
+
+@contextlib.contextmanager
+def recording_brute_motion():
+    """Record every query of the brute-force kernel's motion variant
+    (scene/intersect.py::_closest with shutter times on a scene with
+    motion) as (the twin's arguments, the kernel's outputs); the wrapper
+    still counts its launches."""
+    calls = []
+    inner = isect_mod._closest
+
+    def record(scene, o, d, tmax, time=None):
+        out = inner(scene, o, d, tmax, time)
+        if time is not None and scene.has_motion:
+            calls.append((ik.pack_scene(scene, motion=True) + (
+                o.detach().contiguous(), d.detach().contiguous(),
+                tmax.detach().contiguous(), scene.n_tri, scene.n_sph,
+                scene.n_pln, time.detach().contiguous()), out))
+        return out
+    isect_mod._closest = record
+    try:
+        yield calls
+    finally:
+        isect_mod._closest = inner
+
+
+def _hold_brute_motion(name, calls):
+    """Every recorded motion query against the motion twin, bit for bit;
+    returns the largest |t − t_twin|."""
+    worst = 0.0
+    for args, (t, prim) in calls:
+        t_ref, prim_ref = ik._intersect_reference(*args[:-1], time=args[-1])
+        worst = max(worst, float((t - t_ref).abs().max()))
+        check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
+              f"{name}: the motion variant differs from its twin "
+              f"({args[3].shape[0]} rays, t err {worst})")
+    return worst
+
+
+@contextlib.contextmanager
+def recording_traversal_motion():
+    """Record every query of the traversal kernel's motion variant as (its
+    arguments, its outputs); the wrapper still counts its launches."""
+    calls = []
+    inner = bk.bvh_traverse_motion
+
+    def record(bvh, o, d, tmax, time, any_hit):
+        out = inner(bvh, o, d, tmax, time, any_hit)
+        calls.append(((o.detach().clone(), d.detach().clone(),
+                       tmax.detach().clone(), time.detach().clone(),
+                       any_hit), out))
+        return out
+    record.launches = inner.launches
+    bk.bvh_traverse_motion = record
+    try:
+        yield calls
+    finally:
+        inner.launches = record.launches
+        bk.bvh_traverse_motion = inner
+
+
+def motion_intersect_bound(scene, n_rays):
+    """The motion variant: each ray read once (o, d, tmax, time: 32 B) and
+    written once (8 B), the 72-byte triangle rows and the other tables
+    once; every ray tests every primitive, a triangle test OPS_TRI_MOTION
+    operations."""
+    tabs = ik.pack_scene(scene, motion=True)
+    n_bytes = 40 * n_rays + sum(t.numel() * 4 for t in tabs)
+    n_ops = n_rays * (OPS_TRI_MOTION * scene.n_tri + OPS_SPH * scene.n_sph
+                      + OPS_PLN * scene.n_pln)
+    return bound_ms(n_bytes, n_ops)
+
+
+def motion_traverse_bound(bvh, n_rays, stats):
+    """The motion variant: each ray read once (32 B) and written once
+    (8 B), the nodes and the 80-byte motion records once; the slab and
+    triangle tests the twin counted on this run's rays."""
+    n_bytes = (40 * n_rays + bvh.nodes.numel() * 4
+               + bvh.tris_motion.numel() * 4)
+    n_ops = (OPS_SLAB * stats["slab_tests"]
+             + OPS_TRI_MOTION * stats["tri_tests"])
+    return bound_ms(n_bytes, n_ops)
+
+
+@contextlib.contextmanager
+def timing_deposits():
+    """CUDA events around every SPPM deposit (``sppm._deposit``) and the
+    (photon, entry) pairs it scanned; the deposit still runs."""
+    events = []
+    inner = sppm_mod._deposit
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        inner(*a, **kw)
+        ev[1].record()
+        events.append((ev, a[8]))
+    sppm_mod._deposit = timed
+    try:
+        yield events
+    finally:
+        sppm_mod._deposit = inner
+
+
+def write_moving_heightfield_file(path):
+    """Phase 10's heightfield file with its cone moving over the shutter
+    (``ActiveTransform EndTime`` + ``Translate``): pbrt_tpu moves only
+    ``trianglemesh`` shapes, so the cone moves and the heightfield stays;
+    the scene has motion, so its BVH is built over both keyframes and
+    every traversal with the rays' times runs the motion variant."""
+    write_heightfield_file(path)
+    with open(path) as f:
+        text = f.read()
+    cone = 'Material "matte" "rgb Kd" [0.3 0.4 0.7]\n'
+    check(text.count(cone) == 1, "the cone's block in the written file")
+    text = text.replace(cone, cone + "ActiveTransform EndTime\n"
+                        "Translate -0.08 0.02 0.04\nActiveTransform All\n")
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def sppm_motion_files(dev):
+    """Phase 20: SPPM and two-keyframe motion blur (see the module's
+    docstring). Returns the numbers for the JSON lines."""
+    out = {}
+    sppm_k = {"launches": 0, "max_abs_err": 0.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the two CLIs at once
+        t0 = time.perf_counter()
+        started = {
+            "sppm": start_cli("tests/oracle/caustic_oracle.pbrt",
+                              os.path.join(tmp, "s.pfm"), "--integrator",
+                              "sppm"),
+            "dofmotion": start_cli("tests/oracle/dofmotion_oracle.pbrt",
+                                   os.path.join(tmp, "d.pfm"), "--spp",
+                                   str(DOFMOTION_SPP))}
+        for name, pfm, ref_name in (("sppm", "s.pfm", "caustic_ref.pfm"),
+                                    ("dofmotion", "d.pfm",
+                                     "dofmotion_ref.pfm")):
+            sm = finish_cli(started[name])
+            img = imageio.read_pfm(os.path.join(tmp, pfm))
+            ref = imageio.read_pfm(f"tests/oracle/{ref_name}")
+            row = {k: sm[k] for k in ("render_s", "render_cuda_ms",
+                                      "process_s", "launches", "spp",
+                                      "mean", "integrator")}
+            row["md"] = _mean_delta(img, ref)
+            row["bl"] = _block_rel_l1(img, ref, k=16)
+            scene, cam, opts = load_pbrt(
+                "tests/oracle/" + ref_name.replace("_ref.pfm",
+                                                   "_oracle.pbrt"),
+                device=dev)
+            w, h = cam.resolution
+            lc = sm["launches"]
+            if name == "sppm":
+                want = 64 * sppm_mod.queries_per_iteration(
+                    opts["max_depth"], scene.lights)
+                got = lc["intersect_brute"]
+                check(lc["intersect_brute_motion"] == 0, f"sppm CLI {lc}")
+            else:
+                want = _cli_passes(w, h, DOFMOTION_SPP) * _loop_queries(
+                    scene, opts["max_depth"])
+                got = lc["intersect_brute_motion"]
+                check(lc["intersect_brute"] == 0, f"dofmotion CLI {lc}")
+            row["launches_expected"] = want
+            print(f"phase 20 CLI {name} (two at once): " + json.dumps(row))
+            check(img.shape == ref.shape and np.isfinite(img).all()
+                  and got == want and lc["fused_bounce"] == 0
+                  and lc["bvh_traverse"] == 0,
+                  f"{name} CLI: {img.shape}, launches {lc}, expected {want}")
+            if name == "dofmotion":
+                check(row["md"] < DOFMOTION_LIMITS[0]
+                      and row["bl"] < DOFMOTION_LIMITS[1],
+                      f"dofmotion md {row['md']:.4f} bl {row['bl']:.4f}")
+            else:
+                row["mean_rel"] = abs(row["mean"] / REF_SPPM_CLI_MEAN - 1.0)
+                check(row["mean_rel"] < SPPM_CLI_MEAN_REL,
+                      f"sppm CLI mean {row['mean']!r} against pbrt_tpu's "
+                      f"{REF_SPPM_CLI_MEAN!r}")
+            out[f"cli_{name}"] = row
+        out["cli_s"] = time.perf_counter() - t0
+
+    # (b) caustic with tests/test_oracle.py's call
+    scene, cam, opts = load_pbrt("tests/oracle/caustic_oracle.pbrt",
+                                 device=dev)
+    depth = opts["max_depth"]
+    per_it = sppm_mod.queries_per_iteration(depth, scene.lights)
+    with recording_brute_force() as calls:
+        sppm_mod.render_sppm(scene, cam, n_iterations=1,
+                             photons_per_iter=SPPM_ORACLE[1], max_depth=depth,
+                             seed=SPPM_ORACLE[2], device=dev)
+        torch.cuda.synchronize()
+    check(len(calls) == per_it, f"sppm: {len(calls)} queries an iteration, "
+          f"the code implies {per_it}")
+    held = _hold_brute("sppm caustic", calls)
+    del calls
+    ik.intersect_brute.launches = 0
+    ik.intersect_brute_motion.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with timing_deposits() as deps:
+        start.record()
+        img = sppm_mod.render_sppm(scene, cam, n_iterations=SPPM_ORACLE[0],
+                                   photons_per_iter=SPPM_ORACLE[1],
+                                   max_depth=depth, seed=SPPM_ORACLE[2],
+                                   device=dev)
+        stop.record()
+        torch.cuda.synchronize()
+    ref = imageio.read_pfm("tests/oracle/caustic_ref.pfm")
+    render_ms = start.elapsed_time(stop)
+    row = {"iterations": SPPM_ORACLE[0], "photons": SPPM_ORACLE[1],
+           "render_cuda_ms": render_ms,
+           "ms_per_iteration": render_ms / SPPM_ORACLE[0],
+           "launches": ik.intersect_brute.launches,
+           "launches_expected": SPPM_ORACLE[0] * per_it,
+           "held_queries": per_it, "kernel_vs_twin_max_abs_err": held,
+           "deposit_event_share": sum(a.elapsed_time(z) for (a, z), _ in deps)
+           / render_ms,
+           "pairs_per_iteration": sum(int(s.sum()) for _, s in deps)
+           / SPPM_ORACLE[0],
+           "md": _mean_delta(img.cpu().numpy(), ref)}
+    print("phase 20 sppm caustic (tests/test_oracle.py's call): "
+          + json.dumps(row))
+    check(row["launches"] == row["launches_expected"]
+          and ik.intersect_brute_motion.launches == 0,
+          f"sppm caustic launches {row['launches']}")
+    check(bool(torch.isfinite(img).all()) and row["md"] < SPPM_ORACLE_MD,
+          f"sppm caustic md {row['md']:.4f}")
+    out["caustic"] = row
+    sppm_k["launches"] += row["launches"]
+    sppm_k["max_abs_err"] = held
+    del scene, img
+
+    # (c) the full-width cell: _sphere_cornell() at 256², 2^20 photons
+    scene = entry._sphere_cornell(dev)
+    cam = entry._camera((W, H), dev)
+    n_it, n_ph = SPPM_FULL
+    per_it = sppm_mod.queries_per_iteration(MAX_DEPTH, scene.lights)
+
+    def full(n=n_it):
+        return sppm_mod.render_sppm(scene, cam, n_iterations=n,
+                                    photons_per_iter=n_ph,
+                                    max_depth=MAX_DEPTH, device=dev)
+    full(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    ik.intersect_brute.launches = 0
+    start.record()
+    with timing_deposits() as deps:
+        img = full()
+        stop.record()
+        torch.cuda.synchronize()
+    render_ms = start.elapsed_time(stop)
+    launches = ik.intersect_brute.launches
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - resident) / 2**20
+    one_ms = sync_ms(lambda: full(1), 1)
+    dev_ms, _, traces = device_ms_by_kernel(lambda: full(1), [], cpu=False)
+    inner = sppm_mod._deposit
+    sppm_mod._deposit = lambda *a, **kw: None
+    try:
+        dev_ms_nodep, _, _ = device_ms_by_kernel(lambda: full(1), [],
+                                                 cpu=False)
+    finally:
+        sppm_mod._deposit = inner
+    row = {"lanes": W * H, "photons": n_ph, "iterations": n_it,
+           "render_cuda_ms": render_ms, "ms_per_iteration": render_ms / n_it,
+           "launches": launches, "launches_expected": n_it * per_it,
+           "peak_mib": peak_mb, "one_iteration_ms": one_ms,
+           "one_iteration_device_ms": dev_ms,
+           "idle_share": 1.0 - dev_ms / one_ms,
+           "deposit_device_ms": dev_ms - dev_ms_nodep,
+           "deposit_device_share": (dev_ms - dev_ms_nodep) / dev_ms,
+           "deposit_event_share": sum(a.elapsed_time(z) for (a, z), _ in deps)
+           / render_ms,
+           "pairs_per_iteration": sum(int(s.sum()) for _, s in deps) / n_it,
+           "profile_traces": traces, "mean": float(img.double().mean())}
+    print(f"phase 20 sppm sphere_cornell {W}² × {n_ph} photons × {n_it} "
+          "iterations: " + json.dumps(row))
+    check(launches == n_it * per_it, f"full-width sppm launches {launches}")
+    check(img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+          and row["mean"] > 0.05, "the full-width sppm image")
+    out["full_width"] = row
+    sppm_k["full_width_launches"] = launches
+    del scene, img
+
+    # (d) dofmotion: one in-process 64-spp pass, every query held
+    scene, cam, opts = load_pbrt("tests/oracle/dofmotion_oracle.pbrt",
+                                 device=dev)
+    check(scene.has_motion and scene.bvh is None, "dofmotion's tables")
+    w, h = cam.resolution
+    filt = film_mod.make_filter("box", device=dev)
+    cfg = render_mod.RenderConfig(integrator="path", sampler="halton",
+                                  max_depth=opts["max_depth"])
+    per_pass = _loop_queries(scene, opts["max_depth"])
+
+    def dof_pass():
+        return render_mod.render_pass(scene, cam, filt, cfg, w, h,
+                                      DOF_PASS_SPP, 0, dev)
+    dof_pass()
+    ik.intersect_brute.launches = 0
+    ik.intersect_brute_motion.launches = 0
+    with recording_brute_motion() as calls:
+        start.record()
+        img = dof_pass()
+        stop.record()
+        torch.cuda.synchronize()
+    dof_launches = ik.intersect_brute_motion.launches
+    check(len(calls) == dof_launches == per_pass
+          and ik.intersect_brute.launches == 0,
+          f"dofmotion pass: {len(calls)} motion queries, launches "
+          f"{dof_launches} / {ik.intersect_brute.launches}, the loop "
+          f"implies {per_pass}")
+    dof_err = _hold_brute_motion("dofmotion pass", calls)
+    args = calls[0][0]
+    n_rays = args[3].shape[0]
+
+    def kern():
+        return ik.intersect_brute_motion(*args[:6], args[-1], *args[6:9])
+
+    def twin():
+        return ik._intersect_reference(*args[:-1], time=args[-1])
+    kern()
+    ms_k = sync_ms(kern, 5)
+    ms_t = sync_ms(twin, 1)
+    # the static kernel on the same rays (shutter time 0's rows), in turns
+    st = ik.pack_scene(scene)
+
+    def static():
+        return ik.intersect_brute(*st, *args[3:6], *args[6:9])
+    static()
+    turn = {"static": 0.0, "motion": 0.0}
+    for name, fn in (("static", static), ("motion", kern), ("motion", kern),
+                     ("static", static)):
+        turn[name] += sync_ms(fn, 5) / 2
+    ibound = motion_intersect_bound(scene, n_rays)
+    dof = {"spp": DOF_PASS_SPP, "lanes": n_rays, "launches": dof_launches,
+           "render_pass_cuda_ms": start.elapsed_time(stop),
+           "kernel_vs_twin_max_abs_err": dof_err, "kernel_ms": ms_k,
+           "twin_ms": ms_t, "turns_ms": turn, "bound_ms": ibound[0],
+           "bound_by": ibound[1], "mean": float(img.double().mean())
+           / DOF_PASS_SPP}
+    print(f"phase 20 dofmotion pass {w}² × {DOF_PASS_SPP} spp (every query "
+          "on the motion variant, each held to its twin; the camera rays' "
+          "query timed): " + json.dumps(dof))
+    check(bool(torch.isfinite(img).all()) and dof["mean"] > 0.01,
+          "the dofmotion pass")
+    out["dofmotion"] = dof
+    del calls, scene, img
+
+    # (e) a BVH scene with motion: the heightfield with a moving cone
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moving_heightfield.pbrt")
+        write_moving_heightfield_file(path)
+        scene, cam, opts = load_pbrt(path, device=dev)
+    check(scene.has_motion and scene.bvh is not None
+          and scene.bvh.built_by == "native-sah"
+          and scene.bvh.tris_motion is not None,
+          f"the moving heightfield: {scene.bvh.built_by}")
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=MAX_DEPTH)
+
+    def hf_pass():
+        return render_mod.render_pass(scene, cam, filt, cfg, W, H, CHUNK, 0,
+                                      dev)
+    hf_pass()
+    per = _loop_queries(scene, MAX_DEPTH)
+    bk.bvh_traverse.launches = 0
+    bk.bvh_traverse_motion.launches = 0
+    with recording_traversal_motion() as tcalls:
+        start.record()
+        img = hf_pass()
+        stop.record()
+        torch.cuda.synchronize()
+    hf_launches = bk.bvh_traverse_motion.launches
+    check(len(tcalls) == hf_launches == per
+          and bk.bvh_traverse.launches == 0,
+          f"moving heightfield: {len(tcalls)} motion traversals, "
+          f"{bk.bvh_traverse.launches} static, the loop implies {per}")
+    t_err, stats = 0.0, {}
+    for k, ((o, d, tmax, tm, any_hit), (t, i)) in enumerate(tcalls):
+        # the twin's test counts on the camera rays give the bound
+        t_ref, i_ref = bk.traverse_reference(scene.bvh, o, d, tmax, any_hit,
+                                             time=tm,
+                                             stats=stats if k == 0 else None)
+        t_err = max(t_err, float((t - t_ref).abs().max()))
+        check(torch.equal(t, t_ref) and torch.equal(i, i_ref),
+              f"moving heightfield: the motion variant differs from its "
+              f"twin (t err {t_err})")
+    (o, d, tmax, tm, _), _ = tcalls[0]
+    bvh = scene.bvh
+
+    def tkern():
+        return bk.bvh_traverse_motion(bvh, o, d, tmax, tm, False)
+
+    def ttwin():
+        return bk.traverse_reference(bvh, o, d, tmax, False, time=tm)
+
+    def tstatic():
+        return bk.bvh_traverse(bvh, o, d, tmax, False)
+    tkern()
+    tstatic()
+    tms_k = sync_ms(tkern, 5)
+    tms_t = sync_ms(ttwin, 1)
+    tturn = {"static": 0.0, "motion": 0.0}
+    for name, fn in (("static", tstatic), ("motion", tkern),
+                     ("motion", tkern), ("static", tstatic)):
+        tturn[name] += sync_ms(fn, 5) / 2
+    tbound = motion_traverse_bound(bvh, o.shape[0], stats)
+    hf = {"tris": scene.n_tri, "moving_tris": int(
+        (scene.geom.tri_dv0.abs().amax(-1) > 0).sum()), "lanes": W * H * CHUNK,
+        "launches": hf_launches, "render_pass_cuda_ms": start.elapsed_time(
+            stop), "kernel_vs_twin_max_abs_err": t_err,
+        "camera_kernel_ms": tms_k, "camera_twin_ms": tms_t,
+        "turns_ms": tturn, "bound_ms": tbound[0], "bound_by": tbound[1],
+        "twin_counts": stats, "mean": float(img.double().mean()) / CHUNK}
+    print(f"phase 20 moving heightfield, `path` {W}² × {CHUNK} spp (every "
+          "traversal on the motion variant, each held to its twin; the "
+          "camera rays' query timed): " + json.dumps(hf))
+    check(bool(torch.isfinite(img).all()) and hf["mean"] > 0.05,
+          "the moving heightfield pass")
+    out["bvh"] = hf
+    out["kernel"] = {"sppm": sppm_k}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3402,6 +3893,12 @@ def main():
     bdpt["phase_s"] = time.perf_counter() - t0
     print(f"bdpt phase {bdpt['phase_s']:.1f} s")
 
+    # ---- 20. SPPM and two-keyframe motion blur
+    t0 = time.perf_counter()
+    sm20 = sppm_motion_files(dev)
+    sm20["phase_s"] = time.perf_counter() - t0
+    print(f"sppm and motion phase {sm20['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -3452,7 +3949,27 @@ def main():
         # error over all the queries held (theirs, MLT's four-step run's
         # and the spatial pass's), the full-width chunk's, the MLT
         # render's and the spatial pass's launches
-        "bdpt_path": bdpt["kernel"]}, {
+        "bdpt_path": bdpt["kernel"],
+        # phase 20: SPPM's queries (its passes ignore time, as pbrt_tpu's):
+        # the oracle call's and the full-width cell's launches, the
+        # largest error over one iteration's queries
+        "sppm_path": sm20["kernel"]["sppm"]}, {
+        # the motion variant (18-float rows moved to each ray's time, one
+        # ray a thread, no early reject), as phase 20's dofmotion pass
+        # launches it; times and bound on that pass's camera rays, the
+        # static kernel on the same rays in turns
+        "name": "intersect_motion", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/intersect.cu",
+        "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
+        "launches": sm20["dofmotion"]["launches"],
+        "max_abs_err": sm20["dofmotion"]["kernel_vs_twin_max_abs_err"],
+        "ms": sm20["dofmotion"]["kernel_ms"],
+        "plain_ms": sm20["dofmotion"]["twin_ms"],
+        "bound_ms": sm20["dofmotion"]["bound_ms"],
+        "bound_by": sm20["dofmotion"]["bound_by"], "library_ms": None,
+        "static_turns_ms": sm20["dofmotion"]["turns_ms"],
+        "cli_launches": sm20["cli_dofmotion"]["launches"][
+            "intersect_brute_motion"]}, {
         # the render path's kernel as the render launches it; camera rays
         # of the heightfield tree in the callers' order (bounce and shadow
         # rays, the other grid and the L2 window in the lines above)
@@ -3473,6 +3990,20 @@ def main():
             "traverse_launches", "traverse_max_abs_err")},
         # phase 10's full-width render's sample index 0 against pbrt_tpu
         "full_width_sample0": bvh_full}, {
+        # the motion variant (80-byte records moved to each ray's time),
+        # as phase 20's moving-heightfield pass launches it; times and
+        # bound on that pass's camera rays, the static kernel on the same
+        # rays (the tree at shutter time 0) in turns
+        "name": "bvh_traverse_motion", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "pbrt_tpu/ops/bvh_pallas.py:98",
+        "launches": sm20["bvh"]["launches"],
+        "max_abs_err": sm20["bvh"]["kernel_vs_twin_max_abs_err"],
+        "ms": sm20["bvh"]["camera_kernel_ms"],
+        "plain_ms": sm20["bvh"]["camera_twin_ms"],
+        "bound_ms": sm20["bvh"]["bound_ms"],
+        "bound_by": sm20["bvh"]["bound_by"], "library_ms": None,
+        "static_turns_ms": sm20["bvh"]["turns_ms"]}, {
         # the render path's kernel before the 4-wide one, now the harness's
         # yardstick
         # (its launches: the harness run's); the same camera rays
@@ -3513,7 +4044,8 @@ def main():
         "bound_by": "bytes", "library_ms": probe["library_ms"],
         "device_ms": probe["device_ms"],
         "library_device_ms": probe["library_device_ms"]}],
-        "scene_files": files, "hero": hero, "bdpt": bdpt}))
+        "scene_files": files, "hero": hero, "bdpt": bdpt,
+        "sppm_motion": sm20}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,12 +11,14 @@ Textures (the table and its mip-atlas stack), instanced objects and media
 (with the per-prim media interface and the camera's medium; a legacy
 scene-global ``camera_medium`` becomes medium 0 of the camera) carry over,
 and so do subsurface scattering's ``has_sss`` and BSSRDF tables
-(subsurface and Disney scatterdistance rows). Only what the port models is
-carried: a scene with curves, Fourier or hair rows, or motion raises. A
-BVH carries over as its flat
-node arrays and leaf-ordered triangles, repacked by the port into its own
-traversal layouts (pbrt_tpu's packet-kernel tables are left behind), so
-both packages walk the same tree; a kd-tree raises. This is the tests'
+(subsurface and Disney scatterdistance rows) and two-keyframe motion
+(``has_motion``, the triangles' ``tri_dv0..2``, an animated camera's
+keyframes and the shutter). Only what the port models is carried: a
+scene with curves, Fourier or hair rows raises. A BVH carries over as its
+flat node arrays and leaf-ordered triangles (with their motion, read from
+its 18-column rows), repacked by the port into its own traversal layouts
+(pbrt_tpu's packet-kernel tables are left behind), so both packages walk
+the same tree; a kd-tree raises. This is the tests'
 tool for feeding both packages one scene, so it defaults to the CPU, where
 JAX runs there; the port's own entry points default to the card.
 """
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
-from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.core.transform import AnimatedTransform, Transform
 from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene.camera import Camera
 from pbrt_tpu_torch.scene.film import Filter
@@ -55,12 +57,15 @@ def bvh_from_jax(bvh, device="cpu"):
         raise NotImplementedError(
             f"bridge: accelerator {type(bvh).__name__} is not ported "
             "(scene/kdtree.py: ROADMAP queue 1 item 6)")
-    if np.asarray(bvh.tri9).shape[-1] != 9:
-        raise NotImplementedError("bridge: a motion-blur BVH is not ported "
-                                  "(ROADMAP queue 1 item 8)")
+    tri9 = np.asarray(bvh.tri9)
+    n = np.asarray(bvh.prim_order).shape[0]
+    dv = None
+    if tri9.shape[-1] == 18:
+        # a motion tree: the leaf-ordered motion in columns 9-17
+        dv = tuple(tri9[:n, c:c + 3] for c in (9, 12, 15))
     return _finish_flat(*(np.asarray(getattr(bvh, k)) for k in (
         "lo", "hi", "right", "count", "axis", "prim_order", "v0", "v1",
-        "v2")), device=device, built_by="bridge")
+        "v2")), device=device, built_by="bridge", dv=dv)
 
 
 def _fields_from_jax(cls, obj, device, **static):
@@ -101,13 +106,12 @@ def sss_from_jax(tabs, device="cpu"):
 
 
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {"n_crv": getattr(scene, "n_crv", 0)}
-    extra.update({k: bool(getattr(scene, k, False))
-                  for k in ("has_motion", "fourier")})
+    extra = {"n_crv": getattr(scene, "n_crv", 0),
+             "fourier": bool(getattr(scene, "fourier", False))}
     if any(extra.values()):
         raise NotImplementedError(
-            f"bridge: curves, Fourier tables and motion are not ported "
-            f"({extra})")
+            f"bridge: curves and Fourier tables are not ported ({extra})")
+    has_motion = bool(scene.has_motion)
     media = tuple(medium_from_jax(m, device) for m in scene.media)
     camera_med = int(scene.camera_med)
     if not media and getattr(scene, "camera_medium", None) is not None:
@@ -120,7 +124,8 @@ def scene_from_jax(scene, device="cpu") -> Scene:
             "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
             "tri_uv0", "tri_uv1", "tri_uv2", "sph_center", "sph_radius",
             "pln_lo", "pln_hi", "pln_ax", "pln_facing", "dsk_center",
-            "dsk_normal", "dsk_radius", "dsk_inner")}),
+            "dsk_normal", "dsk_radius", "dsk_inner")
+            + (("tri_dv0", "tri_dv1", "tri_dv2") if has_motion else ())}),
         prim_mat=_t(scene.prim_mat, device),
         prim_light=_t(scene.prim_light, device),
         materials=materials_from_jax(scene.materials, device),
@@ -148,7 +153,8 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         n_vprims=int(scene.n_vprims), media=media,
         prim_med_in=_t(scene.prim_med_in, device),
         prim_med_out=_t(scene.prim_med_out, device), camera_med=camera_med,
-        has_sss=bool(scene.has_sss), sss=sss_from_jax(scene.sss, device))
+        has_sss=bool(scene.has_sss), sss=sss_from_jax(scene.sss, device),
+        has_motion=has_motion)
 
 
 def materials_from_jax(m, device="cpu") -> MaterialTable:
@@ -170,18 +176,20 @@ def materials_from_jax(m, device="cpu") -> MaterialTable:
 
 
 def camera_from_jax(cam, device="cpu") -> Camera:
-    if getattr(cam, "anim", None) is not None:
-        raise NotImplementedError("bridge: a moving camera is not ported "
-                                  "(motion blur: ROADMAP queue 1 item 8)")
     res = np.asarray(cam.resolution)
+    anim = None
+    if getattr(cam, "anim", None) is not None:
+        anim = AnimatedTransform(**{
+            f.name: _t(getattr(cam.anim, f.name), device).to(torch.float32)
+            for f in dataclasses.fields(AnimatedTransform)})
     return Camera(
         cam_type=int(np.asarray(cam.cam_type)),
         cam_to_world=Transform(_t(cam.cam_to_world.m, device),
                                _t(cam.cam_to_world.m_inv, device)),
         **{k: _t(getattr(cam, k), device).to(torch.float32) for k in (
             "screen_min", "screen_max", "lens_radius", "focal_distance",
-            "fov_scale")},
-        resolution=(int(res[0]), int(res[1])))
+            "fov_scale", "shutter_open", "shutter_close")},
+        resolution=(int(res[0]), int(res[1])), anim=anim)
 
 
 def filter_from_jax(filt, device="cpu") -> Filter:

@@ -59,6 +59,13 @@
 //     time by under 1%, so the eager torch between two launches does not
 //     evict the tree.
 //
+// Two-keyframe motion blur: bvh_traverse_motion_kernel walks the same
+// nodes (their bounds cover both keyframes) over 80-byte leaf records that
+// hold the vertices and their motion; the leaf step moves them to the
+// ray's shutter time and forms the edges from the moved vertices. It runs
+// on the persistent grid; the static instantiations compile as before
+// (trace's MOTION parameter is false there).
+//
 // Numerics follow the plain-torch twin (ops/bvh.py::_traverse_wide_reference)
 // operation by operation: inv_d = 1 / (|d| > 1e-12 ? d : 1e-12), a child is
 // entered when tn <= tf*gscale && tf*gscale > 0 && tn < best_t, the triangle
@@ -83,7 +90,14 @@ __device__ __forceinline__ float word_of(const float4& v, int c) {
   return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
 }
 
-template <bool ANY_HIT, bool COUNT>
+// The leaf records of the motion variant: 80 bytes, five float4
+// [v0.xyz v1.x] [v1.yz v2.xy] [v2.z dv0.xyz] [dv1.xyz dv2.x] [dv2.yz pad pad]
+// (ops/bvh.py::_motion_records); the vertices are moved to the ray's time
+// before the test, v + time * dv, and the edges formed from the moved
+// vertices (pbrt_tpu/scene/bvh.py::_traverse_batch).
+constexpr int kMotionF4 = 5;
+
+template <bool ANY_HIT, bool COUNT, bool MOTION = false>
 __device__ __forceinline__ void trace(int r, const float4* __restrict__ nodes,
                                       const float4* __restrict__ tris,
                                       const float* __restrict__ o,
@@ -91,7 +105,9 @@ __device__ __forceinline__ void trace(int r, const float4* __restrict__ nodes,
                                       const float* __restrict__ tmax,
                                       float* __restrict__ t_out,
                                       int* __restrict__ i_out, int cnt_bits,
-                                      float gscale) {
+                                      float gscale,
+                                      const float* __restrict__ time =
+                                          nullptr) {
   const float ox = o[3 * r + 0], oy = o[3 * r + 1], oz = o[3 * r + 2];
   const float dx = d[3 * r + 0], dy = d[3 * r + 1], dz = d[3 * r + 2];
   // a tiny negative component becomes +1e12, as in the TPU kernel
@@ -112,6 +128,32 @@ __device__ __forceinline__ void trace(int r, const float4* __restrict__ nodes,
     const int target = e >> cnt_bits;
     if (cnt > 0) {
       if (COUNT) ++n_leaf;
+      if (MOTION) {
+        const float tm = time[r];
+        const float4* rec = tris + kMotionF4 * (size_t)target;
+        for (int k = 0; k < cnt; ++k) {
+          const float4 p = __ldg(rec + kMotionF4 * k),
+                       q = __ldg(rec + kMotionF4 * k + 1),
+                       s = __ldg(rec + kMotionF4 * k + 2),
+                       u = __ldg(rec + kMotionF4 * k + 3),
+                       v = __ldg(rec + kMotionF4 * k + 4);
+          const float w0x = p.x + tm * s.y, w0y = p.y + tm * s.z,
+                      w0z = p.z + tm * s.w;
+          const float w1x = p.w + tm * u.x, w1y = q.x + tm * u.y,
+                      w1z = q.y + tm * u.z;
+          const float w2x = q.z + tm * u.w, w2y = q.w + tm * v.x,
+                      w2z = s.x + tm * v.y;
+          float t;
+          if (ray_tri_hit(ox, oy, oz, dx, dy, dz, w0x, w0y, w0z, w1x - w0x,
+                          w1y - w0y, w1z - w0z, w2x - w0x, w2y - w0y,
+                          w2z - w0z, best_t, t)) {
+            best_t = t;
+            best_i = target + k;
+          }
+        }
+        if (ANY_HIT && best_i >= 0) break;
+        continue;
+      }
       const float4* rec = tris + 3 * (size_t)target;
       for (int k = 0; k < cnt; ++k) {
         const float4 p = __ldg(rec + 3 * k), q = __ldg(rec + 3 * k + 1),
@@ -195,6 +237,56 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// The motion variant on the persistent grid (the render path's only
+// grid): lane 0 of each warp takes the next 32 rays, as above.
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(kBlock)
+    bvh_traverse_motion_kernel(const float4* __restrict__ nodes,
+                               const float4* __restrict__ tris,
+                               const float* __restrict__ o,
+                               const float* __restrict__ d,
+                               const float* __restrict__ tmax,
+                               const float* __restrict__ time,
+                               float* __restrict__ t_out,
+                               int* __restrict__ i_out, int R, int cnt_bits,
+                               float gscale, int* next_ray) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(next_ray, 32);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= R) return;  // the same for every lane of the warp
+    const int r = first + lane;
+    if (r < R)
+      trace<ANY_HIT, false, true>(r, nodes, tris, o, d, tmax, t_out, i_out,
+                                  cnt_bits, gscale, time);
+  }
+}
+
+template <bool ANY_HIT>
+int launch_motion(const float4* nodes, const float4* tris, const float* o,
+                  const float* d, const float* tmax, const float* time,
+                  float* t_out, int* i_out, int R, int cnt_bits, float gscale,
+                  int* next_ray, cudaStream_t stream) {
+  auto kern = bvh_traverse_motion_kernel<ANY_HIT>;
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kBlock, 0)) != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  if (per_sm < 1) per_sm = 1;
+  int blocks = (R + kBlock - 1) / kBlock;
+  if (blocks > sms * per_sm) blocks = sms * per_sm;
+  kern<<<blocks, kBlock, 0, stream>>>(nodes, tris, o, d, tmax, time, t_out,
+                                      i_out, R, cnt_bits, gscale, next_ray);
+  return (int)cudaGetLastError();
+}
+
 struct Args {
   const float4 *nodes, *tris;
   const float *o, *d, *tmax;
@@ -273,6 +365,31 @@ extern "C" int bvh_traverse_launch(const float* nodes, const float* tris,
                       : launch_grid<true, false>(a);
   return count_mode ? launch_grid<false, true>(a)
                     : launch_grid<false, false>(a);
+}
+
+// Launches the motion variant on `stream` for R rays of shutter times
+// time[R], over 80-byte motion leaf records (`tris`), on the persistent grid
+// (next_ray: a zeroed int on the card); returns the CUDA error code of the
+// launch (0 = success), or cudaErrorInvalidValue for sizes it does not take.
+// Allocates nothing and does not synchronise.
+extern "C" int bvh_traverse_motion_launch(const float* nodes,
+                                          const float* tris, const float* o,
+                                          const float* d, const float* tmax,
+                                          const float* time, float* t_out,
+                                          int* i_out, int R, int cnt_bits,
+                                          float gscale, int any_hit,
+                                          int* next_ray, void* stream) {
+  if (R <= 0 || R >= (1 << 30) || cnt_bits < 1 || cnt_bits > 30 ||
+      next_ray == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const auto n4 = reinterpret_cast<const float4*>(nodes);
+  const auto t4 = reinterpret_cast<const float4*>(tris);
+  const auto st = (cudaStream_t)stream;
+  return any_hit ? launch_motion<true>(n4, t4, o, d, tmax, time, t_out, i_out,
+                                       R, cnt_bits, gscale, next_ray, st)
+                 : launch_motion<false>(n4, t4, o, d, tmax, time, t_out,
+                                        i_out, R, cnt_bits, gscale, next_ray,
+                                        st);
 }
 
 // The kernel-experiment harness's L2 experiment

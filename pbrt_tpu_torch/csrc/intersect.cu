@@ -45,6 +45,11 @@
 // (one per ray skips more); a probe of each tile's first rows that kept the
 // reject only where it paid, slower than the reject alone in every pass.
 //
+// Two-keyframe motion blur has its own kernel in this file,
+// intersect_motion_kernel (below, with its own entry point): 18-float rows
+// moved to each ray's shutter time, one ray a thread, no early reject. It
+// leaves the designs above and tri_sweep.cuh untouched.
+//
 // Numerics follow the plain-torch twin (ops/intersect.py
 // ::_intersect_reference) operation by operation: build with --fmad=false
 // and without fast math, so no multiply-add is contracted and division and
@@ -254,6 +259,86 @@ __global__ void __launch_bounds__(kBlock) intersect_kernel(const Args a) {
   }
 }
 
+// ---- the motion variant (two-keyframe motion blur)
+//
+// A triangle row is 18 floats, v0 v1 v2 dv0 dv1 dv2 (ops/intersect.py
+// ::pack_scene with motion), and each ray carries its shutter time. The
+// triangle step first moves the row's vertices to the ray's time, v + time
+// * dv (pbrt_tpu/scene/intersect.py::_tri_verts), then forms the edges
+// e1 = v1 - v0, e2 = v2 - v0 from the moved vertices and runs tri_sweep.cuh's
+// step on them, as pbrt_tpu's intersect_triangles does on its (R, T, 3)
+// vertices. Each lane has its own row, so the warp-wide early reject, which
+// votes on one row for 32 rays, has no place here: the variant is one ray a
+// thread without the reject (tri_step<1, false>), and the sphere and aaplane
+// sweeps are design 0's (spheres and aaplanes do not move). The static
+// designs above are untouched. 18 floats a row in 18 KB tiles: 256 rows a
+// tile.
+constexpr int kMotionFloats = 18;
+
+struct MotionArgs {
+  const float *tri, *sph, *pln, *o, *d, *tmax, *time;
+  float* t_out;
+  int* prim_out;
+  int R, n_tri, n_sph, n_pln;
+};
+
+__global__ void __launch_bounds__(kBlock)
+    intersect_motion_kernel(const MotionArgs a) {
+  __shared__ float4 tile4[kTileFloats / 4];
+  float* tile = reinterpret_cast<float*>(tile4);
+  constexpr int kTri = kTileFloats / kMotionFloats;
+  constexpr int kSph = kTileFloats / 4;
+  constexpr int kPln = kTileFloats / 8;
+  const int r = blockIdx.x * kBlock + threadIdx.x;
+  Rays<1> ray;
+  float best_t[1] = {0.0f};  // past R: can never hit
+  int best_p[1] = {-1};
+  float tm = 0.0f;
+  ray.ox[0] = ray.oy[0] = ray.oz[0] = 0.0f;
+  ray.dx[0] = ray.dy[0] = ray.dz[0] = 1.0f;
+  if (r < a.R) {
+    ray.ox[0] = a.o[3 * r + 0];
+    ray.oy[0] = a.o[3 * r + 1];
+    ray.oz[0] = a.o[3 * r + 2];
+    ray.dx[0] = a.d[3 * r + 0];
+    ray.dy[0] = a.d[3 * r + 1];
+    ray.dz[0] = a.d[3 * r + 2];
+    best_t[0] = fminf(a.tmax[r], kBig);
+    tm = a.time[r];
+  }
+  for (int base = 0; base < a.n_tri; base += kTri) {
+    const int n = min(kTri, a.n_tri - base);
+    load_tile(tile, a.tri + kMotionFloats * base, n, kMotionFloats,
+              kMotionFloats);
+    for (int i = 0; i < n; ++i) {
+      const float* s = tile + kMotionFloats * i;
+      const float w0x = s[0] + tm * s[9], w0y = s[1] + tm * s[10],
+                  w0z = s[2] + tm * s[11];
+      const float w1x = s[3] + tm * s[12], w1y = s[4] + tm * s[13],
+                  w1z = s[5] + tm * s[14];
+      const float w2x = s[6] + tm * s[15], w2y = s[7] + tm * s[16],
+                  w2z = s[8] + tm * s[17];
+      const TriRow w{w0x,       w0y,       w0z,       w1x - w0x, w1y - w0y,
+                     w1z - w0z, w2x - w0x, w2y - w0y, w2z - w0z};
+      tri_sweep::tri_step<1, false>(w, ray, base + i, best_t, best_p);
+    }
+  }
+  for (int base = 0; base < a.n_sph; base += kSph) {
+    const int n = min(kSph, a.n_sph - base);
+    load_tile(tile, a.sph + 4 * base, n, 4, 4);
+    sweep_sphs<1, false>(tile, n, a.n_tri + base, ray, best_t, best_p);
+  }
+  for (int base = 0; base < a.n_pln; base += kPln) {
+    const int n = min(kPln, a.n_pln - base);
+    load_tile(tile, a.pln + 8 * base, n, 8, 8);
+    sweep_plns<1>(tile, n, a.n_tri + a.n_sph + base, ray, best_t, best_p);
+  }
+  if (r < a.R) {
+    a.t_out[r] = best_t[0];
+    a.prim_out[r] = best_p[0];
+  }
+}
+
 template <int NP, bool REJECT>
 int launch(const Args& a, cudaStream_t stream) {
   const int per_block = kBlock * NP;
@@ -287,4 +372,20 @@ extern "C" int intersect_launch(const float* tri, const float* sph,
     case kTwo | kReject: return launch<2, true>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Launches the motion variant on `stream` for R rays of shutter times
+// time[R] against 18-float triangle rows; returns the CUDA error code of
+// the launch (0 = success). Allocates nothing and does not synchronise.
+extern "C" int intersect_motion_launch(const float* tri, const float* sph,
+                                       const float* pln, const float* o,
+                                       const float* d, const float* tmax,
+                                       const float* time, float* t_out,
+                                       int* prim_out, int R, int n_tri,
+                                       int n_sph, int n_pln, void* stream) {
+  const MotionArgs a{tri, sph, pln, o, d, tmax, time, t_out, prim_out,
+                     R, n_tri, n_sph, n_pln};
+  const int blocks = (R + kBlock - 1) / kBlock;
+  intersect_motion_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

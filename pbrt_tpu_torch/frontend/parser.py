@@ -19,7 +19,12 @@ are read as pbrt_tpu reads them, and so are the subsurface, kdsubsurface
 scatterdistance materials. Everything pbrt_tpu's parser reads and the
 port cannot build yet raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item, at the directive that asks for it: curves, the hair and
-fourier materials, emissive disks, motion blur and the kd-tree. A
+fourier materials, emissive disks and the kd-tree. Motion blur is read
+as pbrt_tpu reads it: ``ActiveTransform`` picks which of the two CTMs
+(shutter start and end) a directive changes, a ``trianglemesh`` under
+differing CTMs gets shutter-end vertices (an emissive one stays at the
+start, as in pbrt_tpu), and differing CTMs at ``Camera`` make an
+animated camera over ``TransformTimes`` (default 0 to 1). A
 ``spectrum_cfg`` of SAMPLED builds a 60-bin scene
 as pbrt_tpu's does: each spectrum-typed parameter resolves to RGB first
 (``Params.spectrum_rgb``) and the builder lifts it to 60 bins
@@ -27,12 +32,13 @@ as pbrt_tpu's does: each spectrum-typed parameter resolves to RGB first
 integrator keyword the port lacks raises when the scene is rendered, so
 ``--cat`` still reads such a file. What pbrt_tpu's parser itself skips,
 or records and never reads (unknown directives, shapes, light types and
-parameters, ReverseOrientation, TransformTimes), is skipped here too.
+parameters, ReverseOrientation), is skipped here too.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import re
 from dataclasses import dataclass, field
@@ -273,8 +279,14 @@ class PbrtParser:
         v = self.ctm @ np.append(np.asarray(p, np.float64), 1.0)
         return tuple(v[:3] / v[3])
 
-    def _xf_points(self, pts):
-        return np.stack([self._xf_point(q) for q in pts])
+    def _xf_points(self, pts, ctm=None):
+        """Points through the CTM, or through ``ctm`` (the end CTM)."""
+        m = self.ctm if ctm is None else ctm
+        out = []
+        for q in pts:
+            v = m @ np.append(np.asarray(q, np.float64), 1.0)
+            out.append(tuple(v[:3] / v[3]))
+        return np.stack(out)
 
     def _xf_vec(self, p):
         return tuple(self.ctm[:3, :3] @ np.asarray(p, np.float64))
@@ -351,6 +363,13 @@ class PbrtParser:
         which = nxt().strip('"')
         self.active = {"All": (True, True), "StartTime": (True, False),
                        "EndTime": (False, True)}.get(which, (True, True))
+
+    def _d_TransformTimes(self, tokens, peeked, nxt):
+        """pbrtTransformTimes (core/api.cpp): the times of the two CTMs,
+        which an animated camera interpolates between."""
+        t0 = float(nxt())
+        t1 = float(nxt())
+        self.options["transform_times"] = (t0, t1)
 
     def _matrix_vals(self, tokens, nxt):
         t = nxt()
@@ -842,8 +861,10 @@ class PbrtParser:
             idx = np.asarray(p["indices"][1], np.int32).reshape(-1, 3)
             pts = np.asarray(p["P"][1], np.float64).reshape(-1, 3)
             pts_w = self._xf_points(pts)
-            if self.animated:
-                _unported("an animated shape transform (motion blur)", 8)
+            # an animated shape transform: the vertices at the shutter end
+            # (TransformedPrimitive + AnimatedTransform, api.cpp:1414)
+            pts_w_end = (self._xf_points(pts, self.ctm2) if self.animated
+                         else None)
             normals = None
             if "N" in p:
                 normals = self._xf_normals(
@@ -854,7 +875,7 @@ class PbrtParser:
                     uvs = np.asarray(p[uk][1], np.float64).reshape(-1, 2)
             if gs.area_light is None:
                 b.add_mesh(pts_w, idx, mat=mat, light=-1, normals=normals,
-                           uvs=uvs)
+                           uvs=uvs, vertices_end=pts_w_end)
                 return
             # one light row per triangle (pbrt: one DiffuseAreaLight per
             # Triangle shape)
@@ -959,9 +980,8 @@ class PbrtParser:
             _unported("Accelerator 'kdtree' (scene/kdtree.py)", 6)
         name, cp = opts["camera"]
         c2w = np.asarray(opts["camera_to_world"], np.float64)
-        if not np.allclose(c2w, np.asarray(
-                opts.get("camera_to_world_end", c2w), np.float64)):
-            _unported("an animated camera (motion blur)", 8)
+        c2w_end = np.asarray(opts.get("camera_to_world_end", c2w),
+                             np.float64)
         # the camera's pixel spread picks the imagemaps' mip level (MIPMap
         # width from ray differentials, core/camera.cpp's 1-pixel offset)
         tex_spread = 0.0
@@ -983,12 +1003,21 @@ class PbrtParser:
             cam = cam_mod.make_perspective(
                 c2w_t, cp.one("fov", 90.0), res,
                 lens_radius=cp.one("lensradius", 0.0),
-                focal_distance=cp.one("focaldistance", 1e6), device=dev)
+                focal_distance=cp.one("focaldistance", 1e6), device=dev,
+                shutter_open=cp.one("shutteropen", 0.0),
+                shutter_close=cp.one("shutterclose", 1.0))
         elif name == "orthographic":
-            # as pbrt_tpu: the aspect's screen window, no lens
+            # as pbrt_tpu: the aspect's screen window, no lens, the
+            # default shutter
             cam = cam_mod.make_orthographic(c2w_t, res, device=dev)
         else:
             cam = cam_mod.make_environment(c2w_t, res, device=dev)
+        if not np.allclose(c2w, c2w_end):
+            # an animated camera (api.cpp:814): the camera-to-world
+            # interpolated per ray over [TransformTimes t0, t1]
+            tt = opts.get("transform_times", (0.0, 1.0))
+            cam = dataclasses.replace(cam, anim=tr.make_animated(
+                c2w, c2w_end, t_start=tt[0], t_end=tt[1], device=dev))
         opts["integrator"] = _INTEGRATORS.get(opts["integrator"], "path")
         opts["max_depth"] = opts["integrator_params"].one("maxdepth", 5)
         return scene, cam, opts

@@ -78,13 +78,14 @@ def choose_light(scene, u, power_distr=None, p=None):
 # traced emission: radiance arriving from the first hit along wi
 # ---------------------------------------------------------------------------
 
-def trace_radiance(scene, p, ns, wi):
-    """Closest-hit trace from (offset) p along wi; returns (hit, Le (R,C),
+def trace_radiance(scene, p, ns, wi, time=None):
+    """Closest-hit trace from (offset) p along wi, at the rays' shutter
+    times ``time`` on a scene with motion; returns (hit, Le (R,C),
     light_id) where Le is the emission of whatever was hit, toward p
     (lightIsect.Le(-wi) in portal_arealight.cpp:140-148)."""
     o = vecmath.offset_ray_origin(p, ns, wi)
     tmax = torch.full(p.shape[:1], vecmath.INF, device=p.device)
-    hit = isect_mod.intersect(scene, o, wi, tmax)
+    hit = isect_mod.intersect(scene, o, wi, tmax, time=time)
     light_id = scene.light_at(hit.prim_id)
     light_id = torch.where(hit.valid, light_id, -1)
     g = lights_mod.gather_lights(scene.lights, light_id.clamp_min(0))
@@ -98,7 +99,8 @@ def trace_radiance(scene, p, ns, wi):
 # ---------------------------------------------------------------------------
 
 def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
-                    u_bsdf_lobe, power_distr=None, with_bsdf_half=True):
+                    u_bsdf_lobe, power_distr=None, with_bsdf_half=True,
+                    time=None):
     """One-light NEE estimate at shading points ``hit`` with materials
     ``mp`` (gathered rows), kd resolved through the rows' textures.
     Returns Ld (R,C).
@@ -110,7 +112,9 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
 
     The BSDF-strategy half only ever contributes for an area light
     without portals or an infinite light; a scene with neither skips its
-    trace."""
+    trace. ``time``: the rays' shutter times on a scene with motion, which
+    both traces take (the light samples themselves do not move, as in
+    pbrt_tpu)."""
     lt = scene.lights
     light_idx, sel_pmf = choose_light(scene, u_select, power_distr,
                                       p=hit.p)
@@ -155,7 +159,8 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
         pdf_nee = ls["pdf"]
 
     # ---- one closest-hit trace serves visibility AND portal emission
-    hit2, le2, hit2_light = trace_radiance(scene, hit.p, hit.ns, wi_nee)
+    hit2, le2, hit2_light = trace_radiance(scene, hit.p, hit.ns, wi_nee,
+                                           time=time)
 
     # received radiance per branch
     dist = vecmath.length(ls["p_light"] - hit.p)
@@ -203,7 +208,8 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
         wi_b = to_world(t1, t2, hit.ns, wi_b_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         f_b = f_b * absdot(wi_b, hit.ns)[..., None]
-        hit3, le3, hit3_light = trace_radiance(scene, hit.p, hit.ns, wi_b)
+        hit3, le3, hit3_light = trace_radiance(scene, hit.p, hit.ns, wi_b,
+                                               time=time)
         # radiance only counts when this very light is hit, or the ray
         # escapes to the chosen infinite light
         li_b = torch.where((hit3_light == light_idx)[..., None], le3, 0.0)
@@ -234,7 +240,7 @@ N_CHAIN = 8
 
 
 def subsurface_transport(scene, hit, mp, beta, wo_world, pid, sidx, sfn,
-                         seed, dims, eligible=None):
+                         seed, dims, time=None, eligible=None):
     """Separable-BSSRDF transport at the lanes that hit a SUBSURFACE row
     or a solid Disney row with scatterdistance, as pbrt_tpu runs it.
 
@@ -254,7 +260,8 @@ def subsurface_transport(scene, hit, mp, beta, wo_world, pid, sidx, sfn,
     becomes SSS_EXIT (the Sw lobe) and wo points along the exit's shading
     normal. A lane with no admissible exit dies. ``eligible`` leaves out
     lanes that are not at a surface vertex this bounce (volpath's medium
-    events).
+    events). ``time``: the rays' shutter times, which the probe queries
+    take on a scene with motion.
 
     Returns (hit', mp', beta', entered, wo')."""
     C = scene.n_channels
@@ -335,7 +342,7 @@ def subsurface_transport(scene, hit, mp, beta, wo_world, pid, sidx, sfn,
     chain = []
     for _ in range(N_CHAIN):
         pr = isect_mod.intersect(scene, o_cur, -vz, t_rem,
-                                 surface_only=True)
+                                 surface_only=True, time=time)
         pr_mat = scene.mat_at(pr.prim_id)
         adm_kind = vecmath.take(mtypes, pr_mat.long().clamp(
             0, mtypes.shape[0] - 1)) == mat_mod.SUBSURFACE

@@ -10,9 +10,9 @@ integrators/bdpt.py, render_pass and render).
 of rays: the (pixel, sample) lane layout, the pcg4d sample dimensions and
 the film reduction are pbrt_tpu's, so both packages trace the same rays.
 ``render`` loops over spp chunks, over the whole film or a crop window,
-or, as pbrt_tpu's does, hands `bdpt` (with its light-tracing splats) and
-`mlt` to their own render functions (integrators/bdpt.py,
-integrators/mlt.py).
+or, as pbrt_tpu's does, hands `bdpt` (with its light-tracing splats),
+`mlt` and `sppm` to their own render functions (integrators/bdpt.py,
+integrators/mlt.py, integrators/sppm.py).
 `path` runs the fused path-bounce kernel (ops/fused_path.py) on scenes
 inside its profile (the independent sampler only); every other scene,
 sampler and integrator goes through the generic wavefront loop
@@ -82,15 +82,17 @@ def _sample2(sfn, pid, sidx, dims, seed):
 # integrators (Li over a ray batch)
 # ---------------------------------------------------------------------------
 
-def li_direct(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
+def li_direct(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
+              time=None):
     """`directlighting` with the UniformSampleOne strategy
     (integrators/directlighting.cpp:49-101) + specular recursion up to
     max_depth via the wavefront loop."""
     return _li_loop(scene, o, d, pid, sidx, sfn, cfg, power_distr,
-                    nee=True, indirect=False)
+                    nee=True, indirect=False, time=time)
 
 
-def li_path(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
+def li_path(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
+            time=None):
     """`path` (integrators/path.cpp): NEE every bounce + BSDF
     continuation, emission on camera vertices, russian roulette.
 
@@ -101,29 +103,32 @@ def li_path(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
     if fused_path.eligible(scene, cfg):
         return fused_path.li_path_fused(scene, o, d, pid, sidx, cfg)
     return _li_loop(scene, o, d, pid, sidx, sfn, cfg, power_distr,
-                    nee=True, indirect=True)
+                    nee=True, indirect=True, time=time)
 
 
-def li_mypath(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
+def li_mypath(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
+              time=None):
     """fork `mypath` (integrators/mypath.cpp:31-142): path tracing whose
     direct estimation is light-sampling only (no BSDF half), portal
     dispatch intact."""
     return _li_loop(scene, o, d, pid, sidx, sfn, cfg, power_distr,
-                    nee=True, indirect=True, bsdf_half=False)
+                    nee=True, indirect=True, bsdf_half=False, time=time)
 
 
-def li_whitted(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
+def li_whitted(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
+               time=None):
     """`whitted` (integrators/whitted.cpp): direct lighting through the
     same NEE estimator + specular recursion."""
     return _li_loop(scene, o, d, pid, sidx, sfn, cfg, power_distr,
-                    nee=True, indirect=False)
+                    nee=True, indirect=False, time=time)
 
 
-def li_ao(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
+def li_ao(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
+          time=None):
     """`ambientocclusion` (integrators/ao.cpp:57-103)."""
     R = o.shape[0]
     inf = torch.full((R,), vecmath.INF, device=o.device)
-    hit = isect_mod.intersect(scene, o, d, inf)
+    hit = isect_mod.intersect(scene, o, d, inf, time=time)
     u = _sample2(sfn, pid, sidx, _bounce_dims(0)["light_u"], cfg.seed)
     # frame on the geometry FACING THE RAY (ao.cpp:77 Faceforward(n,
     # -ray.d)): otherwise back-facing windings send the hemisphere
@@ -142,16 +147,18 @@ def li_ao(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr):
     w = common.to_world(t1, t2, n_ao, w_loc)
     o2 = vecmath.offset_ray_origin(hit.p, n_ao, w)
     occ = isect_mod.intersect_p(scene, o2, w,
-                                torch.full_like(inf, cfg.ao_radius))
+                                torch.full_like(inf, cfg.ao_radius),
+                                time=time)
     vis = torch.where(hit.valid, (~occ).to(torch.float32) * ratio, 0.0)
     return vis[..., None].expand(R, scene.n_channels)
 
 
 def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
-             nee=True, indirect=True, bsdf_half=True):
+             nee=True, indirect=True, bsdf_half=True, time=None):
     """Shared wavefront loop (PathIntegrator::Li shape, path.cpp /
     mypath.cpp:31-142): a Python loop over bounces with active masks,
-    every lane doing every bounce's work.
+    every lane doing every bounce's work. ``time``: each lane's shutter
+    time on a scene with motion, which every query of the lane takes.
 
     Where pbrt_tpu's traced loop can only mask, this one skips, with the
     same result and by static rules only (so a render's kernel launches
@@ -181,7 +188,7 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         # emission only, no NEE and no continuation
         last = b >= n_bounces - 1
         dims = _bounce_dims(b)
-        hit = isect_mod.intersect(scene, o_cur, d_cur, inf)
+        hit = isect_mod.intersect(scene, o_cur, d_cur, inf, time=time)
 
         # emitted radiance at camera/specular vertices (path.cpp:291-310)
         light_id = torch.where(hit.valid, scene.light_at(hit.prim_id), -1)
@@ -204,7 +211,7 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
             # about the exit's frame (wo along the exit normal)
             hit, mp, beta, _, wo_w = common.subsurface_transport(
                 scene, hit, mp, beta, -d_cur, pid, sidx, sfn, cfg.seed,
-                dims)
+                dims, time=time)
 
         if nee:
             u_sel = sfn(pid, sidx, dims["select"], cfg.seed)
@@ -213,7 +220,8 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
             u_mu = _sample2(sfn, pid, sidx, dims["mis_u"], cfg.seed)
             ld = common.estimate_direct(
                 scene, hit, mp, wo_w, u_sel, u_l, u_mu, u_ml,
-                power_distr=power_distr, with_bsdf_half=bsdf_half)
+                power_distr=power_distr, with_bsdf_half=bsdf_half,
+                time=time)
             L = L + torch.where(active[..., None], beta * ld, 0.0)
         if not (indirect or mat_mod.has_specular(scene.materials)):
             # whitted/direct continue through *specular* lobes only, and
@@ -279,11 +287,15 @@ _INTEGRATORS = {"path": li_path, "direct": li_direct,
                 "bdpt": bdpt_mod.li_bdpt, "bdpt_t1": bdpt_mod.li_bdpt_t1}
 # integrators that read the camera (bdpt's first-segment density)
 _CAMERA_INTEGRATORS = ("bdpt", "bdpt_t1")
+# integrators that take each lane's shutter time on a scene with motion;
+# pbrt_tpu's hero, volpath, bdpt, mlt and sppm ignore it (ROADMAP queue 3)
+_TIME_INTEGRATORS = ("path", "direct", "directlighting", "whitted", "ao",
+                     "ambientocclusion", "mypath")
 _LIGHT_STRATEGIES = ("uniform", "power", "spatial")
 
 
 # pbrt_tpu's integrators the port has not yet, by ROADMAP queue 1 item
-_UNPORTED_INTEGRATORS = {"sppm": "9d"}
+_UNPORTED_INTEGRATORS = {}
 
 
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
@@ -332,6 +344,12 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
     if power_distr is None:
         power_distr = light_distribution(scene, cfg.light_strategy)
     kw = {"cam": cam} if cfg.integrator in _CAMERA_INTEGRATORS else {}
+    if scene.has_motion and cfg.integrator in _TIME_INTEGRATORS:
+        # the lane's shutter time (sample dimension 4, as the camera drew
+        # it): the rays' time through every query of the pass
+        u_time = sfn(pid, sidx, 4, cfg.seed)
+        kw["time"] = cam.shutter_open + u_time * (cam.shutter_close
+                                                  - cam.shutter_open)
     L = _INTEGRATORS[cfg.integrator](scene, rays.o, rays.d, pid, sidx, sfn,
                                      cfg, power_distr, **kw)
     if check_finite and not bool(torch.isfinite(L).all()):
@@ -396,16 +414,19 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
     full frame's samples. ``integrator_params`` is the scene file's
     Integrator ParamSet, as pbrt_tpu's ``render`` takes it: `mlt` reads
     ``mutationsperpixel`` (default ``spp``), ``chains`` and
-    ``bootstrapsamples`` from it. ``check_finite`` raises on the first
+    ``bootstrapsamples`` from it, `sppm` ``photonsperiteration`` (−1, the
+    default: the film's pixel count), ``radius`` (1.0) and ``iterations``
+    or ``numiterations`` (64). ``check_finite`` raises on the first
     pass whose radiance holds a NaN or an infinity, before the clamp to
     black (the CLI's ``--debug-nans``). ``progress`` (a
     ``utils.progress.ProgressReporter``) advances by each pass's spp.
 
-    As pbrt_tpu's ``render`` (and pbrt's MakeIntegrator, which lets bdpt
-    and mlt override Render), `bdpt` goes to ``bdpt.render_bdpt`` and
-    `mlt` to ``mlt.render_mlt``: both take the whole film, the box filter
-    and their own samplers, so the sampler, filter, chunk, light strategy
-    and crop window do not reach them."""
+    As pbrt_tpu's ``render`` (and pbrt's MakeIntegrator, which lets bdpt,
+    mlt and sppm override Render), `bdpt` goes to ``bdpt.render_bdpt``,
+    `mlt` to ``mlt.render_mlt`` and `sppm` to ``sppm.render_sppm``: they
+    take the whole film, the box filter and their own samplers, so the
+    sampler, filter, chunk, light strategy and crop window do not reach
+    them."""
     device = require_device(device)
     ip = integrator_params
     if integrator in _UNPORTED_INTEGRATORS:
@@ -424,6 +445,20 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
             mutations_per_pixel=int(_iparam(ip, "mutationsperpixel", spp)),
             n_chains=int(_iparam(ip, "chains", 4096)),
             n_bootstrap=int(_iparam(ip, "bootstrapsamples", 16384)),
+            max_depth=max_depth, seed=seed, device=device)
+    if integrator == "sppm":
+        from pbrt_tpu_torch.integrators import sppm as sppm_mod
+        width, height = cam.resolution
+        ppi = int(_iparam(ip, "photonsperiteration", -1))
+        if ppi <= 0:
+            ppi = width * height     # pbrt: −1 → the film's pixel count
+        # pbrt's initial search radius is 1.0 world units (sppm.cpp:514)
+        return sppm_mod.render_sppm(
+            scene, cam,
+            n_iterations=int(_iparam(ip, "iterations",
+                                     _iparam(ip, "numiterations", 64))),
+            photons_per_iter=ppi,
+            initial_radius=float(_iparam(ip, "radius", 1.0)),
             max_depth=max_depth, seed=seed, device=device)
     width, height = cam.resolution
     scene = to_device(scene, device)

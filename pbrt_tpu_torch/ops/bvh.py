@@ -23,6 +23,12 @@ records in the same order with the same arithmetic. Nothing falls back from
 one to the other. The query is not differentiated (pbrt_tpu's custom_vjp
 returns zero cotangents): callers run it under ``torch.no_grad()``.
 
+A scene with two-keyframe motion also carries 80-byte motion records
+``[v0 v1 v2 dv0 dv1 dv2 pad pad]`` (``_motion_records``) over the same
+nodes, whose bounds cover both keyframes: ``bvh_traverse_motion`` walks
+them at each ray's shutter time (the kernel's motion variant, its own
+launch count), its twin ``traverse_reference(..., time=...)``.
+
 The TPU kernel walks ray packets down a 4-wide tree whose leaves were
 collapsed to at most 16 triangles, because a step of its shared-stack loop
 costs far more than a masked triangle test. Here one thread walks one ray;
@@ -49,6 +55,7 @@ LEAF_MAX = 4          # triangles per leaf of the builders' trees
 WIDE = 4              # children per node of the production layout
 NODE_WORDS = {4: 32, 8: 64}   # a wide node: 7·wide + 1 words, padded
 TRI_F = 12            # floats per triangle record: v0 e1 e2 + 3 pad
+MOTION_F = 20         # the motion variant's: v0 v1 v2 dv0 dv1 dv2 + 2 pad
 STACK = 96            # entries of a thread's stack (kStack)
 # 1 + 2·gamma(3): the conservative scale of the slab test's far distance
 GSCALE = 1.0 + 2.0 * vecmath.gamma(3)
@@ -219,6 +226,19 @@ def _tri_records(v0, v1, v2):
     return tris
 
 
+def _motion_records(v0, v1, v2, dv0, dv1, dv2):
+    """(max(P,1), MOTION_F) float32 records of the motion variant: v0, v1,
+    v2, dv0, dv1, dv2 (the vertices at shutter time 0 and their motion to
+    time 1) and two floats of padding, five aligned 16-byte loads a
+    triangle. The kernel moves the vertices to the ray's time and forms
+    the edges from the moved vertices."""
+    p = v0.shape[0]
+    tris = np.zeros((max(p, 1), MOTION_F), np.float32)
+    for k, v in enumerate((v0, v1, v2, dv0, dv1, dv2)):
+        tris[:p, 3 * k:3 * k + 3] = v
+    return tris
+
+
 def pack_wide(lo, hi, right, count, axis, v0, v1, v2):
     """Host-side packing of a flat DFS binary BVH (numpy in, numpy out;
     ``v0, v1, v2`` LEAF-ORDERED) into the traversal kernel's layout: 4-wide
@@ -247,20 +267,21 @@ def pack_wide(lo, hi, right, count, axis, v0, v1, v2):
 # the plain-torch twin
 # ---------------------------------------------------------------------------
 
-def _record_fields(tris, target, cnt):
+def _record_fields(tris, target, cnt, n_fields=9):
     """The (n, L, 9) fields v0 e1 e2 of the leaves whose first record is
     ``target`` (L = the largest count; slots past a leaf's count read its
     last table row and are masked by the caller), and their int32 (n, L)
-    leaf-ordered indices."""
+    leaf-ordered indices. ``n_fields=18`` reads the motion records' v0
+    v1 v2 dv0 dv1 dv2."""
     k = torch.arange(int(cnt.max()), device=target.device)
     idx = target[:, None] + k
     rec = tris[idx.clamp_max(tris.shape[0] - 1)]
-    return rec[..., :9], idx.to(torch.int32)
+    return rec[..., :n_fields], idx.to(torch.int32)
 
 
 def _traverse_wide_reference(nodes, cnt_bits, leaf_fields, o, d, tmax, *,
                              any_hit, prune=False, count_mode=False,
-                             stats=None):
+                             stats=None, time=None):
     """What the wide kernels compute, in plain torch over all rays at once:
     one stack per ray, held as an (R, STACK) tensor; every pass of the
     loop pops one entry of every ray still walking and runs the wide-node
@@ -275,7 +296,10 @@ def _traverse_wide_reference(nodes, cnt_bits, leaf_fields, o, d, tmax, *,
     Returns t (R,) float32 and idx (R,) int32: the leaf-ordered triangle
     index, or with ``count_mode`` ``n_int·65536 + n_leaf``, the wide-node
     and leaf steps of the ray's walk. ``stats``, if a dict, receives the
-    counts of slab tests (non-empty slots), triangle tests and steps."""
+    counts of slab tests (non-empty slots), triangle tests and steps.
+    With ``time`` (R,), the motion variant: ``leaf_fields`` gives (n, L,
+    18) fields v0 v1 v2 dv0 dv1 dv2, moved to each ray's time before the
+    test (v + time·dv, the edges from the moved vertices)."""
     W = nodes.shape[1] // 8
     dev, R = o.device, o.shape[0]
     half, mask, cb = W // 2, (1 << cnt_bits) - 1, cnt_bits
@@ -305,7 +329,14 @@ def _traverse_wide_reference(nodes, cnt_bits, leaf_fields, o, d, tmax, *,
             f, tri_i = leaf_fields(lt, lc)
             ox, oy, oz = (o[li, k:k + 1] for k in range(3))
             dx, dy, dz = (d[li, k:k + 1] for k in range(3))
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f.unbind(-1)
+            if time is None:
+                v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = f.unbind(-1)
+            else:
+                tm = time[li][:, None]
+                w = [f[..., k] + tm * f[..., 9 + k] for k in range(9)]
+                v0x, v0y, v0z = w[0], w[1], w[2]
+                e1x, e1y, e1z = w[3] - w[0], w[4] - w[1], w[5] - w[2]
+                e2x, e2y, e2z = w[6] - w[0], w[7] - w[1], w[8] - w[2]
             # Möller–Trumbore in the kernel's operation order (ray_tri.cuh)
             px = dy * e2z - dz * e2y
             py = dz * e2x - dx * e2z
@@ -378,12 +409,18 @@ def _traverse_wide_reference(nodes, cnt_bits, leaf_fields, o, d, tmax, *,
 
 
 def traverse_reference(bvh, o, d, tmax, any_hit: bool, *, count_mode=False,
-                       stats=None):
+                       stats=None, time=None):
     """The twin on ``bvh``'s production layout (``nodes``, ``tris``,
-    ``cnt_bits`` of a scene/bvh.py::FlatBVH)."""
+    ``cnt_bits`` of a scene/bvh.py::FlatBVH); with ``time``, the motion
+    variant's twin on its ``tris_motion`` records."""
+    if time is None:
+        leaf_fields = functools.partial(_record_fields, bvh.tris)
+    else:
+        leaf_fields = functools.partial(_record_fields, bvh.tris_motion,
+                                        n_fields=18)
     return _traverse_wide_reference(
-        bvh.nodes, bvh.cnt_bits, functools.partial(_record_fields, bvh.tris),
-        o, d, tmax, any_hit=any_hit, count_mode=count_mode, stats=stats)
+        bvh.nodes, bvh.cnt_bits, leaf_fields, o, d, tmax, any_hit=any_hit,
+        count_mode=count_mode, stats=stats, time=time)
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +434,17 @@ def _lib():
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 7 + [i32, i32, ctypes.c_float, i32, i32, vp, vp]
+        fn.restype = i32
+    return fn
+
+
+def _lib_motion():
+    from pbrt_tpu_torch.ops import _build
+
+    fn = _build.load("bvh_traverse").bvh_traverse_motion_launch
+    if fn.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [i32, i32, ctypes.c_float, i32, vp, vp]
         fn.restype = i32
     return fn
 
@@ -446,3 +494,46 @@ def bvh_traverse(bvh, o, d, tmax, any_hit: bool, *, count_mode=False,
 
 
 bvh_traverse.launches = 0
+
+
+def bvh_traverse_motion(bvh, o, d, tmax, time, any_hit: bool):
+    """The motion variant: traverse ``bvh`` (a FlatBVH of a scene with
+    motion: its nodes bound both keyframes, ``tris_motion`` holds the
+    motion records) with rays o, d (R,3) within tmax (R,) at their shutter
+    times ``time`` (R,). Returns t (R,) float32 and leaf_i (R,) int32.
+
+    On the CPU this is the twin; on CUDA it launches the kernel's motion
+    variant on the persistent grid (and adds one to
+    ``bvh_traverse_motion.launches``). Any other device raises."""
+    if o.device.type == "cpu":
+        return traverse_reference(bvh, o, d, tmax, any_hit, time=time)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"bvh_traverse_motion on {o.device}")
+    dev, R, f32 = o.device, o.shape[0], torch.float32
+    nodes, tris = bvh.nodes, bvh.tris_motion
+    if tris is None or not 0 < R < 2 ** 30 or bvh.stack_need > STACK:
+        raise ValueError(f"bad sizes R={R} stack_need={bvh.stack_need} "
+                         f"(motion records: {tris is not None})")
+    _check("nodes", nodes, f32, (nodes.shape[0], NODE_WORDS[WIDE]), dev)
+    _check("tris_motion", tris, f32, (tris.shape[0], MOTION_F), dev)
+    _check("o", o, f32, (R, 3), dev)
+    _check("d", d, f32, (R, 3), dev)
+    _check("tmax", tmax, f32, (R,), dev)
+    _check("time", time, f32, (R,), dev)
+    t = torch.empty(R, dtype=f32, device=dev)
+    leaf_i = torch.empty(R, dtype=torch.int32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib_motion()(nodes.data_ptr(), tris.data_ptr(), o.data_ptr(),
+                        d.data_ptr(), tmax.data_ptr(), time.data_ptr(),
+                        t.data_ptr(), leaf_i.data_ptr(), R, bvh.cnt_bits,
+                        GSCALE, int(bool(any_hit)), next_ray.data_ptr(),
+                        stream)
+    if err != 0:
+        raise RuntimeError(f"bvh_traverse motion kernel launch failed: CUDA "
+                           f"error {err}")
+    bvh_traverse_motion.launches += 1
+    return t, leaf_i
+
+
+bvh_traverse_motion.launches = 0

@@ -133,9 +133,13 @@ def _octant_links(right: np.ndarray, count: np.ndarray, axis: np.ndarray):
 def _pack_threaded(bvh_lo, bvh_hi, right, count, axis, v0, v1, v2, dv=None):
     """Pack per-octant node rows (8N, 10) + padded leaf triangles (P+pad, 9)
     so each traversal step is one node-row gather and one 4-row tri gather.
-    Two-keyframe motion (``dv``, 18-column tri rows) is not ported."""
+    This harness kernel has no motion variant (``dv``, 18-column tri rows):
+    a scene with motion traverses through the 4-wide kernel's."""
     if dv is not None:
-        raise NotImplementedError("motion blur: ROADMAP queue 1 item 8")
+        raise NotImplementedError(
+            "motion blur in the binary harness kernel: a scene with motion "
+            "traverses through the 4-wide kernel's motion variant "
+            "(ops/bvh.py::bvh_traverse_motion; ROADMAP queue 1 item 8b)")
     N = right.shape[0]
     first, miss = _octant_links(right, count, axis)
     lo = np.asarray(bvh_lo, np.float32)

@@ -58,8 +58,11 @@ _B_EMIT = 32          # bit 5: camera-vertex emission hit (bounce 0)
 
 def eligible(scene, cfg) -> bool:
     """Dispatch gate: the scene has a fused profile and the config asks
-    for what the kernel implements."""
+    for what the kernel implements. A scene with motion never runs it (its
+    rays carry shutter times the kernel does not take), as pbrt_tpu's gate
+    refuses a pass with times."""
     return (getattr(scene, "fused_profile", None) is not None
+            and not getattr(scene, "has_motion", False)
             and cfg.sampler == "independent"
             and cfg.light_strategy == "uniform")
 

@@ -14,6 +14,13 @@ same tie rule. Nothing falls back from one to the other. The query is not
 differentiated (pbrt_tpu's custom_vjp returns zero cotangents): callers
 run it under ``torch.no_grad()``.
 
+Two-keyframe motion blur has the kernel's motion variant,
+``intersect_brute_motion``: (T,18) rows v0 v1 v2 dv0 dv1 dv2
+(``pack_scene(..., motion=True)``) moved to each ray's shutter time
+before the triangle test, one ray a thread without the early reject (each
+lane's row is its own), with its own launch count; its twin is
+``_intersect_reference(..., time=...)``.
+
 The kernel's design has two steps, the bits of a design: two rays per
 thread (TWO; ``lane_rays`` is the map) and the warp-wide early reject of
 ``csrc/tri_sweep.cuh`` (REJECT, whose torch mirror is
@@ -34,15 +41,21 @@ TWO, REJECT = 1, 2   # design steps of csrc/intersect.cu
 DESIGNS = (0, TWO, REJECT, TWO | REJECT)
 
 
-def pack_scene(scene, tris=True):
+def pack_scene(scene, tris=True, motion=False):
     """Pack the primitive tables into the kernel's layouts: tri (T,9) =
     v0, e1, e2; sph (S,4) = center, radius; pln (P,8) = lo, hi, axis, pad.
     A family with no primitive keeps its one padding row, which the
     kernel never reads (its count is 0). ``tris=False`` leaves the
     triangles out (one padding row): a scene with a BVH sends only its
-    spheres and aaplanes through this kernel."""
+    spheres and aaplanes through this kernel. ``motion`` (a scene with
+    two-keyframe motion) gives the motion variant's (T,18) rows v0, v1,
+    v2, dv0, dv1, dv2 instead: the vertices at shutter time 0 and their
+    motion to time 1."""
     g = scene.geom
-    if tris:
+    if tris and motion:
+        tri = torch.cat([g.tri_v0, g.tri_v1, g.tri_v2, g.tri_dv0, g.tri_dv1,
+                         g.tri_dv2], dim=-1)
+    elif tris:
         tri = torch.cat([g.tri_v0, g.tri_v1 - g.tri_v0, g.tri_v2 - g.tri_v0],
                         dim=-1)
     else:
@@ -102,10 +115,23 @@ def tri_reject_reference(tri, o, d):
     return reject, det, nu, nv, nt
 
 
-def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
+def _motion_row(row, time):
+    """A (18,) motion row v0 v1 v2 dv0 dv1 dv2 at each ray's shutter time
+    (R,): the moved vertex v0 and the edges of the moved vertices, as the
+    motion variant forms them (v + time·dv, then e1 = v1 − v0,
+    e2 = v2 − v0)."""
+    w = [row[k] + time * row[9 + k] for k in range(9)]
+    return (w[0], w[1], w[2], w[3] - w[0], w[4] - w[1], w[5] - w[2],
+            w[6] - w[0], w[7] - w[1], w[8] - w[2])
+
+
+def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln,
+                         time=None):
     """What the kernel computes, vectorized over rays, with Python loops
     over the primitives in the kernel's order. Returns t (R,) float32 and
-    prim (R,) int32."""
+    prim (R,) int32. With ``time`` (R,), what the motion variant
+    computes: ``tri`` holds (T,18) motion rows, moved to each ray's time
+    before the triangle test."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     zero = torch.zeros_like(ox)
@@ -114,7 +140,11 @@ def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln):
 
     # triangles: Möller–Trumbore (shapes/triangle.cpp role)
     for i in range(n_tri):
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[i].unbind(0)
+        if time is None:
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[i].unbind(0)
+        else:
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _motion_row(
+                tri[i], time)
         px = dy * e2z - dz * e2y
         py = dz * e2x - dx * e2z
         pz = dx * e2y - dy * e2x
@@ -188,8 +218,10 @@ def _lib():
     if lib.intersect_launch.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.intersect_launch.argtypes = [vp] * 8 + [i32] * 5 + [vp]
+        lib.intersect_motion_launch.argtypes = [vp] * 9 + [i32] * 4 + [vp]
         lib.intersect_render_design.argtypes = []
-        for fn in (lib.intersect_launch, lib.intersect_render_design):
+        for fn in (lib.intersect_launch, lib.intersect_motion_launch,
+                   lib.intersect_render_design):
             fn.restype = i32
     return lib
 
@@ -253,3 +285,50 @@ def _launch_design(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln, design):
 
 
 intersect_brute.launches = 0
+
+
+def intersect_brute_motion(tri, sph, pln, o, d, tmax, time, n_tri, n_sph,
+                           n_pln):
+    """The motion variant: closest hit of rays o, d (R,3) within tmax (R,)
+    at their shutter times ``time`` (R,), against (T,18) motion rows
+    (``pack_scene(..., motion=True)``) and the static sphere and aaplane
+    tables. Returns t (R,) float32, prim (R,) int32.
+
+    On the CPU this is the twin (``_intersect_reference`` with ``time``);
+    on CUDA it launches the kernel's motion variant (and adds one to
+    ``intersect_brute_motion.launches``). Any other device raises."""
+    if o.device.type == "cpu":
+        return _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph,
+                                    n_pln, time=time)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"intersect_brute_motion on {o.device}")
+    dev = o.device
+    R = o.shape[0]
+    f32 = torch.float32
+    if not (0 <= n_tri <= tri.shape[0] and 0 <= n_sph <= sph.shape[0]
+            and 0 <= n_pln <= pln.shape[0] and R > 0
+            and n_tri + n_sph + n_pln <= MAX_PRIMS):
+        raise ValueError(f"bad sizes n_tri={n_tri} n_sph={n_sph} "
+                         f"n_pln={n_pln} R={R}")
+    _check("tri", tri, f32, (tri.shape[0], 18), dev)
+    _check("sph", sph, f32, (sph.shape[0], 4), dev)
+    _check("pln", pln, f32, (pln.shape[0], 8), dev)
+    _check("o", o, f32, (R, 3), dev)
+    _check("d", d, f32, (R, 3), dev)
+    _check("tmax", tmax, f32, (R,), dev)
+    _check("time", time, f32, (R,), dev)
+    t = torch.empty(R, dtype=f32, device=dev)
+    prim = torch.empty(R, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().intersect_motion_launch(
+        tri.data_ptr(), sph.data_ptr(), pln.data_ptr(), o.data_ptr(),
+        d.data_ptr(), tmax.data_ptr(), time.data_ptr(), t.data_ptr(),
+        prim.data_ptr(), R, n_tri, n_sph, n_pln, stream)
+    if err != 0:
+        raise RuntimeError(f"intersect motion kernel launch failed: CUDA "
+                           f"error {err}")
+    intersect_brute_motion.launches += 1
+    return t, prim
+
+
+intersect_brute_motion.launches = 0

@@ -16,7 +16,13 @@ kernel's twin, which walks the same records in the same order. The flat
 node arrays stay on the host; only what a query reads goes to the scene's
 device: the 4-wide layout and ``prim_order`` at build time.
 
-Motion blur (tri rows 18 wide) is not ported and raises.
+A scene with two-keyframe motion builds its tree over the union of both
+keyframes' bounds, without spatial splits (each triangle in one leaf, as
+pbrt_tpu builds it), and carries the motion records (``tris_motion``)
+beside the static ones: a query with the rays' shutter times goes
+through the traversal kernel's motion variant, one without (the
+integrators that ignore time) through the static kernel at shutter time
+0, as in pbrt_tpu.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,6 +63,9 @@ class FlatBVH:
     cnt_bits: int = 3         # bits of a slot encoding that hold a count
     stack_need: int = 1       # stack entries the per-ray walk needs
     built_by: str = ""        # native-sbvh | native-sah | numpy-<method>
+    # a scene with motion: (max(P,1),20) float32 motion records
+    # (ops/bvh.py::_motion_records), on the scene's device
+    tris_motion: Optional[torch.Tensor] = None
 
 
 def build_bvh(scene, split_method: str = "sah") -> FlatBVH:
@@ -76,14 +86,31 @@ def build_bvh(scene, split_method: str = "sah") -> FlatBVH:
     n = v0.shape[0]
     lo_p = np.minimum(np.minimum(v0, v1), v2)
     hi_p = np.maximum(np.maximum(v0, v1), v2)
+    dv = None
+    if scene.has_motion:
+        # the node bounds cover the whole shutter interval: the union of
+        # the two keyframes (AnimatedTransform::MotionBounds' role)
+        dv = tuple(x[:scene.n_tri].detach().cpu().numpy()
+                   for x in (g.tri_dv0, g.tri_dv1, g.tri_dv2))
+        e0, e1, e2 = v0 + dv[0], v1 + dv[1], v2 + dv[2]
+        lo_p = np.minimum(lo_p, np.minimum(np.minimum(e0, e1), e2))
+        hi_p = np.maximum(hi_p, np.maximum(np.maximum(e0, e1), e2))
     cent = 0.5 * (lo_p + hi_p)
 
+    def finish(*nodes, order, built_by):
+        return _finish_flat(*nodes, order, v0[order], v1[order], v2[order],
+                            device=device, built_by=built_by,
+                            dv=None if dv is None else
+                            tuple(x[order] for x in dv))
+
     if split_method == "sah":
-        native = _build_native(lo_p, hi_p, v0, v1, v2)
+        # spatial splits put one triangle in several leaves, each clipped
+        # to its own box, which no longer holds a moving triangle
+        native = _build_native(lo_p, hi_p, v0, v1, v2,
+                               allow_sbvh=not scene.has_motion)
         if native is not None:
             *nodes, order, built_by = native
-            return _finish_flat(*nodes, order, v0[order], v1[order],
-                                v2[order], device=device, built_by=built_by)
+            return finish(*nodes, order=order, built_by=built_by)
 
     order = np.arange(n)
     morton = None
@@ -183,9 +210,8 @@ def build_bvh(scene, split_method: str = "sah") -> FlatBVH:
     right_a = np.asarray([nd["right"] for nd in nodes], np.int32)
     count_a = np.asarray([nd["count"] for nd in nodes], np.int32)
     axis_a = np.asarray([nd["axis"] for nd in nodes], np.int32)
-    return _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order,
-                        v0[order], v1[order], v2[order], device=device,
-                        built_by=f"numpy-{split_method}")
+    return finish(lo_a, hi_a, right_a, count_a, axis_a, order=order,
+                  built_by=f"numpy-{split_method}")
 
 
 def _surface_area(a, b):
@@ -203,11 +229,13 @@ def _partition(order, idxs, left_mask, start, end):
 
 
 def _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order, v0, v1, v2,
-                 device="cpu", built_by="") -> FlatBVH:
+                 device="cpu", built_by="", dv=None) -> FlatBVH:
     """Assemble the FlatBVH from numpy node arrays and the LEAF-ORDERED
     vertices ``v0, v1, v2`` (the BVH build's ``v[order]``; the tree of
     another package carries over through this too): the tree itself as host
-    tensors, the kernel's 4-wide layout and ``prim_order`` on ``device``."""
+    tensors, the kernel's 4-wide layout and ``prim_order`` on ``device``.
+    ``dv``, the leaf-ordered motion (dv0, dv1, dv2) of a scene with motion,
+    adds the motion variant's records."""
     lo_a, hi_a = (np.ascontiguousarray(x, np.float32) for x in (lo_a, hi_a))
     right_a, count_a, axis_a = (np.ascontiguousarray(x, np.int32)
                                 for x in (right_a, count_a, axis_a))
@@ -222,10 +250,13 @@ def _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order, v0, v1, v2,
         axis=t(axis_a), v0=t(v0), v1=t(v1), v2=t(v2),
         prim_order=t(np.asarray(order, np.int32), device),
         nodes=t(nodes, device), tris=t(tris, device), cnt_bits=cnt_bits,
-        stack_need=need, built_by=built_by)
+        stack_need=need, built_by=built_by,
+        tris_motion=None if dv is None else t(bvh_ops._motion_records(
+            v0, v1, v2, *(np.ascontiguousarray(x, np.float32)
+                          for x in dv)), device))
 
 
-def _build_native(lo_p, hi_p, v0, v1, v2):
+def _build_native(lo_p, hi_p, v0, v1, v2, allow_sbvh=True):
     """Call the C++ builder (csrc/bvh_builder.cpp, compiled by g++ at first
     use). None, with a warning, only where there is no g++: the numpy loop
     then takes over (minutes at 100,000 triangles, and no spatial splits).
@@ -235,7 +266,8 @@ def _build_native(lo_p, hi_p, v0, v1, v2):
     duplication, Stich et al. 2009): the emitted prim order may contain
     DUPLICATE references, which every consumer indexes through (the leaf
     tables are built from v0[order]). Falls back to the plain binned SAH
-    entry when the duplication exceeds the output capacity."""
+    entry when the duplication exceeds the output capacity, and uses that
+    entry alone where ``allow_sbvh`` is false (a scene with motion)."""
     from pbrt_tpu_torch.ops import _build
 
     try:
@@ -263,16 +295,17 @@ def _build_native(lo_p, hi_p, v0, v1, v2):
         return [a.ctypes.data_as(fp if a.dtype == np.float32 else ip)
                 for a in arrays]
 
-    order_cap = 2 * max(n, 1)
-    out = outputs(2 * order_cap, order_cap)
-    vc = [np.ascontiguousarray(v, np.float32) for v in (v0, v1, v2)]
-    n_refs = c_int(0)
-    nn = lib.bvh_build_sbvh(*ptrs(vc), n, LEAF_MAX, *ptrs(out), order_cap,
-                            ctypes.byref(n_refs))
-    if nn > 0:
-        return (*(a[:nn] for a in out[:5]), out[5][:n_refs.value],
-                "native-sbvh")
-    # capacity exceeded (pathological duplication) → SAH fallback
+    if allow_sbvh:
+        order_cap = 2 * max(n, 1)
+        out = outputs(2 * order_cap, order_cap)
+        vc = [np.ascontiguousarray(v, np.float32) for v in (v0, v1, v2)]
+        n_refs = c_int(0)
+        nn = lib.bvh_build_sbvh(*ptrs(vc), n, LEAF_MAX, *ptrs(out),
+                                order_cap, ctypes.byref(n_refs))
+        if nn > 0:
+            return (*(a[:nn] for a in out[:5]), out[5][:n_refs.value],
+                    "native-sbvh")
+        # capacity exceeded (pathological duplication) → SAH fallback
 
     out = outputs(2 * max(n, 1), n)
     bounds = [np.ascontiguousarray(x, np.float32) for x in (lo_p, hi_p)]
@@ -314,17 +347,27 @@ def _ray_sort_order(o, d):
     return torch.sort(key, stable=True).indices
 
 
-def bvh_intersect_tris(bvh: FlatBVH, o, d, tmax):
+def _traverse(bvh: FlatBVH, o, d, tmax, any_hit, time):
+    """The static traversal kernel, or its motion variant for rays with
+    shutter times on a tree with motion records."""
+    if time is not None and bvh.tris_motion is not None:
+        return bvh_ops.bvh_traverse_motion(bvh, o, d, tmax,
+                                           time.detach().contiguous(),
+                                           any_hit)
+    return bvh_ops.bvh_traverse(bvh, o, d, tmax, any_hit)
+
+
+def bvh_intersect_tris(bvh: FlatBVH, o, d, tmax, time=None):
     """Closest triangle hit via BVH, in the callers' ray order. Returns (t,
     global_tri_idx, hit)."""
-    t, leaf_i = bvh_ops.bvh_traverse(bvh, o, d, tmax, False)
+    t, leaf_i = _traverse(bvh, o, d, tmax, False, time)
     hit = leaf_i >= 0
     tri_idx = torch.where(hit, bvh.prim_order[leaf_i.long().clamp_min(0)], -1)
     return t, tri_idx, hit
 
 
-def bvh_intersect_p_tris(bvh: FlatBVH, o, d, tmax):
-    return bvh_ops.bvh_traverse(bvh, o, d, tmax, True)[1] >= 0
+def bvh_intersect_p_tris(bvh: FlatBVH, o, d, tmax, time=None):
+    return _traverse(bvh, o, d, tmax, True, time)[1] >= 0
 
 
 # ---------------------------------------------------------------------------
@@ -346,19 +389,21 @@ def _query_args(o, d, tmax):
             tmax.detach().contiguous())
 
 
-def intersect_bvh(scene, o, d, tmax, surface_only=False):
+def intersect_bvh(scene, o, d, tmax, surface_only=False, time=None):
     """Closest hit of a scene with a BVH: the triangles through the
-    traversal kernel, then the spheres and aaplanes brute force with the
-    traversal's ``best_t`` as their tmax (the kernel's strict ``t <
-    best_t`` is pbrt_tpu's update rule ``anyh & (tb < best_t)``), then the
-    disks and the instances in plain torch. The query is not
-    differentiated."""
+    traversal kernel (its motion variant for rays with shutter times
+    ``time`` on a scene with motion), then the spheres and aaplanes brute
+    force with the traversal's ``best_t`` as their tmax (the kernel's
+    strict ``t < best_t`` is pbrt_tpu's update rule ``anyh & (tb <
+    best_t)``), then the disks and the instances in plain torch. The query
+    is not differentiated."""
     from pbrt_tpu_torch.scene import intersect as isect_mod
 
     with torch.no_grad():
         o_q, d_q, tmax_q = _query_args(o, d, tmax)
         best_t = torch.clamp_max(tmax_q, bvh_ops.BIG)
-        t, tri_idx, h = bvh_intersect_tris(scene.bvh, o_q, d_q, best_t)
+        t, tri_idx, h = bvh_intersect_tris(scene.bvh, o_q, d_q, best_t,
+                                           time)
         upd = h & (t < best_t)
         best_t = torch.where(upd, t, best_t)
         prim_id = torch.where(upd, tri_idx, -1)
@@ -370,14 +415,14 @@ def intersect_bvh(scene, o, d, tmax, surface_only=False):
         best_t, prim_id = inst_mod.update_closest(scene, o_q, d_q, best_t,
                                                   prim_id)
     return isect_mod.finalize_hit(scene, o, d, best_t, prim_id,
-                                  surface_only)
+                                  surface_only, time=time)
 
 
-def intersect_p_bvh(scene, o, d, tmax):
+def intersect_p_bvh(scene, o, d, tmax, time=None):
     """Any-hit (shadow) query of a scene with a BVH → occluded mask."""
     with torch.no_grad():
         o_q, d_q, tmax_q = _query_args(o, d, tmax)
-        occ = bvh_intersect_p_tris(scene.bvh, o_q, d_q, tmax_q)
+        occ = bvh_intersect_p_tris(scene.bvh, o_q, d_q, tmax_q, time)
         if scene.n_sph or scene.n_pln:
             occ = occ | (_brute_families(scene, o_q, d_q, tmax_q)[1] >= 0)
         if scene.n_dsk:

@@ -3,20 +3,23 @@ pbrt_tpu/scene/camera.py:33-209): ray generation, and the perspective
 camera's importance (``camera_we``) and directional density
 (``camera_pdf_dir``) that bidirectional path tracing reads.
 
-Camera motion blur (shutter times) is not ported yet (ROADMAP queue 1
-item 8).
+Every camera carries its shutter interval; an animated camera (differing
+start and end CTMs in the scene file) also an ``AnimatedTransform``,
+whose per-ray matrix at the ray's shutter time replaces the
+camera-to-world transform (core/api.cpp:814's CameraToWorld).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
-from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.core.transform import AnimatedTransform, Transform
 from pbrt_tpu_torch.core.vecmath import Ray, length, make_ray, normalize
 
 PERSPECTIVE = 0
@@ -34,11 +37,17 @@ class Camera:
     focal_distance: torch.Tensor  # ()
     fov_scale: torch.Tensor       # () tan(fov/2)
     resolution: tuple             # (nx, ny)
+    shutter_open: torch.Tensor = None    # () (make_* set both)
+    shutter_close: torch.Tensor = None   # ()
+    # camera motion blur: the per-ray camera-to-world at the ray's time
+    anim: Optional[AnimatedTransform] = None
 
 
 def make_perspective(cam_to_world: Transform, fov_deg: float, resolution,
                      lens_radius: float = 0.0, focal_distance: float = 1e6,
-                     screen_window=None, device="cpu") -> Camera:
+                     screen_window=None, device="cpu",
+                     shutter_open: float = 0.0,
+                     shutter_close: float = 1.0) -> Camera:
     nx, ny = int(resolution[0]), int(resolution[1])
     aspect = nx / ny
     if screen_window is None:
@@ -58,7 +67,8 @@ def make_perspective(cam_to_world: Transform, fov_deg: float, resolution,
         screen_min=f32(smin), screen_max=f32(smax),
         lens_radius=f32(lens_radius), focal_distance=f32(focal_distance),
         fov_scale=f32(np.tan(np.radians(fov_deg) / 2.0)),
-        resolution=(nx, ny))
+        resolution=(nx, ny), shutter_open=f32(shutter_open),
+        shutter_close=f32(shutter_close))
 
 
 def make_orthographic(cam_to_world: Transform, resolution,
@@ -81,10 +91,30 @@ def make_environment(cam_to_world: Transform, resolution,
 
 def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor,
                   u_time: torch.Tensor) -> Ray:
-    """p_film: (R,2) raster positions; u_lens: (R,2) lens samples; u_time
-    is accepted for the reference's signature (no camera motion here).
+    """p_film: (R,2) raster positions; u_lens: (R,2) lens samples; u_time:
+    (R,) shutter samples, which move an animated camera (the ray's time is
+    shutter_open + u_time·(shutter_close − shutter_open)).
     PerspectiveCamera::GenerateRay (cameras/perspective.cpp:63-93),
     OrthographicCamera::GenerateRay and EnvironmentCamera::GenerateRay."""
+    o, d = _camera_space_rays(cam, p_film, u_lens)
+    if cam.anim is not None:
+        # camera motion blur: the camera-to-world at each ray's time
+        # (AnimatedTransform::Interpolate, core/camera.cpp GenerateRay's
+        # ray.time), applied as elementwise sums (no matmul)
+        time = cam.shutter_open + u_time * (cam.shutter_close
+                                            - cam.shutter_open)
+        m = cam.anim.interpolate(time)               # (R,4,4)
+
+        def rot(v):
+            return (m[:, :3, 0] * v[:, 0:1] + m[:, :3, 1] * v[:, 1:2]
+                    + m[:, :3, 2] * v[:, 2:3])
+        return make_ray(rot(o) + m[:, :3, 3], rot(d))
+    return make_ray(cam.cam_to_world.apply_point(o),
+                    cam.cam_to_world.apply_vector(d))
+
+
+def _camera_space_rays(cam: Camera, p_film, u_lens):
+    """The rays (o, d) in camera space."""
     res = torch.tensor(cam.resolution, dtype=torch.float32,
                        device=p_film.device)
     # raster → NDC → screen; raster-to-screen flips y
@@ -95,8 +125,7 @@ def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor,
         phi = 2.0 * math.pi * ndc[..., 0]
         d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
                          torch.sin(theta) * torch.sin(phi)], dim=-1)
-        return make_ray(cam.cam_to_world.apply_point(torch.zeros_like(d)),
-                        cam.cam_to_world.apply_vector(d))
+        return torch.zeros_like(d), d
     sx = cam.screen_min[0] + ndc[..., 0] * (cam.screen_max[0]
                                             - cam.screen_min[0])
     sy = -(cam.screen_min[1] + ndc[..., 1]
@@ -122,8 +151,7 @@ def generate_rays(cam: Camera, p_film: torch.Tensor, u_lens: torch.Tensor,
     use_dof = lens_r > 0.0
     o = torch.where(use_dof, o_dof, o)
     d = torch.where(use_dof, d_dof, d)
-    return make_ray(cam.cam_to_world.apply_point(o),
-                    cam.cam_to_world.apply_vector(d))
+    return o, d
 
 
 def _perspective_only(cam: Camera, what: str):

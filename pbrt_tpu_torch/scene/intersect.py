@@ -20,6 +20,13 @@ scene/instances.py walks the instances the same way, and the any-hit
 query ORs in a disk or an instance hit.
 ``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
 and tangents. A kd-tree accelerator is not ported and raises.
+
+Two-keyframe motion blur: on a scene with motion (``Scene.has_motion``),
+a query given the rays' shutter times ``time`` runs the kernels' motion
+variants, which move each triangle to the ray's time (v + time·dv), and
+``finalize_hit`` reads the moved vertices; a query without times (the
+integrators that ignore time, as pbrt_tpu's do) sees the triangles at
+shutter time 0 through the static kernels.
 """
 
 from __future__ import annotations
@@ -47,20 +54,30 @@ def _has_bvh(scene) -> bool:
     return True
 
 
-def _closest(scene, o, d, tmax):
-    """(t, prim) of the closest hit, through the brute-force kernel. Not
-    differentiated: the estimator differentiates the integrand, not the
-    sampled hit distances."""
+def _moving(scene, time) -> bool:
+    return time is not None and scene.has_motion
+
+
+def _closest(scene, o, d, tmax, time=None):
+    """(t, prim) of the closest hit, through the brute-force kernel (its
+    motion variant for rays with shutter times on a scene with motion).
+    Not differentiated: the estimator differentiates the integrand, not
+    the sampled hit distances."""
     if scene.n_tri + scene.n_sph + scene.n_pln > ik.MAX_PRIMS:
         raise NotImplementedError(
             f"a scene of more than {ik.MAX_PRIMS} primitives without a BVH "
             "(only triangles go into one): ROADMAP queue 1 item 6")
     with torch.no_grad():
+        args = (o.detach().contiguous(), d.detach().contiguous(),
+                tmax.detach().contiguous())
+        if _moving(scene, time):
+            tri, sph, pln = ik.pack_scene(scene, motion=True)
+            return ik.intersect_brute_motion(
+                tri, sph, pln, *args, time.detach().contiguous(),
+                scene.n_tri, scene.n_sph, scene.n_pln)
         tri, sph, pln = ik.pack_scene(scene)
-        return ik.intersect_brute(
-            tri, sph, pln, o.detach().contiguous(), d.detach().contiguous(),
-            tmax.detach().contiguous(), scene.n_tri, scene.n_sph,
-            scene.n_pln)
+        return ik.intersect_brute(tri, sph, pln, *args, scene.n_tri,
+                                  scene.n_sph, scene.n_pln)
 
 
 def _disk_hits(scene, o, d, tmax):
@@ -91,22 +108,24 @@ def any_disk(scene, o, d, tmax):
     return _disk_hits(scene, o, d, tmax)[1].any(-1)
 
 
-def intersect(scene, o, d, tmax, surface_only=False) -> Hit:
-    """Closest-hit query. o, d: (R,3); tmax: (R,). Returns Hit (R,...);
-    with ``surface_only`` its uv, dpdu and dpdv are left out (see
+def intersect(scene, o, d, tmax, surface_only=False, time=None) -> Hit:
+    """Closest-hit query. o, d: (R,3); tmax: (R,); time: (R,) shutter
+    times, or None (shutter time 0). Returns Hit (R,...); with
+    ``surface_only`` its uv, dpdu and dpdv are left out (see
     ``finalize_hit``)."""
     if _has_bvh(scene):
-        return bvh_mod.intersect_bvh(scene, o, d, tmax, surface_only)
-    t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax))
+        return bvh_mod.intersect_bvh(scene, o, d, tmax, surface_only,
+                                     time=time)
+    t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax, time))
     t, prim = inst_mod.update_closest(scene, o, d, t, prim)
-    return finalize_hit(scene, o, d, t, prim, surface_only)
+    return finalize_hit(scene, o, d, t, prim, surface_only, time=time)
 
 
-def intersect_p(scene, o, d, tmax):
+def intersect_p(scene, o, d, tmax, time=None):
     """Any-hit (shadow) query → occluded mask (R,)."""
     if _has_bvh(scene):
-        return bvh_mod.intersect_p_bvh(scene, o, d, tmax)
-    occ = _closest(scene, o, d, tmax)[1] >= 0
+        return bvh_mod.intersect_p_bvh(scene, o, d, tmax, time=time)
+    occ = _closest(scene, o, d, tmax, time)[1] >= 0
     if scene.n_dsk:
         occ = occ | any_disk(scene, o, d, tmax)
     if scene.inst is not None:
@@ -114,7 +133,19 @@ def intersect_p(scene, o, d, tmax):
     return occ
 
 
-def _attach_t(scene, o, d, t, prim_id):
+def _tri_verts(scene, ti, time):
+    """The vertices of triangles ``ti`` (R,), moved to the rays' shutter
+    times on a scene with motion (pbrt_tpu's finalize_hit lerp)."""
+    g = scene.geom
+    hv = [take(v, ti) for v in (g.tri_v0, g.tri_v1, g.tri_v2)]
+    if _moving(scene, time):
+        tt = time[:, None]
+        hv = [v + tt * take(dv, ti)
+              for v, dv in zip(hv, (g.tri_dv0, g.tri_dv1, g.tri_dv2))]
+    return hv
+
+
+def _attach_t(scene, o, d, t, prim_id, time=None):
     """The kernels' ``t`` of the hit primitive with the gradient of that
     primitive's ray distance with respect to the ray (its value stays the
     kernel's): a ray whose origin or direction depends on a
@@ -122,7 +153,8 @@ def _attach_t(scene, o, d, t, prim_id):
     direction) moves its hit along the surface, as pbrt_tpu's
     brute-force ``t`` does. Triangles, disks and aaplanes by their plane,
     spheres by the quadratic's root nearer the kernel's t; an instanced
-    hit keeps a constant t."""
+    hit keeps a constant t. A moving triangle's plane is the one at the
+    ray's shutter time."""
     g = scene.geom
     nt, ns, npl, nd = scene.n_tri, scene.n_sph, scene.n_pln, scene.n_dsk
     ta = torch.zeros_like(t)
@@ -134,9 +166,8 @@ def _attach_t(scene, o, d, t, prim_id):
                                                     1e-30)
     if nt:
         on = (prim_id >= 0) & (prim_id < nt)
-        i = prim_id.clamp(0, nt - 1)
-        v0 = take(g.tri_v0, i)
-        n = vecmath.cross(take(g.tri_v1, i) - v0, take(g.tri_v2, i) - v0)
+        v0, v1, v2 = _tri_verts(scene, prim_id.clamp(0, nt - 1), time)
+        n = vecmath.cross(v1 - v0, v2 - v0)
         ta = torch.where(on, plane_t(v0, n), ta)
         fam = fam | on
     if ns:
@@ -168,19 +199,21 @@ def _attach_t(scene, o, d, t, prim_id):
     return t.detach() + torch.where(fam, ta - ta.detach(), 0.0)
 
 
-def finalize_hit(scene, o, d, t, prim_id, surface_only=False) -> Hit:
-    """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id). Where
-    the ray carries a gradient, ``t`` takes the hit primitive's
-    (``_attach_t``). ``surface_only`` (the subsurface probe chain, which
-    reads the point and the normals) leaves uv zero and dpdu / dpdv None,
-    but on a scene with instances."""
+def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
+                 time=None) -> Hit:
+    """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id), a
+    moving triangle's at the rays' shutter times ``time``. Where the ray
+    carries a gradient, ``t`` takes the hit primitive's (``_attach_t``).
+    ``surface_only`` (the subsurface probe chain, which reads the point
+    and the normals) leaves uv zero and dpdu / dpdv None, but on a scene
+    with instances."""
     g = scene.geom
     surface_only = surface_only and scene.inst is None
     R = o.shape[0]
     dev = o.device
     prim_id = prim_id.long()   # the kernel's int32 ids index tables below
     if torch.is_grad_enabled() and (o.requires_grad or d.requires_grad):
-        t = _attach_t(scene, o, d, t, prim_id)
+        t = _attach_t(scene, o, d, t, prim_id, time)
     valid = prim_id >= 0
     # park missed rays at their origin: a t of 1e30 would overflow squared
     # distances downstream (inf → NaN in masked-lane gradients)
@@ -194,8 +227,7 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False) -> Hit:
     if nt:
         ti = prim_id.clamp(0, nt - 1)
         is_tri = (valid & (prim_id < nt))[..., None]
-        hv0, hv1, hv2 = (take(g.tri_v0, ti), take(g.tri_v1, ti),
-                         take(g.tri_v2, ti))
+        hv0, hv1, hv2 = _tri_verts(scene, ti, time)
         ngt = shapes.triangle_normal(hv0, hv1, hv2)
         # barycentrics recomputed at the hit point (the kernel carries only
         # t and the prim id): project onto the triangle basis

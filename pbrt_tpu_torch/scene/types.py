@@ -14,8 +14,11 @@ and outside it (MediumInterface, −1 = vacuum).
 pbrt_tpu does. Disks and instances are intersected outside the kernels,
 in plain torch, as pbrt_tpu does (scene/intersect.py). A scene with a
 subsurface row (or a solid Disney row with scatterdistance) carries
-``has_sss`` and the BSSRDF's radial tables (scene/bssrdf.py). Emissive
-disks, curves, motion and the kd-tree belong to later slices and raise
+``has_sss`` and the BSSRDF's radial tables (scene/bssrdf.py). A scene
+with two-keyframe motion (a triangle given shutter-end vertices) carries
+``has_motion`` and each triangle's motion ``tri_dv0..2`` (its vertex at
+shutter time t is v + t·dv), and its world bounds cover both keyframes.
+Emissive disks, curves and the kd-tree are not ported and raise
 ``NotImplementedError``. A scene's spectra have 3 channels (RGB) or 60
 (sampled, for the hero-wavelength integrators): the builder's
 ``SpectrumConfig`` decides, and lifts RGB parameters to 60 bins with
@@ -56,6 +59,10 @@ class Geometry:
     dsk_normal: torch.Tensor  # (D,3) unit
     dsk_radius: torch.Tensor  # (D,)
     dsk_inner: torch.Tensor   # (D,)
+    # two-keyframe motion: v(t) = tri_v* + t·tri_dv*; None when static
+    tri_dv0: Optional[torch.Tensor] = None   # (T,3)
+    tri_dv1: Optional[torch.Tensor] = None
+    tri_dv2: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -90,6 +97,8 @@ class Scene:
     # (scene/bssrdf.py SSSTables) of those rows
     has_sss: bool = False
     sss: Any = None
+    # two-keyframe triangle motion (animated shape transforms)
+    has_motion: bool = False
 
     @property
     def n_base_prims(self) -> int:
@@ -198,19 +207,21 @@ class SceneBuilder:
     def add_triangle(self, v0, v1, v2, mat=0, light=-1, n0=None, n1=None,
                      n2=None, uv0=(0, 0), uv1=(1, 0), uv2=(1, 1), med_in=-1,
                      med_out=-1, v0_e=None, v1_e=None, v2_e=None):
-        if any(x is not None for x in (v0_e, v1_e, v2_e)):
-            _unported("motion blur", 8)
+        """v*_e: the shutter-end positions of a triangle in two-keyframe
+        motion (an animated shape transform's end, core/api.cpp:1414)."""
         self.tris.append(dict(v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2,
                               uv0=uv0, uv1=uv1, uv2=uv2, mat=mat,
-                              light=light, med_in=med_in, med_out=med_out))
+                              light=light, med_in=med_in, med_out=med_out,
+                              v0_e=v0_e, v1_e=v1_e, v2_e=v2_e))
         return len(self.tris) - 1
 
     def add_mesh(self, vertices, indices, mat=0, light=-1, normals=None,
                  uvs=None, med_in=-1, med_out=-1, vertices_end=None):
-        """trianglemesh: vertices (V,3), indices (F,3)."""
-        if vertices_end is not None:
-            _unported("motion blur", 8)
+        """trianglemesh: vertices (V,3), indices (F,3); ``vertices_end``
+        gives each vertex's shutter-end position (motion blur)."""
         vertices = np.asarray(vertices, np.float32)
+        ve = (None if vertices_end is None
+              else np.asarray(vertices_end, np.float32))
         indices = np.asarray(indices, np.int32).reshape(-1, 3)
         ids = []
         for f in indices:
@@ -220,6 +231,8 @@ class SceneBuilder:
                           n2=normals[f[2]])
             if uvs is not None:
                 kw.update(uv0=uvs[f[0]], uv1=uvs[f[1]], uv2=uvs[f[2]])
+            if ve is not None:
+                kw.update(v0_e=ve[f[0]], v1_e=ve[f[1]], v2_e=ve[f[2]])
             ids.append(self.add_triangle(vertices[f[0]], vertices[f[1]],
                                          vertices[f[2]], mat, light, **kw))
         return ids
@@ -335,6 +348,16 @@ class SceneBuilder:
               for k in ("n0", "n1", "n2")]
         tuv = [rows_f32(self.tris, k, (max(nt, 1), 2))
                for k in ("uv0", "uv1", "uv2")]
+        # two-keyframe motion: each vertex's move to the shutter end (0 for
+        # a static triangle of a scene with motion)
+        has_motion = any(r.get("v0_e") is not None for r in self.tris)
+        tdv = [None] * 3
+        if has_motion:
+            tdv = [np.asarray([np.asarray(r[k + "_e"] if r.get(k + "_e")
+                                          is not None else r[k], np.float32)
+                               for r in self.tris], np.float32).reshape(
+                                   max(nt, 1), 3) - base
+                   for k, base in zip(("v0", "v1", "v2"), tv)]
         s_c = rows_f32(self.spheres, "center", (max(ns, 1), 3))
         s_r = np.asarray([r["radius"] for r in self.spheres] or [0.0],
                          np.float32)
@@ -361,7 +384,9 @@ class SceneBuilder:
             dsk_normal=t(rows_f32(self.disks, "normal", (max(nd, 1), 3))),
             dsk_radius=t(d_r),
             dsk_inner=t(np.asarray([r["inner"] for r in self.disks]
-                                   or [0.0], np.float32)))
+                                   or [0.0], np.float32)),
+            **({} if not has_motion else
+               {f"tri_dv{k}": t(tdv[k]) for k in range(3)}))
 
         def ids(key, default):
             a = np.asarray([r.get(key, default) for r in self.tris
@@ -373,6 +398,9 @@ class SceneBuilder:
         med_in, med_out = ids("med_in", -1), ids("med_out", -1)
 
         pts = [v[:nt] for v in tv]
+        if has_motion:
+            # the world bounds cover both keyframes
+            pts += [v[:nt] + dv[:nt] for v, dv in zip(tv, tdv)]
         if ns:
             pts += [s_c - s_r[:, None], s_c + s_r[:, None]]
         if npl:
@@ -420,7 +448,7 @@ class SceneBuilder:
             n_channels=self.n_channels, inst=inst_table, n_vprims=n_vprims,
             media=to_device(tuple(self.media), device),
             prim_med_in=t(med_in), prim_med_out=t(med_out),
-            camera_med=self.camera_med)
+            camera_med=self.camera_med, has_motion=has_motion)
         from pbrt_tpu_torch.scene import bssrdf as bssrdf_mod
         if any(bssrdf_mod.row_has_sss(r) for r in self.materials):
             scene = dataclasses.replace(
@@ -455,8 +483,9 @@ class SceneBuilder:
         with a key beyond (type, kd, sigma), or with Oren–Nayar roughness,
         rules the scene out, as in pbrt_tpu's gate. Disks, instances,
         textures, media (any medium, or a camera medium) and subsurface
-        scattering (``has_sss``) are ruled out as there; the other families
-        it rules out (curves, motion, Fourier) cannot be built here at all.
+        scattering (``has_sss``) and motion (``has_motion``) are ruled out
+        as there; the other families it rules out (curves, Fourier) cannot
+        be built here at all.
         A built BVH does not
         disqualify: the fused kernel reads the builder-order triangles and
         culls by its own clusters.
@@ -465,7 +494,8 @@ class SceneBuilder:
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 
-        if scene.n_sph or scene.n_dsk or scene.inst is not None:
+        if (scene.n_sph or scene.n_dsk or scene.inst is not None
+                or scene.has_motion):
             return None
         if (scene.has_sss or self.media or self.camera_med != -1
                 or scene.textures is not None):

@@ -117,7 +117,8 @@ def main(argv=None):
         f"({integrator}, sampler {opts['sampler']}, filter {filt_name})")
 
     counters = (fused_path.fused_bounce, intersect.intersect_brute,
-                bvh.bvh_traverse)
+                bvh.bvh_traverse, intersect.intersect_brute_motion,
+                bvh.bvh_traverse_motion)
     before = [c.launches for c in counters]
     t = {}
     if device.type == "cuda":
@@ -161,7 +162,7 @@ def main(argv=None):
             integrator=integrator, channels=scene.n_channels,
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
                        dsk=scene.n_dsk, vprims=scene.n_vprims,
-                       bvh=scene.bvh is not None),
+                       bvh=scene.bvh is not None, motion=scene.has_motion),
             media=len(scene.media), textures=scene.textures is not None,
             sss_rows=_sss_rows(scene))))
     return 0

@@ -142,11 +142,24 @@ def test_cli_renders_with_the_integrator(tmp_path, capsys, integrator):
     assert f'"integrator": "{integrator}"' in capsys.readouterr().err
 
 
-def test_sppm_still_raises_with_its_item():
-    scene, cam, _ = _load("deltalights")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 9d$"):
-        trender.render(scene, cam, spp=1, integrator="sppm", device="cpu")
+def test_sppm_renders_deltalights():
+    """sppm renders deltalights (photons from its point, spot and distant
+    lights): finite and lit, with no photon-cell entry skipped."""
+    from pbrt_tpu_torch.integrators import sppm as tsppm
+    from pbrt_tpu_torch.utils import stats as stats_mod
+    scene, cam, opts = _load("deltalights")
+    key = "SPPM/photon cell-scan overflow entries"
+    before = stats_mod._COUNTERS[key]
+    img = trender.render(scene, cam, spp=1, integrator="sppm",
+                         max_depth=opts["max_depth"],
+                         integrator_params=dict(iterations=2,
+                                                photonsperiteration=4096),
+                         device="cpu")
+    assert img.shape[-1] == 3 and bool(img.isfinite().all())
+    assert float(img.mean()) > 0 and stats_mod._COUNTERS[key] == before
+    assert {int(t) for t in scene.lights.ltype} >= {
+        tsppm.lights_mod.POINT, tsppm.lights_mod.SPOT,
+        tsppm.lights_mod.DISTANT}
 
 
 def reference_means():

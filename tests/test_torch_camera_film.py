@@ -116,10 +116,19 @@ def test_unported_camera_filter_sampler_raise():
         make_sampler("sobol")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sampler("stratified")
-    # a moving camera (motion blur) is not ported
-    moving = dataclasses.replace(ge._camera((8, 8)), anim=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        bridge.camera_from_jax(moving)
+    # a moving camera (motion blur) carries over with its keyframes and
+    # shutter
+    cam = ge._camera((8, 8))
+    end = jtransform.look_at((0.5, 0.55, -1.2), (0.5, 0.5, 0.5), (0, 1, 0))
+    moving = dataclasses.replace(cam, anim=jtransform.make_animated(
+        cam.cam_to_world, end, t_start=0.0, t_end=1.0))
+    tc = bridge.camera_from_jax(moving)
+    assert tc.anim is not None
+    for f in dataclasses.fields(tc.anim):
+        np.testing.assert_array_equal(getattr(tc.anim, f.name).numpy(),
+                                      np.asarray(getattr(moving.anim,
+                                                         f.name)))
+    assert float(tc.shutter_open) == 0.0 and float(tc.shutter_close) == 1.0
 
 
 def test_core_math_matches_jax():

@@ -39,6 +39,7 @@ FILES = {
     "gridvol": os.path.join(ORACLE, "gridvol_oracle.pbrt"),
     "sss": os.path.join(ORACLE, "sss_oracle.pbrt"),
     "disney_sss": os.path.join(ORACLE, "disney_sss_oracle.pbrt"),
+    "dofmotion": os.path.join(ORACLE, "dofmotion_oracle.pbrt"),
 }
 OPTION_KEYS = ("integrator", "max_depth", "sampler", "spp", "film",
                "filter", "accelerator")
@@ -87,7 +88,8 @@ def test_scene_files_parse_as_pbrt_tpu(name):
     deltalights, filter; texinst with its texture table, mip atlas and
     instance table; volpath and gridvol with their media, the prims'
     media interface and the null material; sss and disney_sss with their
-    BSSRDF tables): scene, camera, options and filter tables equal to
+    BSSRDF tables; dofmotion with its moving box's motion and its
+    camera's shutter): scene, camera, options and filter tables equal to
     pbrt_tpu's."""
     js, jc, jo = jparser.load_pbrt(FILES[name])
     ts, tc, to = tparser.load_pbrt(FILES[name], device="cpu")
@@ -357,6 +359,31 @@ SCENE_STRINGS = {
         Translate 3 0 0
         Shape "sphere" "float radius" [1]
         WorldEnd""",
+    "motion": """
+        ActiveTransform EndTime
+        Rotate 12 0 1 0
+        Translate 0.2 0 0.1
+        ActiveTransform All
+        TransformTimes 0.25 0.75
+        Camera "perspective" "float fov" [40] "float shutteropen" [0.1]
+          "float shutterclose" [0.7]
+        WorldBegin
+        AttributeBegin
+          ActiveTransform StartTime
+          Translate 0 0.5 0
+          ActiveTransform EndTime
+          Translate 0.3 0.5 0.1
+          Rotate 20 0 0 1
+          ActiveTransform All
+          Scale 1 1.5 1
+          Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+            "point P" [-1 0 0  1 0 0  1 1 0  -1 1 0]
+          AreaLightSource "diffuse" "rgb L" [3 3 3]
+          Shape "trianglemesh" "integer indices" [0 1 2]
+            "point P" [-1 0 2  1 0 2  0 1 2]
+        AttributeEnd
+        Shape "sphere" "float radius" [0.5]
+        WorldEnd""",
     "media": """
         MakeNamedMedium "air" "string type" "homogeneous"
           "rgb sigma_a" [0.01 0.02 0.03] "rgb sigma_s" [0.1 0.1 0.1]
@@ -417,7 +444,10 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     sphere, the null material) and subsurface materials (subsurface with
     its defaults, sigma_prime_s, scale and index; kdsubsurface with a
     "float mfp", which pbrt_tpu honours and warns about, an "rgb mfp" and
-    its defaults; a Disney row with scatterdistance)."""
+    its defaults; a Disney row with scatterdistance) and motion (an
+    animated camera over TransformTimes with a shutter, a moving mesh
+    under ActiveTransform StartTime / EndTime and an emissive mesh under
+    the same CTMs)."""
     (tmp_path / "flat.spd").write_text("# a flat SPD\n400 0.6\n550 0.6\n"
                                        "700 0.6\n")
     if name == "plymesh":
@@ -443,6 +473,11 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
         assert ts.textures.nest_depth == 1 and not ts.textures.ewa
     if name == "media":
         assert ts.camera_med == 0 and len(ts.media) == 2
+    if name == "motion":
+        # the moving mesh moves, the emissive one stays at the start (as
+        # in pbrt_tpu), the camera is animated over TransformTimes
+        assert ts.has_motion and ts.geom.tri_dv0[:2].abs().max() > 0.1
+        assert float(ts.geom.tri_dv0[2:].abs().max()) == 0.0
     if name.startswith(("subsurface", "kdsubsurface")):
         assert ts.has_sss and ts.sss is not None
         assert ts.materials.has_disney_sss == (name == "subsurface")
@@ -531,16 +566,13 @@ UNPORTED = {
               '0 1 0]\nWorldEnd'),
     "emissive_disk": ('WorldBegin\nAreaLightSource "diffuse"\n'
                       'Shape "disk"\nWorldEnd'),
-    "moving_camera": ('ActiveTransform EndTime\nTranslate 0 0 1\n'
-                      'ActiveTransform All\nCamera "perspective"\n'
-                      'WorldBegin\nWorldEnd'),
     "kdtree": ('Accelerator "kdtree"\nWorldBegin\nShape "heightfield" '
                '"integer nu" [20] "integer nv" [20] "float Pz" ['
                + " 0" * 400 + ']\nWorldEnd', 6),
 }
 # (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
 # in the repo)
-UNPORTED_FILES = ("curves", "dofmotion")
+UNPORTED_FILES = ("curves",)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

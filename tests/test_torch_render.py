@@ -166,17 +166,22 @@ def test_entry_points_default_to_the_card():
                             trender.RenderConfig(max_depth=2), 8, 8, 1, 0)
 
 
-@pytest.mark.parametrize("integrator, strategy, item", [
-    ("sppm", "uniform", "9d")])
-def test_unported_integrators_raise_with_their_item(integrator, strategy,
-                                                    item):
-    """pbrt_tpu's integrators the port lacks raise when a render is asked
-    for, naming their ROADMAP queue 1 item."""
+@pytest.mark.parametrize("integrator, params", [
+    ("sppm", dict(iterations=2, photonsperiteration=512, radius=0.05))])
+def test_every_integrator_keyword_renders(integrator, params):
+    """sppm renders through ``render``: a finite, lit (H, W, 3) image, the
+    one render_sppm gives with the same parameters; no integrator keyword
+    is left unported."""
+    from pbrt_tpu_torch.integrators import sppm as tsppm
+    assert trender._UNPORTED_INTEGRATORS == {}
     scene, cam = entry._sphere_cornell("cpu"), entry._camera((8, 8), "cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {item}$"):
-        trender.render(scene, cam, spp=1, integrator=integrator,
-                       light_strategy=strategy, device="cpu")
+    img = trender.render(scene, cam, spp=1, integrator=integrator,
+                         max_depth=3, integrator_params=params, device="cpu")
+    want = tsppm.render_sppm(scene, cam, n_iterations=2,
+                             photons_per_iter=512, initial_radius=0.05,
+                             max_depth=3, device="cpu")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert torch.equal(img, want) and float(img.mean()) > 0
 
 
 @pytest.mark.parametrize("integrator, strategy", [
