@@ -224,6 +224,39 @@ Run from the root of a checkout, with no arguments:
    traversal kernel's motion variant, each held to its twin bit for bit,
    the camera rays' query timed against the twin and, in turns, the
    static kernel.
+21. Curves, the hair and Fourier materials and the other samplers. (a)
+   tests/oracle/curves_oracle.pbrt (96², two cylinder curves, every query
+   on the brute-force kernel, the curves folded in after it in plain
+   torch): the CLI at the file's 256 spp (halton) in a subprocess, and in
+   process at tests/test_oracle.py's call (64 spp, seed 2, `path`, the
+   file's max_depth 3), each against curves_ref.pfm with that test's
+   limits (md < 0.08, block rel-L1 < 0.08) and the launches the loop
+   implies; every brute-force query of the in-process pass held to the
+   twin bit for bit, and the curve fold's (t, prim, u, v) on 65,536 of the
+   pass's camera rays against the same fold on the CPU (prims equal, t
+   within rtol 1e-6 on all but 0.1% of the curve hits, u within 1e-5 and
+   v within 1e-4, as tests/test_torch_curves.py holds the port to
+   pbrt_tpu; the lanes off rtol 1e-6 counted for each). (b) The fur cell
+   (entry._fur_scene: the file's ground, light and camera with 128 seeded
+   hair strands), one 256² × 32-spp `path` pass of 2,097,152 lanes at
+   max_depth 3: ms by CUDA events (the pass the device-only profiler
+   traces), kernel 2's launches, device ms and the
+   shares of kernel 2 and of the curve fold (the pass profiled once more
+   with the fold left out) by the device-only profiler, idle share, peak
+   MiB and bytes a lane, the fold's tile; a 32 × 32 crop of the pass's
+   lanes at its first sample against the CPU twins, mean rel 1e-3. (c) Phase 10's
+   heightfield file with curves_oracle's two curves (a BVH scene): one
+   256² × 32-spp `path` pass, every traversal and every brute-force query
+   held to the twins bit for bit, with their launches. (d) The Fourier
+   furnace (tests/test_fourier.py's Lambertian table, rho 0.5, written by
+   the port, on a sphere under a constant environment, 256² × 32 spp):
+   the mean within 0.005 of 0.5; the hair's white furnace (tests/
+   test_hair.py: sampled with sigma_a 0) over 2^20 samples within 0.01 of
+   1. (e) Every sampler name on 2^20 seeded (pixel, sample, dim) triples
+   (indices past 2^16, dims past 64): the card's values equal the CPU's
+   bit for bit; a 256² × 4-spp `path` pass of _sphere_cornell() with each
+   sampler a render takes against pbrt_tpu's CPU means
+   (tests/torch_sampler_means.json), rel 1e-3.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -263,7 +296,11 @@ from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import camera as cam_mod
 from pbrt_tpu_torch.scene import film as film_mod
+from pbrt_tpu_torch.scene import fourier as fourier_mod
+from pbrt_tpu_torch.scene import hair as hair_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
+from pbrt_tpu_torch.scene import materials as mat_mod
+from pbrt_tpu_torch.scene import shapes as shapes_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder, to_device
 from pbrt_tpu_torch.tools import kexp_kernels as kk
 from pbrt_tpu_torch.tools import kexp_prep, kexp_run
@@ -359,6 +396,39 @@ SPPM_FULL = (4, 1 << 20)
 # limits (md, block rel-L1); the in-process pass of every query held
 DOFMOTION_SPP, DOFMOTION_LIMITS = 256, (0.01, 0.03)
 DOF_PASS_SPP = 64
+# phase 21: curves_oracle through the CLI at the file's 256 spp (halton)
+# and in process at tests/test_oracle.py's call (64 spp, seed 2, the
+# render's independent sampler), both to that test's limits (md, block
+# rel-L1); the card's curve fold against the CPU's on this many of the
+# pass's camera rays
+CURVES_FILE, CURVES_REF = ("tests/oracle/curves_oracle.pbrt",
+                           "tests/oracle/curves_ref.pfm")
+CURVES_SPP, CURVES_CLI_SPP, CURVES_LIMITS = 64, 256, (0.08, 0.08)
+CURVE_FOLD_RAYS = 1 << 16
+# the fur cell: 128 strands (entry._fur_scene), 256² × 32 spp, max_depth
+# 3; a crop of its lanes held to the CPU twins, (px0, py0, width,
+# height) at its first sample (1,024 lanes: the twins' fold over 128
+# curves is slow on the card's host CPU)
+FUR_STRANDS, FUR_SPP, FUR_DEPTH = 128, 32, 3
+FUR_CROP, FUR_CROP_SPP = (112, 112, 32, 32), 1
+# the Fourier furnace (tests/test_fourier.py: a Lambertian table of rho
+# 0.5 on a sphere under a constant environment, max_depth 2) at 256² ×
+# 32 spp, and the hair's white furnace (tests/test_hair.py) over 2^20
+# samples, to these limits
+FOURIER_FURNACE = (0.5, 0.005)
+HAIR_FURNACE_N, HAIR_FURNACE_ATOL = 1 << 20, 0.01
+# the samplers: 2^20 seeded (pixel, sample, dim) triples each, on the
+# card and on its CPU; then a 256² × 4-spp `path` pass of
+# _sphere_cornell() with each sampler a render takes, against pbrt_tpu's
+# CPU means (``JAX_PLATFORMS=cpu PYTHONPATH=.:tests python
+# tests/test_torch_samplers.py`` writes them), rel 1e-3
+SAMPLER_NAMES = (("sobol", (256, 256)), ("sobol", None),
+                 ("zerotwosequence", None), ("lowdiscrepancy", None),
+                 ("02sequence", None), ("halton", None),
+                 ("halton_cp", None), ("stratified", None),
+                 ("maxmindist", None))
+SAMPLER_DIMS = (0, 1, 2, 3, 7, 64, 65, 130, 300)
+SAMPLER_MEANS = "tests/torch_sampler_means.json"
 # pbrt_tpu's float32 CPU mean of a 256² × 32-spp `path` render of
 # tests/test_lightdistrib.py's two-light scene under the spatial strategy
 # (max_depth 4, seed 0), printed by ``PYTHONPATH=. python
@@ -1029,7 +1099,7 @@ def intersect_in_pass(pass_fn, n_launches):
     for dsg in list(INTERSECT_DESIGNS) + list(reversed(INTERSECT_DESIGNS)):
         with intersect_design(dsg):
             _, by, traces = device_ms_by_kernel(
-                pass_fn, ["intersect_kernel"], want=n_launches)
+                pass_fn, ["intersect_kernel"], cpu=False, want=n_launches)
         ms_k, n_k = by["intersect_kernel"]
         check(n_k == n_launches, f"{n_k} brute-force launches in a pass")
         out[dsg] = out.get(dsg, 0.0) + ms_k / 2
@@ -1659,7 +1729,7 @@ def scene_files(dev, hf_mean, hf_tris):
                 filter_name=fname, filter_kwargs=fkw, seed=0, device=dev))
         if zoo:
             dev_ms, by, traces = device_ms_by_kernel(
-                run, ["intersect_kernel"], want=per_pass)
+                run, ["intersect_kernel"], cpu=False, want=per_pass)
         else:
             run()
         torch.cuda.synchronize()
@@ -1820,7 +1890,7 @@ def hero_files(dev):
           f"hero render: {launches} brute-force launches")
     check(torch.equal(img, img2), "two renders of the hero pass differ")
     dev_ms, by, traces = device_ms_by_kernel(render, ["intersect_kernel"],
-                                             want=launches)
+                                             cpu=False, want=launches)
     check(by["intersect_kernel"][1] == launches,
           f"the profiler saw {by['intersect_kernel'][1]} kernel launches")
     # the film's conversion: no TF32 (a float64 product for reference)
@@ -3268,6 +3338,414 @@ def sppm_motion_files(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: curves, the hair and Fourier materials, the other samplers
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_curve_fold():
+    """Record every curve fold (scene/intersect.py::closest_curve) as (its
+    arguments, its outputs); the fold still runs."""
+    calls = []
+    inner = isect_mod.closest_curve
+
+    def record(scene, o, d, best_t, prim_id):
+        out = inner(scene, o, d, best_t, prim_id)
+        calls.append(((o.detach().clone(), d.detach().clone(),
+                       best_t.detach().clone(), prim_id.clone()), out))
+        return out
+    isect_mod.closest_curve = record
+    try:
+        yield calls
+    finally:
+        isect_mod.closest_curve = inner
+
+
+def curve_fold_vs_cpu(scene, call, n):
+    """The card's curve fold on the first ``n`` rays of one recorded call
+    against the same fold on the CPU: the rays, the curve hits, the prims
+    off, and for t, u and v on the hits of the same curve the lanes off
+    by more than rtol 1e-6 and the largest absolute and relative
+    errors."""
+    (o, d, best_t, prim), (t, pr, (u, v)) = call
+    cpu = to_device(scene, "cpu")
+    t_c, pr_c, (u_c, v_c) = isect_mod.closest_curve(
+        cpu, *(x[:n].cpu() for x in (o, d, best_t, prim)))
+    t, pr, u, v = (x[:n].cpu() for x in (t, pr, u, v))
+    base = scene.n_tri + scene.n_sph + scene.n_pln + scene.n_dsk
+    same = pr == pr_c
+    crv = same & (pr >= base)
+    out = {"rays": n, "curve_hits": int(crv.sum()),
+           "prim_off": int((~same).sum())}
+    for k, a, b in (("t", t, t_c), ("u", u, u_c), ("v", v, v_c)):
+        err = torch.where(crv, (a - b).abs(), 0.0)
+        rel = err / b.abs().clamp_min(1e-30)
+        out[k] = {"off_rtol_1e-6": int((rel > 1e-6).sum()),
+                  "max_abs_err": float(err.max()),
+                  "max_rel_err": float(rel.max())}
+    return out
+
+
+def write_curves_heightfield_file(path):
+    """Phase 10's heightfield file with curves_oracle.pbrt's two curves
+    added, moved and scaled into the box (Translate 0.4 0.25 0.45, Scale
+    0.3): a BVH scene whose every query folds the curves in after the
+    traversal and the brute-force kernel."""
+    write_heightfield_file(path)
+    with open(CURVES_FILE) as f:
+        text = f.read()
+    i = text.index('Material "matte" "rgb Kd" [0.2 0.5 0.3]')
+    block = text[i:text.index("AttributeEnd", i)]
+    check(block.count('Shape "curve"') == 2, "curves_oracle's two curves")
+    with open(path) as f:
+        hf = f.read()
+    check(hf.count("WorldEnd") == 1, "the heightfield file's WorldEnd")
+    hf = hf.replace("WorldEnd", "AttributeBegin\nTranslate 0.4 0.25 0.45\n"
+                    "Scale 0.3 0.3 0.3\n" + block + "AttributeEnd\nWorldEnd")
+    with open(path, "w") as f:
+        f.write(hf)
+
+
+def _lambertian_bsdf(path, rho, n_mu=64):
+    """tests/test_fourier.py's table: f = rho/π, the k = 0 term only, in
+    the reflection quadrants."""
+    mu = np.linspace(-1.0, 1.0, n_mu)
+    fourier_mod.write_bsdf(path, mu, [
+        [np.float32([[rho / np.pi * abs(a) if a * b < 0 else 0.0]])
+         for b in mu] for a in mu], eta=1.0)
+
+
+def _curves_oracle_in_process(dev, card, start, stop):
+    """Phase 21 (a)'s in-process render of curves_oracle at
+    tests/test_oracle.py's call: every query held to the twin, the curve
+    fold against the CPU's. Returns (its row, the kernel rows)."""
+    scene, cam, opts = load_pbrt(CURVES_FILE, device=dev)
+    check(scene.n_crv == 2 and scene.bvh is None, "curves_oracle's tables")
+    depth = opts["max_depth"]
+    per_pass = _loop_queries(scene, depth)
+    ref = imageio.read_pfm(CURVES_REF)
+    # one pass at the call (96² × 64 spp); the render warmed up first
+    render_mod.render(scene, cam, spp=1, integrator="path", max_depth=depth,
+                      device=dev)
+    ik.intersect_brute.launches = 0
+    with recording_brute_force() as calls, recording_curve_fold() as folds:
+        start.record()
+        img = render_mod.render(scene, cam, spp=CURVES_SPP,
+                                integrator="path", max_depth=depth, seed=2,
+                                device=dev)
+        stop.record()
+        torch.cuda.synchronize()
+    launches = ik.intersect_brute.launches
+    w, h = cam.resolution
+    check(len(calls) == launches == per_pass * _cli_passes(w, h, CURVES_SPP),
+          f"curves_oracle: {len(calls)} queries, {launches} launches, the "
+          f"loop implies {per_pass} a pass")
+    held = _hold_brute("curves_oracle", calls)
+    fold = curve_fold_vs_cpu(scene, folds[0], CURVE_FOLD_RAYS)
+    img = img.cpu().numpy()
+    row = {"card": card, "spp": CURVES_SPP, "lanes": w * h * CURVES_SPP,
+           "render_cuda_ms": start.elapsed_time(stop), "launches": launches,
+           "launches_expected": per_pass, "held_queries": len(calls),
+           "kernel_vs_twin_max_abs_err": held,
+           "curve_fold_tile": shapes_mod.curve_tile(w * h * CURVES_SPP,
+                                                    scene.n_crv),
+           "curve_fold_vs_cpu": fold, "md": _mean_delta(img, ref),
+           "bl": _block_rel_l1(img, ref, k=16)}
+    print("phase 21 curves_oracle in process (tests/test_oracle.py's "
+          "call): " + json.dumps(row))
+    check(np.isfinite(img).all() and row["md"] < CURVES_LIMITS[0]
+          and row["bl"] < CURVES_LIMITS[1],
+          f"curves_oracle md {row['md']:.4f} bl {row['bl']:.4f}")
+    # CUDA's rsqrt, sqrt and division are not the CPU's to the last bit:
+    # the frame and the chord's closest point move by an ulp, and v
+    # divides the distance to the chord by the half width (u and v are
+    # held as tests/test_torch_curves.py holds the port to pbrt_tpu)
+    check(fold["prim_off"] <= fold["rays"] // 1000
+          and fold["t"]["off_rtol_1e-6"] <= fold["curve_hits"] // 1000
+          and fold["u"]["max_abs_err"] <= 1e-5
+          and fold["v"]["max_abs_err"] <= 1e-4
+          and fold["curve_hits"] > fold["rays"] // 50,
+          f"the curve fold on the card against the CPU's: {fold}")
+    return row, {"curves_oracle": {"launches": launches,
+                                   "held_queries": len(calls),
+                                   "max_abs_err": held}}
+
+
+def curves_files(dev):
+    """Phase 21: curves, hair, Fourier and the samplers (see the module's
+    docstring). Returns the numbers for the JSON lines."""
+    card = card_line()
+    out = {"card": card}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    filt = film_mod.make_filter("box", device=dev)
+
+    t_item = time.perf_counter()
+    secs = {}
+    # (a) curves_oracle: the CLI at the file's own spp, started first
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    cli = start_cli(CURVES_FILE, os.path.join(tmp, "c.pfm"))
+    try:
+        row, kern = _curves_oracle_in_process(dev, card, start, stop)
+    except BaseException:
+        cli[1].kill()
+        cli[1].wait()
+        raise
+    out["oracle"] = row
+    ref = imageio.read_pfm(CURVES_REF)
+    per_pass, w, h = row["launches_expected"], ref.shape[1], ref.shape[0]
+    sm = finish_cli(cli)
+    cli_img = imageio.read_pfm(os.path.join(tmp, "c.pfm"))
+    crow = {k: sm[k] for k in ("render_s", "render_cuda_ms", "process_s",
+                               "launches", "spp", "mean")}
+    crow.update(card=card, md=_mean_delta(cli_img, ref),
+                bl=_block_rel_l1(cli_img, ref, k=16),
+                launches_expected=per_pass * _cli_passes(w, h,
+                                                         CURVES_CLI_SPP))
+    print("phase 21 curves_oracle CLI (the file's 256 spp, halton): "
+          + json.dumps(crow))
+    check(sm["spp"] == CURVES_CLI_SPP and cli_img.shape == ref.shape
+          and sm["launches"]["intersect_brute"] == crow["launches_expected"]
+          and crow["md"] < CURVES_LIMITS[0]
+          and crow["bl"] < CURVES_LIMITS[1], f"curves CLI: {crow}")
+    out["cli"] = crow
+    kern["curves_cli"] = crow["launches"]["intersect_brute"]
+
+    secs["a"] = time.perf_counter() - t_item
+    t_item = time.perf_counter()
+    # (b) the fur cell: 128 strands at full width
+    scene = entry._fur_scene(dev, n_strands=FUR_STRANDS)
+    cam = entry._fur_camera((W, H), dev)
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=FUR_DEPTH)
+    per_pass = _loop_queries(scene, FUR_DEPTH)
+
+    def fur_pass(crop=None, spp=FUR_SPP, device=dev, sc=scene, cm=cam,
+                 fl=filt):
+        return render_mod.render_pass(sc, cm, fl, cfg, W, H, spp, 0,
+                                      device, crop=crop)
+    fur_pass(crop=FUR_CROP, spp=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    images = []
+
+    def timed_pass():
+        # one pass, timed by CUDA events on the stream and traced by the
+        # device-only profiler (its records are read after the stop
+        # event); a trace taken again times and counts its own pass
+        ik.intersect_brute.launches = 0
+        images.clear()
+        start.record()
+        images.append(fur_pass())
+        stop.record()
+    dev_ms, by, traces = device_ms_by_kernel(
+        timed_pass, ["intersect_kernel"], cpu=False, want=per_pass)
+    pass_ms = start.elapsed_time(stop)
+    launches = ik.intersect_brute.launches
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    tile = shapes_mod.curve_tile(W * H * FUR_SPP, scene.n_crv)
+    img = images[0]
+    mean = float(img.double().mean()) / FUR_SPP
+    # the fold's device time: the same pass profiled with the fold left
+    # out (its queries then see no curve), as phase 20 takes the deposit's
+    inner = isect_mod.closest_curve
+    isect_mod.closest_curve = lambda sc, o, d, t, prim: (t, prim, None)
+    try:
+        dev_ms_nofold, _, _ = device_ms_by_kernel(fur_pass, [], cpu=False)
+    finally:
+        isect_mod.closest_curve = inner
+    fold_ms = dev_ms - dev_ms_nofold
+    crop_card = fur_pass(crop=FUR_CROP, spp=FUR_CROP_SPP)
+    cpu_scene = to_device(scene, "cpu")
+    crop_cpu = fur_pass(crop=FUR_CROP, spp=FUR_CROP_SPP, device="cpu",
+                        sc=cpu_scene, cm=entry._fur_camera((W, H), "cpu"),
+                        fl=film_mod.make_filter("box"))
+    crop_rel = abs(float(crop_card.double().mean())
+                   / float(crop_cpu.double().mean()) - 1.0)
+    lanes = W * H * FUR_SPP
+    row = {"card": card, "strands": scene.n_crv, "lanes": lanes,
+           "spp": FUR_SPP, "max_depth": FUR_DEPTH, "render_pass_cuda_ms":
+           pass_ms, "launches": launches, "launches_expected": per_pass,
+           "device_ms": dev_ms, "intersect_device_ms": by[
+               "intersect_kernel"][0], "intersect_share": by[
+               "intersect_kernel"][0] / dev_ms, "curve_fold_device_ms":
+           fold_ms, "curve_fold_share": fold_ms / dev_ms,
+           "idle_share": 1.0 - dev_ms / pass_ms, "profile_traces": traces,
+           "peak_mib": peak / 2**20, "bytes_per_lane": peak / lanes,
+           "curve_fold_tile": tile, "mean": mean,
+           "crop": {"window": FUR_CROP, "spp": FUR_CROP_SPP,
+                    "card_mean": float(crop_card.double().mean()),
+                    "cpu_mean": float(crop_cpu.double().mean()),
+                    "rel": crop_rel}}
+    print(f"phase 21 fur cell, {FUR_STRANDS} strands, `path` {W}² × "
+          f"{FUR_SPP} spp: " + json.dumps(row))
+    check(launches == per_pass and by["intersect_kernel"][1] == per_pass,
+          f"fur launches {launches}, profiled {by}, the loop implies "
+          f"{per_pass}")
+    check(bool(torch.isfinite(img).all()) and mean > 0.001,
+          "the fur cell's image")
+    check(crop_rel < 1e-3, f"the fur crop on the card against the CPU "
+          f"twins: {row['crop']}")
+    out["fur"] = row
+    kern["fur"] = launches
+    del scene, img, cpu_scene
+
+    secs["b"] = time.perf_counter() - t_item
+    t_item = time.perf_counter()
+    # (c) a BVH scene with curves: phase 10's heightfield file + 2 curves
+    path = os.path.join(tmp, "hf_curves.pbrt")
+    write_curves_heightfield_file(path)
+    scene, cam, opts = load_pbrt(path, device=dev)
+    check(scene.bvh is not None and scene.n_crv == 2,
+          "the heightfield with curves: a BVH and two curves")
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=MAX_DEPTH)
+    per = _loop_queries(scene, MAX_DEPTH)
+
+    def hf_pass():
+        return render_mod.render_pass(scene, cam, filt, cfg, W, H, CHUNK, 0,
+                                      dev)
+    hf_pass()
+    bk.bvh_traverse.launches = 0
+    ik.intersect_brute.launches = 0
+    with recording_traversal() as tcalls, \
+            recording_brute_families() as bcalls:
+        start.record()
+        img = hf_pass()
+        stop.record()
+        torch.cuda.synchronize()
+    t_launches = bk.bvh_traverse.launches
+    b_launches = ik.intersect_brute.launches
+    check(len(tcalls) == t_launches == per and len(bcalls) == b_launches
+          == per, f"heightfield with curves: {t_launches} traversals, "
+          f"{b_launches} brute-force, the loop implies {per} each")
+    t_err = 0.0
+    for (o, d, tmax, any_hit), (t, i) in tcalls:
+        t_ref, i_ref = bk.traverse_reference(scene.bvh, o, d, tmax, any_hit)
+        t_err = max(t_err, float((t - t_ref).abs().max()))
+        check(torch.equal(t, t_ref) and torch.equal(i, i_ref),
+              f"heightfield with curves: traversal differs from its twin "
+              f"(t err {t_err})")
+    b_err = _hold_brute("heightfield with curves", bcalls)
+    row = {"card": card, "tris": scene.n_tri, "curves": scene.n_crv,
+           "lanes": W * H * CHUNK, "render_pass_cuda_ms":
+           start.elapsed_time(stop), "traverse_launches": t_launches,
+           "brute_launches": b_launches, "launches_expected": per,
+           "traverse_max_abs_err": t_err, "brute_max_abs_err": b_err,
+           "mean": float(img.double().mean()) / CHUNK}
+    print(f"phase 21 heightfield with curves, `path` {W}² × {CHUNK} spp "
+          "(every query held to the twins): " + json.dumps(row))
+    check(bool(torch.isfinite(img).all()) and row["mean"] > 0.05,
+          "the heightfield-with-curves pass")
+    out["bvh"] = row
+    kern["bvh"] = {"traverse": t_launches, "brute": b_launches,
+                   "traverse_max_abs_err": t_err, "brute_max_abs_err": b_err}
+    del tcalls, bcalls, scene, img
+
+    secs["c"] = time.perf_counter() - t_item
+    t_item = time.perf_counter()
+    # (d) the Fourier and hair furnaces
+    bsdf = os.path.join(tmp, "lambertian.bsdf")
+    _lambertian_bsdf(bsdf, FOURIER_FURNACE[0])
+    b = SceneBuilder()
+    fid = b.add_fourier_table(bsdf)
+    m = b.add_material(type=mat_mod.FOURIER, fourier_id=fid)
+    b.add_sphere((0, 0, 3), 1.0, mat=m)
+    b.add_light(type="infinite", L=1.0, env_map=np.ones((1, 1, 3),
+                                                        np.float32))
+    scene = b.build(dev)
+    cam = cam_mod.make_perspective(transform.look_at(
+        (0, 0, 0), (0, 0, 3), (0, 1, 0), device=dev), 20.0, (W, H),
+        device=dev)
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=2)
+    ik.intersect_brute.launches = 0
+    start.record()
+    img = render_mod.render_pass(scene, cam, filt, cfg, W, H, CHUNK, 0, dev)
+    stop.record()
+    torch.cuda.synchronize()
+    four = {"card": card, "lanes": W * H * CHUNK,
+            "render_pass_cuda_ms": start.elapsed_time(stop),
+            "launches": ik.intersect_brute.launches,
+            "mean": float(img.double().mean()) / CHUNK}
+    n = HAIR_FURNACE_N
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = torch.rand(3, n, device=dev, generator=g)
+    wo = torch.tensor([0.3, 0.5, 0.81], device=dev)
+    wi, f, pdf = hair_mod.hair_sample(
+        (wo / wo.norm()).expand(n, 3), torch.full((n,), 0.3, device=dev),
+        torch.zeros(n, 3, device=dev), u[0], u[1], u[2], beta_m=0.25,
+        beta_n=0.3, alpha=2.0)
+    est = (f * wi[:, 2:3].abs() / pdf.clamp_min(1e-12)[:, None]).mean(0)
+    four["hair_white_furnace"] = est.tolist()
+    print("phase 21 furnaces (a Lambertian Fourier sphere under a constant "
+          f"environment, {W}² × {CHUNK} spp; hair sampled with sigma_a 0 "
+          f"over {n} samples): " + json.dumps(four))
+    check(abs(four["mean"] - FOURIER_FURNACE[0]) < FOURIER_FURNACE[1],
+          f"the Fourier furnace's mean {four['mean']}")
+    check(float((est - 1.0).abs().max()) < HAIR_FURNACE_ATOL,
+          f"the hair furnace {est.tolist()}")
+    out["furnaces"] = four
+    kern["fourier"] = four["launches"]
+    del scene, img
+    tmp_dir.cleanup()
+
+    secs["d"] = time.perf_counter() - t_item
+    t_item = time.perf_counter()
+    # (e) the samplers: the card's values against the CPU's, then passes
+    rs = np.random.RandomState(21)
+    n = 1 << 20
+    pid = rs.randint(0, W * H, n)
+    sidx = rs.randint(0, 512, n)
+    sidx[: n // 4] = rs.randint(1 << 16, 1 << 31, n // 4)
+    dims = rs.randint(0, len(SAMPLER_DIMS), n)
+    samp = {}
+    for name, res in SAMPLER_NAMES:
+        sf = make_sampler(name, resolution=res)
+        same = 0
+        for k, dim in enumerate(SAMPLER_DIMS):
+            on = dims == k
+            p_, s_ = (torch.as_tensor(x[on]) for x in (pid, sidx))
+            card_v = sf(p_.to(dev), s_.to(dev), dim, 3).cpu()
+            cpu_v = sf(p_, s_, dim, 3)
+            check(torch.equal(card_v, cpu_v), f"sampler {name} {res} dim "
+                  f"{dim}: the card's values differ from the CPU's")
+            same += int(on.sum())
+        samp[f"{name}{'' if res is None else '@%dx%d' % res}"] = same
+    with open(SAMPLER_MEANS) as fh:
+        ref_means = json.load(fh)
+    scene = entry._sphere_cornell(dev)
+    res = ref_means["res"]
+    cam = entry._camera((res, res), dev)
+    passes = {}
+    for name, want in ref_means["means"].items():
+        cfg = render_mod.RenderConfig(integrator="path", sampler=name,
+                                      max_depth=ref_means["max_depth"])
+        ik.intersect_brute.launches = 0
+        start.record()
+        img = render_mod.render_pass(scene, cam, filt, cfg, res, res,
+                                     ref_means["spp"], 0, dev)
+        stop.record()
+        torch.cuda.synchronize()
+        got = float(img.double().mean())
+        passes[name] = {"mean": got, "ref": want,
+                        "rel": abs(got / want - 1.0),
+                        "render_pass_cuda_ms": start.elapsed_time(stop),
+                        "launches": ik.intersect_brute.launches}
+        check(passes[name]["rel"] < 1e-3, f"the {name} pass: "
+              f"{passes[name]}")
+    row = {"card": card, "triples_bit_equal": samp, "passes": passes}
+    print(f"phase 21 samplers (2^20 seeded triples each, card against CPU; "
+          f"{res}² × {ref_means['spp']}-spp `path` passes of "
+          "_sphere_cornell against pbrt_tpu's means): " + json.dumps(row))
+    out["samplers"] = row
+    kern["sampler_passes"] = sum(v["launches"] for v in passes.values())
+    out["kernel"] = kern
+    secs["e"] = time.perf_counter() - t_item
+    out["item_s"] = secs
+    print(f"phase 21 seconds by item: {json.dumps(secs)}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3899,6 +4377,12 @@ def main():
     sm20["phase_s"] = time.perf_counter() - t0
     print(f"sppm and motion phase {sm20['phase_s']:.1f} s")
 
+    # ---- 21. curves, hair, Fourier and the other samplers
+    t0 = time.perf_counter()
+    p21 = curves_files(dev)
+    p21["phase_s"] = time.perf_counter() - t0
+    print(f"curves, hair, Fourier and samplers phase {p21['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -3953,7 +4437,11 @@ def main():
         # phase 20: SPPM's queries (its passes ignore time, as pbrt_tpu's):
         # the oracle call's and the full-width cell's launches, the
         # largest error over one iteration's queries
-        "sppm_path": sm20["kernel"]["sppm"]}, {
+        "sppm_path": sm20["kernel"]["sppm"],
+        # phase 21: curves_oracle's in-process pass (every query held)
+        # and CLI launches, the fur cell's, the Fourier furnace's, the
+        # sampler passes'; the BVH scene with curves' brute-force queries
+        "curves_path": p21["kernel"]}, {
         # the motion variant (18-float rows moved to each ray's time, one
         # ray a thread, no early reject), as phase 20's dofmotion pass
         # launches it; times and bound on that pass's camera rays, the
@@ -3989,7 +4477,10 @@ def main():
         "bdpt_heightfield": {k: bdpt["bvh"][k] for k in (
             "traverse_launches", "traverse_max_abs_err")},
         # phase 10's full-width render's sample index 0 against pbrt_tpu
-        "full_width_sample0": bvh_full}, {
+        "full_width_sample0": bvh_full,
+        # phase 21's heightfield with curves: its traversal launches and
+        # largest error against the twin
+        "curves_heightfield": p21["kernel"]["bvh"]}, {
         # the motion variant (80-byte records moved to each ray's time),
         # as phase 20's moving-heightfield pass launches it; times and
         # bound on that pass's camera rays, the static kernel on the same
@@ -4045,7 +4536,7 @@ def main():
         "device_ms": probe["device_ms"],
         "library_device_ms": probe["library_device_ms"]}],
         "scene_files": files, "hero": hero, "bdpt": bdpt,
-        "sppm_motion": sm20}))
+        "sppm_motion": sm20, "curves": p21}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,8 @@ scene-global ``camera_medium`` becomes medium 0 of the camera) carry over,
 and so do subsurface scattering's ``has_sss`` and BSSRDF tables
 (subsurface and Disney scatterdistance rows) and two-keyframe motion
 (``has_motion``, the triangles' ``tri_dv0..2``, an animated camera's
-keyframes and the shutter). Only what the port models is carried: a
-scene with curves, Fourier or hair rows raises. A BVH carries over as its
+keyframes and the shutter), cubic Bézier curves (``crv_*``, ``n_crv``),
+hair rows and the Fourier tables. A BVH carries over as its
 flat node arrays and leaf-ordered triangles (with their motion, read from
 its 18-column rows), repacked by the port into its own traversal layouts
 (pbrt_tpu's packet-kernel tables are left behind), so both packages walk
@@ -38,6 +38,7 @@ from pbrt_tpu_torch.scene.film import Filter
 from pbrt_tpu_torch.scene.lights import AREA, LightTable
 from pbrt_tpu_torch.scene.materials import MaterialTable
 from pbrt_tpu_torch.scene.bssrdf import SSSTables
+from pbrt_tpu_torch.scene.fourier import FourierTable
 from pbrt_tpu_torch.scene.bvh import _finish_flat
 from pbrt_tpu_torch.scene.instances import InstanceTable
 from pbrt_tpu_torch.scene.media import Medium
@@ -105,19 +106,26 @@ def sss_from_jax(tabs, device="cpu"):
     return _fields_from_jax(SSSTables, tabs, device)
 
 
+def fourier_from_jax(tables, device="cpu") -> tuple:
+    """pbrt_tpu's tuple of FourierTables as the port's."""
+    return tuple(_fields_from_jax(FourierTable, tb, device,
+                                  n_channels=int(tb.n_channels),
+                                  m_max=int(tb.m_max)) for tb in tables)
+
+
 def scene_from_jax(scene, device="cpu") -> Scene:
-    extra = {"n_crv": getattr(scene, "n_crv", 0),
-             "fourier": bool(getattr(scene, "fourier", False))}
-    if any(extra.values()):
-        raise NotImplementedError(
-            f"bridge: curves and Fourier tables are not ported ({extra})")
+    n_crv = int(scene.n_crv)
+    g = scene.geom
+    curves = {} if not n_crv else {
+        k: None if getattr(g, k) is None else _t(getattr(g, k), device)
+        for k in ("crv_cp", "crv_w", "crv_n")}
     has_motion = bool(scene.has_motion)
     media = tuple(medium_from_jax(m, device) for m in scene.media)
     camera_med = int(scene.camera_med)
     if not media and getattr(scene, "camera_medium", None) is not None:
         media, camera_med = (medium_from_jax(scene.camera_medium,
                                              device),), 0
-    g, lt = scene.geom, scene.lights
+    lt = scene.lights
     ltype = np.asarray(lt.ltype)
     return Scene(
         geom=Geometry(**{k: _t(getattr(g, k), device) for k in (
@@ -125,7 +133,8 @@ def scene_from_jax(scene, device="cpu") -> Scene:
             "tri_uv0", "tri_uv1", "tri_uv2", "sph_center", "sph_radius",
             "pln_lo", "pln_hi", "pln_ax", "pln_facing", "dsk_center",
             "dsk_normal", "dsk_radius", "dsk_inner")
-            + (("tri_dv0", "tri_dv1", "tri_dv2") if has_motion else ())}),
+            + (("tri_dv0", "tri_dv1", "tri_dv2") if has_motion else ())},
+            **curves),
         prim_mat=_t(scene.prim_mat, device),
         prim_light=_t(scene.prim_light, device),
         materials=materials_from_jax(scene.materials, device),
@@ -154,17 +163,15 @@ def scene_from_jax(scene, device="cpu") -> Scene:
         prim_med_in=_t(scene.prim_med_in, device),
         prim_med_out=_t(scene.prim_med_out, device), camera_med=camera_med,
         has_sss=bool(scene.has_sss), sss=sss_from_jax(scene.sss, device),
-        has_motion=has_motion)
+        has_motion=has_motion, n_crv=n_crv,
+        fourier=fourier_from_jax(scene.fourier, device))
 
 
 def materials_from_jax(m, device="cpu") -> MaterialTable:
-    """pbrt_tpu's MaterialTable as the port's: every field of the ported
-    families, the kd texture rows and the static flags. A row of another
-    type (hair, Fourier), or a textured sigma or bump, raises, as
+    """pbrt_tpu's MaterialTable as the port's: every field, the kd texture
+    rows and the static flags. A textured sigma or bump raises, as
     ``check_row`` does."""
-    for t in np.unique(np.asarray(m.mtype)):
-        mat_mod.check_row({"type": int(t)})
-    for k in ("sigma_tex", "bump_tex", "fourier_id"):
+    for k in ("sigma_tex", "bump_tex"):
         if (np.asarray(getattr(m, k)) != -1).any():
             mat_mod.check_row({k: 0})
     return MaterialTable(
@@ -172,6 +179,7 @@ def materials_from_jax(m, device="cpu") -> MaterialTable:
         has_beckmann=bool(m.has_beckmann),
         has_disney_trans=bool(m.has_disney_trans),
         has_disney_sss=bool(m.has_disney_sss),
+        has_hair=bool(m.has_hair), has_fourier=bool(m.has_fourier),
         present=tuple(m.present))
 
 

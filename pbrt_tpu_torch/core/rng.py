@@ -51,6 +51,13 @@ def pcg4d(a, b, c, d):
     return v0, v1, v2, v3
 
 
+def hash_u32(a, b=0, c=0, d=0) -> torch.Tensor:
+    """One uint32 hash (int64 in [0, 2³²)) of up to four uint32 inputs,
+    broadcast to ``a``'s shape (pbrt_tpu's ``hash_u32``)."""
+    a = _u32(a)
+    return pcg4d(a, *(_u32(x, a).expand(a.shape) for x in (b, c, d)))[0]
+
+
 def u32_to_uniform(u: torch.Tensor) -> torch.Tensor:
     """uint32 → float32 in [0, 1): top 24 bits / 2²⁴, exactly as
     pbrt_tpu's ``u32_to_uniform``. Every stream depends on this form."""

@@ -27,6 +27,11 @@
   into the unit box under the same area light: the kernel-experiment
   harness's second tree (tools/kexp_prep.py), a less regular mesh than the
   heightfield.
+- ``_fur_scene``: tests/oracle/curves_oracle.pbrt's ground and sphere
+  light with 128 seeded cubic Bézier strands of the hair material
+  (eumelanin 1.3, widths 0.02 → 0.005) over the ground patch, seen by
+  ``_fur_camera`` (the file's camera): the curve fold at full width, every
+  query on the brute-force kernel.
 
 The makers build on the card unless the caller asks for ``device="cpu"``.
 """
@@ -312,3 +317,44 @@ def _camera(res=(64, 64), device="cuda"):
         transform.look_at((0.5, 0.5, -1.4), (0.5, 0.5, 1.0), (0, 1, 0),
                           device=device),
         40.0, res, device=device)
+
+
+def _fill_fur(b, n_strands=128, seed=0):
+    """curves_oracle.pbrt's ground and sphere light, and ``n_strands``
+    strands rooted over [−1, 1] × [−0.8, 0.8] of the ground, 0.6–1.0
+    high, each bending a seeded way, of one hair row (eumelanin 1.3)."""
+    from pbrt_tpu_torch.scene import hair, materials
+    ground = b.add_material(type=materials.MATTE, kd=(0.55, 0.5, 0.45))
+    b.add_mesh([(-3, 0, -3), (3, 0, -3), (3, 0, 3), (-3, 0, 3)], _QUAD,
+               mat=ground)
+    fur = b.add_material(
+        type=materials.HAIR, eta=1.55, beta_m=0.3, beta_n=0.3,
+        hair_alpha=2.0,
+        sss_sigma_a=tuple(hair.sigma_a_from_concentration(1.3, 0.0)
+                          .tolist()))
+    rs = np.random.RandomState(seed)
+    for _ in range(n_strands):
+        root = np.array([rs.uniform(-1, 1), 0.0, rs.uniform(-0.8, 0.8)])
+        lean = np.array([rs.normal(0, 0.25), 0.0, rs.normal(0, 0.25)])
+        up = np.array([0.0, rs.uniform(0.6, 1.0), 0.0])
+        cp = [root + k / 3 * up + (k / 3) ** 2 * lean for k in range(4)]
+        b.add_curve(cp, 0.02, 0.005, mat=fur)
+    li = b.add_light(type="area", L=(11.0, 11.0, 11.0), prim=-1)
+    sid = b.add_sphere((0, 3, -1), 0.4, mat=ground, light=li)
+    b.light_rows[li]["prim"] = ("sph", sid)
+
+
+def _fur_scene(device="cuda", n_strands=128, seed=0):
+    b = SceneBuilder()
+    _fill_fur(b, n_strands, seed)
+    return b.build(device)
+
+
+def _fur_camera(res=(256, 256), device="cuda"):
+    """curves_oracle.pbrt's camera (LookAt 0 1.3 −3.2 → 0 0.7 0, fov
+    35)."""
+    device = require_device(device)
+    return cam_mod.make_perspective(
+        transform.look_at((0, 1.3, -3.2), (0, 0.7, 0), (0, 1, 0),
+                          device=device),
+        35.0, res, device=device)

@@ -16,10 +16,15 @@ instancing (``ObjectBegin`` / ``ObjectEnd`` / ``ObjectInstance``: true
 instances of pure triangle-mesh objects, flattened copies of any other)
 are read as pbrt_tpu reads them, and so are the subsurface, kdsubsurface
 (``SubsurfaceFromDiffuse`` through scene/bssrdf.py) and Disney
-scatterdistance materials. Everything pbrt_tpu's parser reads and the
-port cannot build yet raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item, at the directive that asks for it: curves, the hair and
-fourier materials, emissive disks and the kd-tree. Motion blur is read
+scatterdistance materials, the ``hair`` material (its absorption from
+``sigma_a``, else ``color``, else the melanin concentrations) and
+``fourier`` (its ``bsdffile`` relative to the scene file), and the
+``curve`` shape (control points to world space, widths scaled by the
+CTM's mean scale, a ribbon's normals through the inverse transpose; only
+the first four control points, as pbrt_tpu reads them). Everything
+pbrt_tpu's parser reads and the port cannot build yet raises
+``NotImplementedError`` naming its ROADMAP queue 1 item, at the directive
+that asks for it: emissive disks and the kd-tree. Motion blur is read
 as pbrt_tpu reads it: ``ActiveTransform`` picks which of the two CTMs
 (shutter start and end) a directive changes, a ``trianglemesh`` under
 differing CTMs gets shutter-end vertices (an emissive one stays at the
@@ -208,9 +213,8 @@ _MATERIALS = {"matte": mat_mod.MATTE, "mirror": mat_mod.MIRROR,
               "translucent": mat_mod.TRANSLUCENT, "disney": mat_mod.DISNEY,
               "subsurface": mat_mod.SUBSURFACE,
               "kdsubsurface": mat_mod.SUBSURFACE,
+              "hair": mat_mod.HAIR, "fourier": mat_mod.FOURIER,
               "none": mat_mod.NONE, "": mat_mod.NONE}
-# the keywords the port cannot build yet, with their ROADMAP items
-_UNPORTED_MATERIALS = {"hair": 8, "fourier": 8}
 # Texture classes → scene/textures.py types
 _TEXTURES = {"constant": 0, "scale": 1, "mix": 2, "checkerboard": 3,
              "uv": 4, "dots": 5, "bilerp": 6, "imagemap": 7, "fbm": 8,
@@ -731,8 +735,6 @@ class PbrtParser:
                 out["kd"] = np.asarray(out["kd"], np.float64) \
                     * max(amt_s, 1 - amt_s)
             return b.add_material(**out)
-        if name in _UNPORTED_MATERIALS:
-            _unported(f"material {name!r}", _UNPORTED_MATERIALS[name])
         kw = dict(type=_MATERIALS.get(name, mat_mod.MATTE))
         if "Kd" in p and p["Kd"][0] == "texture":
             kw["kd_tex"] = self._build_texture(p["Kd"][1][0])
@@ -825,7 +827,35 @@ class PbrtParser:
             kw["sss_sigma_s"] = tuple(ss)
             kw["sss_g"] = g_p
             kw["eta"] = eta_p
+        if name == "hair":
+            self._hair_row(p, kw)
+        if name == "fourier":
+            fn = p.one("bsdffile", "")
+            kw["fourier_id"] = b.add_fourier_table(
+                fn if os.path.isabs(fn) else os.path.join(self.base_dir, fn))
         return b.add_material(**kw)
+
+    @staticmethod
+    def _hair_row(p, kw):
+        """materials/hair.cpp CreateHairMaterial: the absorption from
+        sigma_a, else color, else the eumelanin / pheomelanin
+        concentrations (1.3 eumelanin by default)."""
+        from pbrt_tpu_torch.scene import hair as hair_mod
+        bn = p.one("beta_n", 0.3)
+        if p.spectrum_rgb("sigma_a") is not None:
+            sa = np.asarray(p.spectrum_rgb("sigma_a"))
+        elif p.spectrum_rgb("color") is not None:
+            sa = hair_mod.sigma_a_from_reflectance(
+                np.asarray(p.spectrum_rgb("color"), np.float32), bn).numpy()
+        elif p.one("eumelanin") is not None \
+                or p.one("pheomelanin") is not None:
+            sa = hair_mod.sigma_a_from_concentration(
+                p.one("eumelanin", 1.3), p.one("pheomelanin", 0.0)).numpy()
+        else:
+            sa = hair_mod.sigma_a_from_concentration(1.3, 0.0).numpy()
+        kw.update(sss_sigma_a=tuple(np.asarray(sa, np.float64)),
+                  beta_m=p.one("beta_m", 0.3), beta_n=bn,
+                  hair_alpha=p.one("alpha", 2.0), eta=p.one("eta", 1.55))
 
     def _area_light(self, gs):
         """A light row for an AreaLightSource bound to one primitive."""
@@ -926,7 +956,23 @@ class PbrtParser:
                        normals=None if nrm is None
                        else self._xf_normals(nrm))
         elif name == "curve":
-            _unported("Shape 'curve'", 8)
+            # every type analytic (curve.cpp): the first four control
+            # points only, as pbrt_tpu reads them (a 3n+1-point curve
+            # renders its first segment)
+            cp = np.asarray(p["P"][1], np.float64).reshape(-1, 3)
+            w0 = p.one("width0", p.one("width", 1.0))
+            w1 = p.one("width1", p.one("width", 1.0))
+            sc = float(np.mean([np.linalg.norm(self.ctm[:3, k])
+                                for k in range(3)]))
+            n0 = n1 = None
+            if str(p.one("type") or "flat").strip('"') == "ribbon" \
+                    and "N" in p:
+                ns = self._xf_normals(
+                    np.asarray(p["N"][1], np.float64).reshape(-1, 3))
+                n0 = ns[0] / max(np.linalg.norm(ns[0]), 1e-12)
+                n1 = ns[-1] / max(np.linalg.norm(ns[-1]), 1e-12)
+            b.add_curve(self._xf_points(cp[:4]), w0 * sc, w1 * sc, mat=mat,
+                        n0=n0, n1=n1)
         elif name == "loopsubdiv":
             from pbrt_tpu_torch.frontend.loopsubdiv import loop_subdivide
             idx = np.asarray(p["indices"][1], np.int32).reshape(-1, 3)

@@ -18,6 +18,11 @@ with it under a BVH. Which strategies run is fixed by the scene (an
 infinite light adds the environment family, a distant light its far
 shadow ray), so a pass's kernel launches are known before it runs
 (``queries_per_chunk``).
+
+As in pbrt_tpu, the BSDFs here take ``make_frame``'s frame and no
+fiber offset or Fourier tables: a HAIR row is evaluated at h = 0, its
+frame not along the fiber, and a FOURIER row is black (ROADMAP queue
+3).
 """
 
 from __future__ import annotations

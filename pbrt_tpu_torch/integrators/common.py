@@ -40,8 +40,26 @@ def make_frame(ns):
 
 
 def shading_frame(hit, mp=None):
-    """Shading basis (no hair rows are ported, so no fiber alignment)."""
-    return make_frame(hit.ns)
+    """Shading basis; for HAIR rows t1 lies along the fiber's tangent
+    ∂p/∂u (the BSDF's ss = dpdu, core/reflection.h:170; hair.cpp's frame
+    has x along the fiber)."""
+    t1, t2 = make_frame(hit.ns)
+    if mp is not None and mp.has_hair and hit.dpdu is not None:
+        fiber = hit.dpdu - dot(hit.dpdu, hit.ns)[..., None] * hit.ns
+        ok = vecmath.length_squared(fiber) > 1e-12
+        fiber = vecmath.normalize(torch.where(ok[..., None], fiber, t1))
+        is_hair = (mp.mtype == mat_mod.HAIR)[..., None]
+        t1, t2 = (torch.where(is_hair, fiber, t1),
+                  torch.where(is_hair, vecmath.cross(hit.ns, fiber), t2))
+    return t1, t2
+
+
+def hair_offset(mp, hit):
+    """The hair's offset h = 2v − 1 ∈ [−1, 1] across the curve's width,
+    from the hit's v (curve.cpp); None when no row is HAIR."""
+    if not mp.has_hair:
+        return None
+    return torch.clamp(2.0 * hit.uv[..., 1] - 1.0, -1.0, 1.0)
 
 
 def to_local(t1, t2, n, w):
@@ -124,6 +142,7 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     t1, t2 = shading_frame(hit, mp)
     wo = to_local(t1, t2, hit.ns, wo_world)
     kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=wo_world)
+    h_hair = hair_offset(mp, hit)
 
     # ---- light-strategy sample (Sample_Li)
     ls = lights_mod.sample_li(scene, light_idx, hit.p, u_light)
@@ -177,9 +196,11 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
 
     # ---- BSDF at the sampled direction
     wi_loc = to_local(t1, t2, hit.ns, wi_nee)
-    f = mat_mod.bsdf_f(mp, wo, wi_loc, kd_override=kd_eff) \
+    f = mat_mod.bsdf_f(mp, wo, wi_loc, kd_override=kd_eff, h=h_hair,
+                       fourier=scene.fourier) \
         * absdot(wi_nee, hit.ns)[..., None]
-    scatter_pdf = mat_mod.bsdf_pdf(mp, wo, wi_loc)
+    scatter_pdf = mat_mod.bsdf_pdf(mp, wo, wi_loc, h=h_hair,
+                                   fourier=scene.fourier)
 
     # ---- combine
     ok = (pdf_nee > 0.0) & hit.valid
@@ -204,7 +225,8 @@ def estimate_direct(scene, hit, mp, wo_world, u_select, u_light, u_scatter,
     # ---- BSDF-strategy half of two-sample MIS (non-portal, non-delta)
     if with_bsdf_half and lights_mod.takes_bsdf_half(lt):
         wi_b_loc, f_b, pdf_b, flags = mat_mod.bsdf_sample(
-            mp, wo, u_bsdf_lobe, u_scatter, kd_override=kd_eff)
+            mp, wo, u_bsdf_lobe, u_scatter, kd_override=kd_eff, h=h_hair,
+            fourier=scene.fourier)
         wi_b = to_world(t1, t2, hit.ns, wi_b_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         f_b = f_b * absdot(wi_b, hit.ns)[..., None]

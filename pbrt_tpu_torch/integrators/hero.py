@@ -24,6 +24,11 @@ as ``render._li_loop``: the last bounce collects emission only (no shadow
 ray, no continuation), so a pass launches the closest-hit query
 ``max_depth + 1`` times and, with next event estimation, the shadow query
 ``max_depth`` times, known before it runs.
+
+As in pbrt_tpu, the BSDFs here take ``make_frame``'s frame and no
+fiber offset or Fourier tables: a HAIR row is evaluated at h = 0, its
+frame not along the fiber, and a FOURIER row is black (ROADMAP queue
+3).
 """
 
 from __future__ import annotations

@@ -234,8 +234,9 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         u_cl = sfn(pid, sidx, dims["cont_lobe"], cfg.seed)
         u_cu = _sample2(sfn, pid, sidx, dims["cont_u"], cfg.seed)
         kd_eff = tex_mod.resolve_kd(scene, mp, hit, wo=-d_cur)
-        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu,
-                                                    kd_override=kd_eff)
+        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(
+            mp, wo, u_cl, u_cu, kd_override=kd_eff,
+            h=common.hair_offset(mp, hit), fourier=scene.fourier)
         wi = common.to_world(t1, t2, hit.ns, wi_loc)
         is_spec = (flags & mat_mod.FLAG_SPECULAR) > 0
         is_trans = (flags & mat_mod.FLAG_TRANSMISSION) > 0

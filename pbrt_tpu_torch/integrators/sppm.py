@@ -31,6 +31,11 @@ scene/intersect.py: kernel 2, or kernel 3 with kernel 2 under a BVH. The
 queries of one iteration are fixed by the scene (``queries_per_iteration``).
 The visible points read the material rows' own kd, and the passes ignore
 the rays' shutter times, as pbrt_tpu's do.
+
+As in pbrt_tpu, the BSDFs here take ``make_frame``'s frame and no
+fiber offset or Fourier tables: a HAIR row is evaluated at h = 0, its
+frame not along the fiber, and a FOURIER row is black (ROADMAP queue
+3).
 """
 
 from __future__ import annotations

@@ -169,9 +169,12 @@ def li_volpath(scene, o, d, pid, sidx, sfn, cfg, power_distr):
         t2 = torch.where(ism, m2, t2)
         wi_loc = common.to_local(t1, t2, n, ls["wi"])
         wo_loc = common.to_local(t1, t2, n, wo_world)
-        f_surf = mat_mod.bsdf_f(mp, wo_loc, wi_loc) \
+        h_hair = common.hair_offset(mp, hit)
+        f_surf = mat_mod.bsdf_f(mp, wo_loc, wi_loc, h=h_hair,
+                                fourier=scene.fourier) \
             * absdot(ls["wi"], n)[..., None]
-        sp_surf = mat_mod.bsdf_pdf(mp, wo_loc, wi_loc)
+        sp_surf = mat_mod.bsdf_pdf(mp, wo_loc, wi_loc, h=h_hair,
+                                   fourier=scene.fourier)
         g_lane = media_mod.phase_g_set(media, cur_med)
         ph = media_mod.hg_phase(vecmath.dot(wo_world, ls["wi"]), g_lane)
         f = torch.where(ism, ph[..., None].expand(R, C), f_surf)
@@ -189,7 +192,7 @@ def li_volpath(scene, o, d, pid, sidx, sfn, cfg, power_distr):
         u_bl = sfn(pid, sidx, dims["mis_lobe"], sseed)
         u_bu = _sample2(sfn, pid, sidx, dims["mis_u"], sseed)
         wi_b_loc, f_b, pdf_b, flags_b = mat_mod.bsdf_sample(
-            mp, wo_loc, u_bl, u_bu)
+            mp, wo_loc, u_bl, u_bu, h=h_hair, fourier=scene.fourier)
         wi_b_surf = common.to_world(t1, t2, n, wi_b_loc)
         wi_b_med, ph_b = media_mod.sample_hg(wo_world, u_bu, g_lane)
         wi_b = torch.where(ism, wi_b_med, wi_b_surf)
@@ -274,7 +277,9 @@ def li_volpath(scene, o, d, pid, sidx, sfn, cfg, power_distr):
             -d_cur, u_cu, media_mod.phase_g_set(media, cur_med))
         t1, t2 = common.shading_frame(hit, mp)
         wo = common.to_local(t1, t2, hit.ns, wo_w)
-        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(mp, wo, u_cl, u_cu)
+        wi_loc, f, pdf, flags = mat_mod.bsdf_sample(
+            mp, wo, u_cl, u_cu, h=common.hair_offset(mp, hit),
+            fourier=scene.fourier)
         wi_surf = common.to_world(t1, t2, hit.ns, wi_loc)
         thr_surf = f * (absdot(wi_surf, hit.ns)
                         / torch.clamp_min(pdf, 1e-20))[..., None]

@@ -395,8 +395,10 @@ def intersect_bvh(scene, o, d, tmax, surface_only=False, time=None):
     ``time`` on a scene with motion), then the spheres and aaplanes brute
     force with the traversal's ``best_t`` as their tmax (the kernel's
     strict ``t < best_t`` is pbrt_tpu's update rule ``anyh & (tb <
-    best_t)``), then the disks and the instances in plain torch. The query
-    is not differentiated."""
+    best_t)``), then the disks, the curves and the instances in plain
+    torch. The curves' (u, v) are not handed on: ``finalize_hit`` rescans
+    the hit curve, as pbrt_tpu's BVH path does. The query is not
+    differentiated."""
     from pbrt_tpu_torch.scene import intersect as isect_mod
 
     with torch.no_grad():
@@ -412,6 +414,8 @@ def intersect_bvh(scene, o, d, tmax, surface_only=False, time=None):
             prim_id = torch.where(prim_b >= 0, prim_b + scene.n_tri, prim_id)
         best_t, prim_id = isect_mod.closest_disk(scene, o_q, d_q, best_t,
                                                  prim_id)
+        best_t, prim_id, _ = isect_mod.closest_curve(scene, o_q, d_q,
+                                                     best_t, prim_id)
         best_t, prim_id = inst_mod.update_closest(scene, o_q, d_q, best_t,
                                                   prim_id)
     return isect_mod.finalize_hit(scene, o, d, best_t, prim_id,
@@ -425,9 +429,11 @@ def intersect_p_bvh(scene, o, d, tmax, time=None):
         occ = bvh_intersect_p_tris(scene.bvh, o_q, d_q, tmax_q, time)
         if scene.n_sph or scene.n_pln:
             occ = occ | (_brute_families(scene, o_q, d_q, tmax_q)[1] >= 0)
+        from pbrt_tpu_torch.scene import intersect as isect_mod
         if scene.n_dsk:
-            from pbrt_tpu_torch.scene import intersect as isect_mod
             occ = occ | isect_mod.any_disk(scene, o_q, d_q, tmax_q)
+        if scene.n_crv:
+            occ = occ | isect_mod.any_curve(scene, o_q, d_q, tmax_q)
         if scene.inst is not None:
             occ = occ | inst_mod.any_hit(scene, o_q, d_q, tmax_q)
     return occ

@@ -13,11 +13,15 @@ pbrt_tpu chooses them:
   ops/intersect.py as a whole.
 
 On a CUDA tensor these are the kernels, on a CPU tensor their twins.
-Disks and instanced objects stay outside the kernels, as in pbrt_tpu:
-after the kernel's closest hit, ``closest_disk`` tests every disk in
-plain torch with the kernel's ``t`` as its bound, then
+Disks, curves and instanced objects stay outside the kernels, as in
+pbrt_tpu: after the kernel's closest hit, ``closest_disk`` tests every
+disk in plain torch with the kernel's ``t`` as its bound, then
+``closest_curve`` every curve (in tiles, scene/shapes.py), then
 scene/instances.py walks the instances the same way, and the any-hit
-query ORs in a disk or an instance hit.
+query ORs in a disk, a curve or an instance hit. The brute-force path
+hands the curve's (u, v) to ``finalize_hit`` as pbrt_tpu's cache does;
+the BVH path does not, and ``finalize_hit`` rescans the hit curve
+(bound t + 1e-3), as pbrt_tpu does.
 ``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
 and tangents. A kd-tree accelerator is not ported and raises.
 
@@ -101,6 +105,36 @@ def closest_disk(scene, o, d, best_t, prim_id):
             torch.where(upd, base + idx.to(prim_id.dtype), prim_id))
 
 
+def _curve_tables(scene):
+    g = scene.geom
+    return g.crv_cp, g.crv_w, g.crv_n
+
+
+def closest_curve(scene, o, d, best_t, prim_id):
+    """Fold the curves into a closest hit (best_t, prim_id), after the
+    disks: pbrt_tpu's family update ``any & (tb < best_t)`` with the first
+    curve of least t, the curves tested below ``best_t``. Returns (t,
+    prim, (u, v)) with the family best's (u, v) (pbrt_tpu's
+    ``results["crv"]``), or (t, prim, None) without curves."""
+    if not scene.n_crv:
+        return best_t, prim_id, None
+    with torch.no_grad():
+        tb, idx, ub, vb = shapes.closest_curves(
+            o.detach(), d.detach(), best_t.detach(), *_curve_tables(scene))
+    upd = (tb < shapes.BIG) & (tb < best_t)
+    base = scene.n_tri + scene.n_sph + scene.n_pln + scene.n_dsk
+    return (torch.where(upd, tb, best_t),
+            torch.where(upd, base + idx.to(prim_id.dtype), prim_id),
+            (ub, vb))
+
+
+def any_curve(scene, o, d, tmax):
+    """Does any curve block the segment below tmax? (R,) bool."""
+    with torch.no_grad():
+        return shapes.any_curves(o.detach(), d.detach(), tmax.detach(),
+                                 *_curve_tables(scene))
+
+
 def any_disk(scene, o, d, tmax):
     """Does any disk block the segment below tmax? (R,) bool."""
     if not scene.n_dsk:
@@ -117,8 +151,10 @@ def intersect(scene, o, d, tmax, surface_only=False, time=None) -> Hit:
         return bvh_mod.intersect_bvh(scene, o, d, tmax, surface_only,
                                      time=time)
     t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax, time))
+    t, prim, crv_uv = closest_curve(scene, o, d, t, prim)
     t, prim = inst_mod.update_closest(scene, o, d, t, prim)
-    return finalize_hit(scene, o, d, t, prim, surface_only, time=time)
+    return finalize_hit(scene, o, d, t, prim, surface_only, time=time,
+                        crv_uv=crv_uv)
 
 
 def intersect_p(scene, o, d, tmax, time=None):
@@ -128,6 +164,8 @@ def intersect_p(scene, o, d, tmax, time=None):
     occ = _closest(scene, o, d, tmax, time)[1] >= 0
     if scene.n_dsk:
         occ = occ | any_disk(scene, o, d, tmax)
+    if scene.n_crv:
+        occ = occ | any_curve(scene, o, d, tmax)
     if scene.inst is not None:
         occ = occ | inst_mod.any_hit(scene, o, d, tmax)
     return occ
@@ -152,9 +190,11 @@ def _attach_t(scene, o, d, t, prim_id, time=None):
     differentiated parameter (volpath's medium events, a portal's NEE
     direction) moves its hit along the surface, as pbrt_tpu's
     brute-force ``t`` does. Triangles, disks and aaplanes by their plane,
-    spheres by the quadratic's root nearer the kernel's t; an instanced
-    hit keeps a constant t. A moving triangle's plane is the one at the
-    ray's shutter time."""
+    spheres by the quadratic's root nearer the kernel's t, curves by
+    pbrt_tpu's span test of the hit curve (the projection of the chord's
+    closest point on the normalized direction, bound t + 1e-3); an
+    instanced hit keeps a constant t. A moving triangle's plane is the
+    one at the ray's shutter time."""
     g = scene.geom
     nt, ns, npl, nd = scene.n_tri, scene.n_sph, scene.n_pln, scene.n_dsk
     ta = torch.zeros_like(t)
@@ -196,17 +236,38 @@ def _attach_t(scene, o, d, t, prim_id, time=None):
         ta = torch.where(on, plane_t(take(g.dsk_center, i),
                                      take(g.dsk_normal, i)), ta)
         fam = fam | on
+    if scene.n_crv:
+        base = nt + ns + npl + nd
+        on = (prim_id >= base) & (prim_id < scene.n_base_prims)
+        tc = _curve_rescan(scene, o, d, t.detach(), prim_id - base)[0]
+        ta = torch.where(on, tc, ta)
+        fam = fam | on
     return t.detach() + torch.where(fam, ta - ta.detach(), 0.0)
 
 
+def _curve_rescan(scene, o, d, t, ci):
+    """The span test of ray r against its hit curve ci[r] alone, below
+    t + 1e-3: (t, u, v, hit), each (R,). Each pair's test is independent
+    of the other curves, so this is pbrt_tpu's rescan
+    (``intersect_curves`` over every curve, read at column ci)."""
+    ci = ci.clamp(0, scene.n_crv - 1)
+    cp, w, n = _curve_tables(scene)
+    out = shapes.curve_pairs(o, d, t + 1e-3, take(cp, ci)[None],
+                             take(w, ci)[None],
+                             None if n is None else take(n, ci)[None])
+    return tuple(x[0] for x in out)
+
+
 def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
-                 time=None) -> Hit:
+                 time=None, crv_uv=None) -> Hit:
     """Hit attributes (p, ng, ns, uv, dpdu, dpdv) from (t, prim_id), a
     moving triangle's at the rays' shutter times ``time``. Where the ray
     carries a gradient, ``t`` takes the hit primitive's (``_attach_t``).
     ``surface_only`` (the subsurface probe chain, which reads the point
     and the normals) leaves uv zero and dpdu / dpdv None, but on a scene
-    with instances."""
+    with instances. A curve hit takes its (u, v) from ``crv_uv`` (the
+    brute-force query's family best) or, without it, from a rescan of the
+    hit curve; its normals and dpdu are ``shapes.curve_hit_frame``'s."""
     g = scene.geom
     surface_only = surface_only and scene.inst is None
     R = o.shape[0]
@@ -307,6 +368,27 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
     # the geometric normal keeps its own orientation (as pbrt's); the
     # shading normal is flipped to its side
     ns = vecmath.face_forward(ns, ng)
+    if scene.n_crv:
+        base = nt + nsp + npl + scene.n_dsk
+        is_crv = (valid & (prim_id >= base)
+                  & (prim_id < scene.n_base_prims))[..., None]
+        ci = (prim_id - base).clamp(0, scene.n_crv - 1)
+        if crv_uv is None:
+            with torch.no_grad():
+                _, u_c, v_c, _ = _curve_rescan(scene, o.detach(),
+                                               d.detach(), t.detach(),
+                                               ci)
+        else:
+            u_c, v_c = crv_uv
+        cp, w, n = _curve_tables(scene)
+        tang, n_c = shapes.curve_hit_frame(
+            o, d, take(cp, ci), take(w, ci), u_c, v_c, p,
+            nrows=None if n is None else take(n, ci))
+        ng = torch.where(is_crv, n_c, ng)
+        ns = torch.where(is_crv, n_c, ns)
+        if not surface_only:
+            uv = torch.where(is_crv, torch.stack([u_c, v_c], -1), uv)
+            dpdu = torch.where(is_crv, tang, dpdu)
     if surface_only:
         return Hit(valid=valid, t=t, p=p, ng=ng, ns=ns, uv=uv,
                    prim_id=torch.where(valid, prim_id, -1))

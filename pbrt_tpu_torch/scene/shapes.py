@@ -271,3 +271,201 @@ def intersect_disks(o, d, tmax, center, normal, radius, inner_radius):
            & (r2 <= (radius * radius)[None])
            & (r2 >= (inner_radius * inner_radius)[None]))
     return t, hit
+
+
+# ---------------------------------------------------------------------------
+# Cubic Bézier curves (shapes/curve.cpp): analytic span test
+# ---------------------------------------------------------------------------
+
+CURVE_SEGMENTS = 32   # pbrt recurses to maxDepth ≈ 5 and runs the same
+                      # linear-segment leaf test on each of 2^depth spans
+                      # (curve.cpp:147-163); pbrt_tpu scans 32 fixed spans
+CURVE_TILE_ELEMS = 1 << 24   # the (R, tile) tensors of one tile at most
+
+
+def bezier_point(cp, u):
+    """Cubic Bézier evaluation; cp (...,4,3), u (...)."""
+    u = u[..., None]
+    u1 = 1.0 - u
+    return (u1 ** 3 * cp[..., 0, :] + 3 * u1 ** 2 * u * cp[..., 1, :]
+            + 3 * u1 * u ** 2 * cp[..., 2, :] + u ** 3 * cp[..., 3, :])
+
+
+def bezier_tangent(cp, u):
+    u = u[..., None]
+    u1 = 1.0 - u
+    return 3.0 * (u1 ** 2 * (cp[..., 1, :] - cp[..., 0, :])
+                  + 2 * u1 * u * (cp[..., 2, :] - cp[..., 1, :])
+                  + u ** 2 * (cp[..., 3, :] - cp[..., 2, :]))
+
+
+def _ray_frame(d):
+    """Ray-space frame: z along the normalized direction (the LookAt
+    objectToRay of curve.cpp:93-104)."""
+    dn = normalize(d)
+    e1, e2 = vecmath.coordinate_system(dn)
+    return dn, e1, e2
+
+
+def curve_slerp_normal(n, u):
+    """A ribbon's orientation normal at u: the spherical lerp between its
+    u = 0 and u = 1 normals (curve.cpp:44-58, :169). n (...,2,3); u
+    broadcastable to n[..., 0, 0]. Returns (...,3), not normalized."""
+    n0 = n[..., 0, :]
+    n1 = n[..., 1, :]
+    ang = torch.acos(torch.clamp(torch.sum(n0 * n1, -1), -1.0, 1.0))
+    sinang = torch.sin(ang)
+    safe = sinang > 1e-4
+    inv = torch.clamp_min(sinang, 1e-9)
+    s0 = torch.where(safe, torch.sin((1.0 - u) * ang) / inv, 1.0 - u)
+    s1 = torch.where(safe, torch.sin(u * ang) / inv, u)
+    return s0[..., None] * n0 + s1[..., None] * n1
+
+
+def curve_pairs(o, d, tmax, cp, w, n=None):
+    """Ray × curve pairs (curve.cpp Curve::Intersect). o, d: (R,3); tmax
+    (R,); cp (N,B,4,3) world-space control points, w (N,B,2) the widths
+    at u = 0 and 1, n (N,B,2,3) ribbon normals (zero rows: flat and
+    cylinder) or None; B is 1 (every ray against every curve) or R (ray r
+    against its own N curves). Returns (t, u, v, hit), each (N,R), the
+    long ray axis the inner one of every operation: t along the
+    normalized direction (BIG where no span is hit), v ∈ [0,1] the offset
+    across the width (the hair's h = 2v − 1).
+
+    pbrt_tpu's order of operations: each of the CURVE_SEGMENTS spans is
+    projected into the ray's frame, the chord's closest approach to the
+    ray axis is tested against the half width interpolated at that u (a
+    ribbon's scaled by |n(u)·d|, curve.cpp:165-172), and a span replaces
+    the pair's best only under a strict t < best. Each pair's values are
+    independent of the other pairs."""
+    dn, e1, e2 = _ray_frame(d)
+    o_c = [o[:, k] for k in range(3)]
+    frame = [[f[:, k] for k in range(3)] for f in (e1, e2, dn)]
+    us = [i / CURVE_SEGMENTS for i in range(CURVE_SEGMENTS + 1)]
+    uu = torch.tensor(us, dtype=cp.dtype, device=cp.device)
+    # every span end of every curve at once: (N,B,S+1,3)
+    ends = bezier_point(cp[..., None, :, :], uu.expand(cp.shape[:-2]
+                                                       + (len(us),)))
+
+    def ray_space(i):
+        q = [ends[..., i, k] - o_c[k] for k in range(3)]
+        return [q[0] * f[0] + q[1] * f[1] + q[2] * f[2] for f in frame]
+
+    w0, w1 = w[..., 0], w[..., 1]
+    is_ribbon = (torch.sum(n[..., 0, :] * n[..., 0, :], -1) > 1e-12
+                 if n is not None else None)
+    # a pair's best so far starts at tmax, so the strict t < best is also
+    # pbrt_tpu's t < tmax, and a pair hit iff its best fell below tmax;
+    # v is formed once, from the best span's dist², side and half width
+    shape = (cp.shape[0], o.shape[0])
+    bt = tmax.expand(shape)
+    bu, bd2, bside, bhw = (torch.zeros(shape, device=o.device)
+                           for _ in range(4))
+    ax, ay, az = ray_space(0)
+    for i in range(CURVE_SEGMENTS):
+        ui, uj = us[i], us[i + 1]
+        bx, by, bz = ray_space(i + 1)
+        abx = bx - ax
+        aby = by - ay
+        denom = torch.clamp_min(abx * abx + aby * aby, 1e-12)
+        s = torch.clamp(-(ax * abx + ay * aby) / denom, 0.0, 1.0)
+        px = ax + s * abx
+        py = ay + s * aby
+        t = az + s * (bz - az)
+        u_hit = ui + s * (uj - ui)
+        hw = 0.5 * (w0 * (1.0 - u_hit) + w1 * u_hit)
+        if is_ribbon is not None:
+            nhit = curve_slerp_normal(n, u_hit)
+            cosr = ((nhit[..., 0] * frame[2][0] + nhit[..., 1] * frame[2][1]
+                     + nhit[..., 2] * frame[2][2]).abs()
+                    / torch.clamp_min(vecmath.length(nhit), 1e-9))
+            hw = torch.where(is_ribbon, hw * cosr, hw)
+        dist2 = px * px + py * py
+        hit = (dist2 <= hw * hw) & (t > 1e-4) & (t < bt)
+        # the side of the chord gives v's sign (curve.cpp:173-180)
+        side = px * (-aby) + py * abx
+        bt = torch.where(hit, t, bt)
+        bu = torch.where(hit, u_hit, bu)
+        bd2 = torch.where(hit, dist2, bd2)
+        bside = torch.where(hit, side, bside)
+        bhw = torch.where(hit, hw, bhw)
+        ax, ay, az = bx, by, bz
+    bh = bt < tmax
+    v = 0.5 + torch.sign(bside) * vecmath.safe_sqrt(bd2) \
+        / torch.clamp_min(2.0 * bhw, 1e-9)
+    return (torch.where(bh, bt, BIG), bu,
+            torch.where(bh, torch.clamp(v, 0.0, 1.0), 0.0), bh)
+
+
+def intersect_curves(o, d, tmax, cp, w, n=None):
+    """Every ray against every curve (pbrt_tpu's ``intersect_curves``):
+    cp (N,4,3), w (N,2), n (N,2,3) or None. Returns (t, u, v, hit), each
+    (R,N). Untiled: the scene's queries go through ``closest_curves`` and
+    ``any_curves``."""
+    out = curve_pairs(o, d, tmax, cp[:, None], w[:, None],
+                      None if n is None else n[:, None])
+    return tuple(x.T for x in out)
+
+
+def curve_tile(n_rays: int, n_curves: int) -> int:
+    """Curves a tile: the most whose (tile, R) tensors stay at or under
+    CURVE_TILE_ELEMS elements (at least one)."""
+    return max(1, min(n_curves, CURVE_TILE_ELEMS // max(n_rays, 1)))
+
+
+def _tiles(o, cp, w, n, tile):
+    tile = tile or curve_tile(o.shape[0], cp.shape[0])
+    for s in range(0, cp.shape[0], tile):
+        yield s, (cp[s:s + tile, None], w[s:s + tile, None],
+                  None if n is None else n[s:s + tile, None])
+
+
+def closest_curves(o, d, tmax, cp, w, n=None, tile=None):
+    """The first curve of least t below tmax for each ray, the curves
+    taken in tiles (``curve_tile``) folded in order under a strict <:
+    each pair's test is independent of the others, so the result equals
+    the untiled family best (pbrt_tpu's ``_family_best`` over
+    ``intersect_curves``) bit for bit. Returns (t, idx, u, v), t BIG where
+    no curve is hit."""
+    best = None
+    for s, tables in _tiles(o, cp, w, n, tile):
+        t, u, v, h = curve_pairs(o, d, tmax, *tables)
+        tb, idx = torch.where(h, t, BIG).min(dim=0)
+        at = idx[None]
+        cur = (tb, idx + s, u.gather(0, at)[0], v.gather(0, at)[0])
+        if best is None:
+            best = cur
+        else:
+            upd = cur[0] < best[0]
+            best = tuple(torch.where(upd, c, b) for c, b in zip(cur, best))
+    return best
+
+
+
+def any_curves(o, d, tmax, cp, w, n=None, tile=None):
+    """Does any curve block the ray below tmax? (R,) bool, in tiles."""
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for _, tables in _tiles(o, cp, w, n, tile):
+        occ = occ | curve_pairs(o, d, tmax, *tables)[3].any(0)
+    return occ
+
+
+def curve_hit_frame(o, d, cp, w, u, v, p, nrows=None):
+    """Shading attributes at a curve hit: dpdu the fiber tangent (the
+    hair BSDF's frame), the normal −d made perpendicular to it (the flat
+    and cylinder shading normal, curve.cpp:213-230) or a ribbon's slerped
+    normal (curve.cpp:213-218). cp (R,4,3) and nrows (R,2,3) are the hit
+    curves' rows. Returns (tangent, normal)."""
+    tang = normalize(bezier_tangent(cp, u))
+    dn = normalize(d)
+    n = -dn + tang * torch.sum(dn * tang, -1, keepdim=True)
+    z = torch.tensor([0.0, 0.0, 1.0], device=d.device).expand(n.shape)
+    n = normalize(torch.where(torch.sum(n * n, -1, keepdim=True) > 1e-12,
+                              n, z))
+    if nrows is not None:
+        is_rib = torch.sum(nrows[:, 0] * nrows[:, 0], -1) > 1e-12
+        n_rib = curve_slerp_normal(nrows, u)
+        n_rib = normalize(torch.where(
+            torch.sum(n_rib * n_rib, -1, keepdim=True) > 1e-12, n_rib, n))
+        n = torch.where(is_rib[..., None], n_rib, n)
+    return tang, n

@@ -1,7 +1,9 @@
 """Host-side tessellators for parametric shapes (port of
-pbrt_tpu/scene/tessellate.py without the curve ribbon; numpy only): the
-quadrics cylinder, cone, paraboloid and hyperboloid as surfaces of
-revolution, the heightfield and the NURBS surface.
+pbrt_tpu/scene/tessellate.py; numpy only): the quadrics cylinder, cone,
+paraboloid and hyperboloid as surfaces of revolution, the heightfield,
+the curve ribbon (``tessellate_curve``, which the parser does not call:
+curves are intersected analytically, scene/shapes.py) and the NURBS
+surface.
 
 Every curved shape tessellates to triangles at scene-build time (as pbrt
 itself does for heightfield.cpp:60-89), so the device-side intersection
@@ -106,6 +108,52 @@ def tessellate_heightfield(nx: int, ny: int, z: np.ndarray):
             faces.append((a, a + 1, b + 1))
             faces.append((a, b + 1, b))
     return verts, np.asarray(faces, np.int32), None
+
+
+def _bezier_point(cp, u):
+    """Cubic Bézier evaluation; cp (4,3)."""
+    u1 = 1.0 - u
+    return (u1 ** 3 * cp[0] + 3 * u1 ** 2 * u * cp[1]
+            + 3 * u1 * u ** 2 * cp[2] + u ** 3 * cp[3])
+
+
+def _bezier_tangent(cp, u):
+    u1 = 1.0 - u
+    return 3 * (u1 ** 2 * (cp[1] - cp[0]) + 2 * u1 * u * (cp[2] - cp[1])
+                + u ** 2 * (cp[3] - cp[2]))
+
+
+def tessellate_curve(cp, width0: float, width1: float, n_seg: int = 16):
+    """shapes/curve.cpp's flat ribbon as triangles: a cubic Bézier segment
+    → a strip whose side vector is parallel-transported along the curve.
+    Returns (vertices, faces, uvs): u along the curve, v across the width
+    (the hair's h = 2v − 1)."""
+    cp = np.asarray(cp, np.float64).reshape(4, 3)
+    us = np.linspace(0.0, 1.0, n_seg + 1)
+    pts = np.stack([_bezier_point(cp, u) for u in us])
+    tans = np.stack([_bezier_tangent(cp, u) for u in us])
+    tans /= np.maximum(np.linalg.norm(tans, axis=-1, keepdims=True), 1e-12)
+    side = np.cross(tans[0], [0.0, 0.0, 1.0])
+    if np.linalg.norm(side) < 1e-6:
+        side = np.cross(tans[0], [0.0, 1.0, 0.0])
+    side /= np.linalg.norm(side)
+    verts = []
+    for k, u in enumerate(us):
+        side = side - tans[k] * np.dot(side, tans[k])
+        side /= max(np.linalg.norm(side), 1e-12)
+        w = 0.5 * ((1 - u) * width0 + u * width1)
+        verts.append(pts[k] - side * w)
+        verts.append(pts[k] + side * w)
+    faces = []
+    for k in range(n_seg):
+        a = 2 * k
+        faces += [(a, a + 2, a + 3), (a, a + 3, a + 1)]
+    uvs = np.zeros((2 * (n_seg + 1), 2), np.float32)
+    uvs[0::2, 0] = us
+    uvs[1::2, 0] = us
+    uvs[1::2, 1] = 1.0
+    return (np.asarray(verts, np.float32), np.asarray(faces, np.int32),
+            uvs)
 
 
 def _nurbs_basis(i, k, t, knots):

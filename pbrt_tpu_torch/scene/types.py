@@ -1,33 +1,39 @@
 """Scene container and host-side builder (port of pbrt_tpu/scene/types.py
-for triangles, spheres, aaplanes, disks, instanced objects, textures,
-media and subsurface scattering).
+for triangles, spheres, aaplanes, disks, curves, instanced objects,
+textures, media, subsurface scattering and Fourier tables).
 
 The global primitive index space is pbrt_tpu's: triangles ``[0, nT)``,
-then spheres ``[nT, nT+nS)``, then aaplanes, then disks, then the
-virtual prims of instanced objects (scene/instances.py). ``prim_mat`` /
+then spheres ``[nT, nT+nS)``, then aaplanes, then disks, then cubic
+Bézier curves, then the virtual prims of instanced objects
+(scene/instances.py). ``prim_mat`` /
 ``prim_light`` map a global prim to its material row and light row (−1 =
 not emissive); ``prim_med_in`` / ``prim_med_out`` to the media inside
 and outside it (MediumInterface, −1 = vacuum).
 
 ``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
-``SceneBuilder.build`` makes one for scenes of more than 256 triangles, as
-pbrt_tpu does. Disks and instances are intersected outside the kernels,
-in plain torch, as pbrt_tpu does (scene/intersect.py). A scene with a
-subsurface row (or a solid Disney row with scatterdistance) carries
-``has_sss`` and the BSSRDF's radial tables (scene/bssrdf.py). A scene
-with two-keyframe motion (a triangle given shutter-end vertices) carries
-``has_motion`` and each triangle's motion ``tri_dv0..2`` (its vertex at
-shutter time t is v + t·dv), and its world bounds cover both keyframes.
-Emissive disks, curves and the kd-tree are not ported and raise
-``NotImplementedError``. A scene's spectra have 3 channels (RGB) or 60
-(sampled, for the hero-wavelength integrators): the builder's
-``SpectrumConfig`` decides, and lifts RGB parameters to 60 bins with
-``core/spectrum.py::from_rgb``, as pbrt_tpu's builder does.
+``SceneBuilder.build`` makes one for scenes of more than 256 triangles,
+as pbrt_tpu does. Disks, curves and instances are intersected outside
+the kernels, in plain torch, as pbrt_tpu does (scene/intersect.py). A
+curve has no light row; its world bound pads its control points by its
+widest width. ``crv_n`` (the ribbons' normals) is None unless some curve
+is a ribbon, as pbrt_tpu's static specialisation has it.
+``Scene.fourier`` holds the measured tables (scene/fourier.py) that
+FOURIER rows name. A scene with a subsurface row (or a solid Disney row
+with scatterdistance) carries ``has_sss`` and the BSSRDF's radial tables
+(scene/bssrdf.py). A scene with two-keyframe motion (a triangle given
+shutter-end vertices) carries ``has_motion`` and each triangle's motion
+``tri_dv0..2`` (its vertex at shutter time t is v + t·dv), and its world
+bounds cover both keyframes. Emissive disks and the kd-tree are not
+ported and raise ``NotImplementedError``. A scene's spectra have 3
+channels (RGB) or 60 (sampled, for the hero-wavelength integrators): the
+builder's ``SpectrumConfig`` decides, and lifts RGB parameters to 60
+bins with ``core/spectrum.py::from_rgb``, as pbrt_tpu's builder does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -63,6 +69,12 @@ class Geometry:
     tri_dv0: Optional[torch.Tensor] = None   # (T,3)
     tri_dv1: Optional[torch.Tensor] = None
     tri_dv2: Optional[torch.Tensor] = None
+    # cubic Bézier curves (shapes/curve.cpp): world-space control points,
+    # the widths at u = 0 and 1, the ribbons' normals there (zero rows:
+    # flat and cylinder curves; None when no curve is a ribbon)
+    crv_cp: Optional[torch.Tensor] = None    # (N,4,3)
+    crv_w: Optional[torch.Tensor] = None     # (N,2)
+    crv_n: Optional[torch.Tensor] = None     # (N,2,3)
 
 
 @dataclasses.dataclass
@@ -99,10 +111,14 @@ class Scene:
     sss: Any = None
     # two-keyframe triangle motion (animated shape transforms)
     has_motion: bool = False
+    n_crv: int = 0
+    # the measured Fourier tables (scene/fourier.py) by fourier_id
+    fourier: tuple = ()
 
     @property
     def n_base_prims(self) -> int:
-        return self.n_tri + self.n_sph + self.n_pln + self.n_dsk
+        return self.n_tri + self.n_sph + self.n_pln + self.n_dsk \
+            + self.n_crv
 
     @property
     def n_prims(self) -> int:
@@ -165,6 +181,8 @@ class SceneBuilder:
         self.spheres = []     # dicts: center radius mat light
         self.planes = []      # dicts: lo hi ax facing mat light
         self.disks = []       # dicts: center normal radius inner mat light
+        self.curves = []      # dicts: cp (4,3) w0 w1 n0 n1 mat
+        self.fourier_tables = []  # scene/fourier.py FourierTables
         self.materials = []   # parameter dicts (scene/materials.py)
         self.light_rows = []  # parameter dicts (scene/lights.py)
         self.texture_rows = []  # parameter dicts (scene/textures.py)
@@ -259,8 +277,28 @@ class SceneBuilder:
                                med_in=med_in, med_out=med_out))
         return len(self.disks) - 1
 
-    def add_curve(self, *args, **kw):
-        _unported("curves", 8)
+    def add_curve(self, cp, width0, width1, mat=0, med_in=-1, med_out=-1,
+                  n0=None, n1=None):
+        """A cubic Bézier segment (shapes/curve.cpp), intersected
+        analytically; cp (4,3) world-space control points; n0, n1 a
+        ribbon's normals at u = 0 and 1 (None: flat or cylinder)."""
+        z = np.zeros(3, np.float32)
+        self.curves.append(dict(
+            cp=np.asarray(cp, np.float32).reshape(4, 3), w0=float(width0),
+            w1=float(width1), mat=mat, med_in=med_in, med_out=med_out,
+            n0=z if n0 is None else np.asarray(n0, np.float32),
+            n1=z if n1 is None else np.asarray(n1, np.float32)))
+        return len(self.curves) - 1
+
+    def add_fourier_table(self, table_or_path) -> int:
+        """Register a measured FourierBSDF table (materials/fourier.cpp),
+        a scene/fourier.py FourierTable or a .bsdf path; returns the id
+        for a FOURIER row's ``fourier_id``."""
+        if isinstance(table_or_path, (str, bytes, os.PathLike)):
+            from pbrt_tpu_torch.scene import fourier as fourier_mod
+            table_or_path = fourier_mod.read_bsdf(table_or_path)
+        self.fourier_tables.append(table_or_path)
+        return len(self.fourier_tables) - 1
 
     # -- instancing, media and textures -----------------------------------
     def add_instanced_object(self) -> int:
@@ -326,7 +364,7 @@ class SceneBuilder:
             raise ValueError(f"use_bvh={use_bvh!r}")
         device = require_device(device)
         nt, ns, npl = len(self.tris), len(self.spheres), len(self.planes)
-        nd = len(self.disks)
+        nd, ncv = len(self.disks), len(self.curves)
         if any(r["light"] != -1 for r in self.disks):
             _unported("area lights on disks", 8)
 
@@ -387,11 +425,19 @@ class SceneBuilder:
                                    or [0.0], np.float32)),
             **({} if not has_motion else
                {f"tri_dv{k}": t(tdv[k]) for k in range(3)}))
+        if ncv:
+            cn = np.asarray([[r["n0"], r["n1"]] for r in self.curves],
+                            np.float32)
+            geom = dataclasses.replace(
+                geom, crv_cp=t(np.stack([r["cp"] for r in self.curves])),
+                crv_w=t(np.asarray([[r["w0"], r["w1"]] for r in self.curves],
+                                   np.float32)),
+                crv_n=t(cn) if cn.any() else None)
 
         def ids(key, default):
             a = np.asarray([r.get(key, default) for r in self.tris
-                            + self.spheres + self.planes + self.disks],
-                           np.int32)
+                            + self.spheres + self.planes + self.disks
+                            + self.curves], np.int32)
             return a if a.size else np.zeros(0, np.int32)
 
         prim_mat, prim_light = ids("mat", 0), ids("light", -1)
@@ -407,6 +453,11 @@ class SceneBuilder:
             pts += [p_lo, p_hi]
         if nd:
             pts += [d_c - d_r[:, None], d_c + d_r[:, None]]
+        if ncv:
+            # padded by the widest width (not half of it), as pbrt_tpu pads
+            cps = np.stack([r["cp"] for r in self.curves]).reshape(-1, 3)
+            wmax = max(max(r["w0"], r["w1"]) for r in self.curves)
+            pts += [cps - wmax, cps + wmax]
 
         # instancing: one int entry per (instance, pool triangle) in the
         # prim tables; the geometry itself is never copied
@@ -444,7 +495,8 @@ class SceneBuilder:
             lights=lights_mod.build_light_table(self, world_lo, world_hi,
                                                 device),
             world_lo=t(world_lo), world_hi=t(world_hi),
-            n_tri=nt, n_sph=ns, n_pln=npl, n_dsk=nd,
+            n_tri=nt, n_sph=ns, n_pln=npl, n_dsk=nd, n_crv=ncv,
+            fourier=to_device(tuple(self.fourier_tables), device),
             n_channels=self.n_channels, inst=inst_table, n_vprims=n_vprims,
             media=to_device(tuple(self.media), device),
             prim_med_in=t(med_in), prim_med_out=t(med_out),
@@ -483,9 +535,8 @@ class SceneBuilder:
         with a key beyond (type, kd, sigma), or with Oren–Nayar roughness,
         rules the scene out, as in pbrt_tpu's gate. Disks, instances,
         textures, media (any medium, or a camera medium) and subsurface
-        scattering (``has_sss``) and motion (``has_motion``) are ruled out
-        as there; the other families it rules out (curves, Fourier) cannot
-        be built here at all.
+        scattering (``has_sss``), motion (``has_motion``), curves and
+        Fourier tables are ruled out as there.
         A built BVH does not
         disqualify: the fused kernel reads the builder-order triangles and
         culls by its own clusters.
@@ -494,8 +545,8 @@ class SceneBuilder:
         portal_facing, n_materials, mode) or None."""
         from pbrt_tpu_torch.ops.fused_path import MAX_MAT, MAX_TRI
 
-        if (scene.n_sph or scene.n_dsk or scene.inst is not None
-                or scene.has_motion):
+        if (scene.n_sph or scene.n_dsk or scene.n_crv or scene.fourier
+                or scene.inst is not None or scene.has_motion):
             return None
         if (scene.has_sss or self.media or self.camera_med != -1
                 or scene.textures is not None):

@@ -161,7 +161,8 @@ def main(argv=None):
             shape=list(img.shape), spp=spp, outfile=fname,
             integrator=integrator, channels=scene.n_channels,
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
-                       dsk=scene.n_dsk, vprims=scene.n_vprims,
+                       dsk=scene.n_dsk, crv=scene.n_crv,
+                       vprims=scene.n_vprims,
                        bvh=scene.bvh is not None, motion=scene.has_motion),
             media=len(scene.media), textures=scene.textures is not None,
             sss_rows=_sss_rows(scene))))

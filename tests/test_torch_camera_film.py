@@ -111,11 +111,14 @@ def test_thin_lens_rays_match_jax():
 
 
 def test_unported_camera_filter_sampler_raise():
+    # every sampler of pbrt_tpu builds (item 8d); an unknown name raises
     from pbrt_tpu_torch.samplers import make_sampler
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sampler("sobol")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sampler("stratified")
+    for name in ("sobol", "stratified", "maxmindist", "zerotwosequence",
+                 "halton_cp", "halton"):
+        u = make_sampler(name, resolution=(8, 8))(torch.arange(64), 3, 5)
+        assert u.dtype == torch.float32 and bool(((u >= 0) & (u < 1)).all())
+    with pytest.raises(ValueError, match="unknown sampler"):
+        make_sampler("pmj02bn")
     # a moving camera (motion blur) carries over with its keyframes and
     # shutter
     cam = ge._camera((8, 8))

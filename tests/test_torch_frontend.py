@@ -40,6 +40,7 @@ FILES = {
     "sss": os.path.join(ORACLE, "sss_oracle.pbrt"),
     "disney_sss": os.path.join(ORACLE, "disney_sss_oracle.pbrt"),
     "dofmotion": os.path.join(ORACLE, "dofmotion_oracle.pbrt"),
+    "curves": os.path.join(ORACLE, "curves_oracle.pbrt"),
 }
 OPTION_KEYS = ("integrator", "max_depth", "sampler", "spp", "film",
                "filter", "accelerator")
@@ -89,8 +90,8 @@ def test_scene_files_parse_as_pbrt_tpu(name):
     instance table; volpath and gridvol with their media, the prims'
     media interface and the null material; sss and disney_sss with their
     BSSRDF tables; dofmotion with its moving box's motion and its
-    camera's shutter): scene, camera, options and filter tables equal to
-    pbrt_tpu's."""
+    camera's shutter; curves with its two cylinder curves): scene, camera,
+    options and filter tables equal to pbrt_tpu's."""
     js, jc, jo = jparser.load_pbrt(FILES[name])
     ts, tc, to = tparser.load_pbrt(FILES[name], device="cpu")
     assert_same(ts, bridge.scene_from_jax(js), "scene")
@@ -180,6 +181,44 @@ Camera "perspective" "float fov" [38] "float lensradius" [0.02]
 """
 
 SCENE_STRINGS = {
+    # the curve shape: its three types, widths under a scaling CTM, a
+    # ribbon's normals through the inverse transpose, and a 7-point curve
+    # of which pbrt_tpu reads the first four points
+    "curve": """
+        WorldBegin
+        Shape "curve" "string type" "cylinder"
+          "point P" [-0.8 0 0  -0.6 0.9 0.1  -0.2 1.1 0.2  0.0 0.2 0.3]
+          "float width0" [0.12] "float width1" [0.05]
+        AttributeBegin
+          Translate 0.2 0.1 0
+          Rotate 30 0 1 1
+          Scale 1.5 0.8 1.2
+          Material "matte" "rgb Kd" [0.2 0.5 0.3]
+          Shape "curve" "string type" "ribbon"
+            "point P" [0 0 0  0.2 0.5 0  0.4 0.6 0.2  0.5 1 0.3]
+            "normal N" [0 0 1  0.3 0 1] "float width" [0.08]
+          Shape "curve" "point P" [0 0 0  0.1 0.3 0  0.2 0.5 0  0.3 0.8 0
+                                   0.4 0.9 0.1  0.5 1.0 0.2  0.6 1.2 0.3]
+            "float width" [0.05]
+        AttributeEnd
+        WorldEnd""",
+    # the hair material's absorption: sigma_a, color, the melanins, the
+    # default; the rest of its parameters
+    "hair": """
+        WorldBegin
+        Material "hair" "rgb sigma_a" [0.1 0.4 1.2] "float beta_m" [0.2]
+          "float beta_n" [0.5] "float alpha" [3] "float eta" [1.6]
+        Shape "curve" "point P" [0 0 0  0 0.3 0  0 0.6 0  0 0.9 0]
+          "float width" [0.02]
+        Material "hair" "rgb color" [0.6 0.3 0.1] "float beta_n" [0.4]
+        Shape "curve" "point P" [0.1 0 0  0.1 0.3 0  0.1 0.6 0  0.1 0.9 0]
+          "float width" [0.02]
+        Material "hair" "float eumelanin" [0.3] "float pheomelanin" [0.8]
+        Shape "curve" "point P" [0.2 0 0  0.2 0.3 0  0.2 0.6 0  0.2 0.9 0]
+          "float width" [0.02]
+        Material "hair"
+        Shape "sphere" "float radius" [0.3]
+        WorldEnd""",
     "transform_stack": """
         Accelerator "bvh" "string splitmethod" "middle"
         WorldBegin
@@ -447,7 +486,10 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     its defaults; a Disney row with scatterdistance) and motion (an
     animated camera over TransformTimes with a shutter, a moving mesh
     under ActiveTransform StartTime / EndTime and an emissive mesh under
-    the same CTMs)."""
+    the same CTMs), curves (cylinder, ribbon and flat under a scaling
+    CTM; a 7-point curve, read to its first four points) and the hair
+    material (its absorption from sigma_a, color, the melanins, the
+    default)."""
     (tmp_path / "flat.spd").write_text("# a flat SPD\n400 0.6\n550 0.6\n"
                                        "700 0.6\n")
     if name == "plymesh":
@@ -481,6 +523,10 @@ def test_scene_strings_parse_as_pbrt_tpu(name, tmp_path):
     if name.startswith(("subsurface", "kdsubsurface")):
         assert ts.has_sss and ts.sss is not None
         assert ts.materials.has_disney_sss == (name == "subsurface")
+    if name == "curve":
+        assert ts.n_crv == 3 and ts.geom.crv_n is not None
+    if name == "hair":
+        assert ts.materials.has_hair and ts.n_crv == 3
 
 
 def test_portal_data_and_float_files(tmp_path):
@@ -561,18 +607,12 @@ def test_simple_scene_and_spd_light():
 
 
 UNPORTED = {
-    "hair": 'WorldBegin\nMaterial "hair"\nWorldEnd',
-    "curve": ('WorldBegin\nShape "curve" "point P" [0 0 0 1 0 0 1 1 0 '
-              '0 1 0]\nWorldEnd'),
     "emissive_disk": ('WorldBegin\nAreaLightSource "diffuse"\n'
                       'Shape "disk"\nWorldEnd'),
     "kdtree": ('Accelerator "kdtree"\nWorldBegin\nShape "heightfield" '
                '"integer nu" [20] "integer nv" [20] "float Pz" ['
                + " 0" * 400 + ']\nWorldEnd', 6),
 }
-# (killeroo_oracle.pbrt now reads up to its Include of a mesh that is not
-# in the repo)
-UNPORTED_FILES = ("curves",)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
@@ -582,19 +622,6 @@ def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}$"):
         tparser.parse_pbrt_string(text, device="cpu")
-
-
-@pytest.mark.parametrize("name", UNPORTED_FILES)
-def test_unported_oracle_files_raise(name):
-    """Each file raises when it is read or, where only its integrator is
-    not ported, when it is rendered."""
-    from pbrt_tpu_torch.integrators.render import render
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item (6|8|9)$"):
-        scene, cam, opts = tparser.load_pbrt(
-            os.path.join(ORACLE, f"{name}_oracle.pbrt"), device="cpu")
-        render(scene, cam, spp=1, integrator=opts["integrator"],
-               device="cpu")
 
 
 def test_spectral_mode_raises():

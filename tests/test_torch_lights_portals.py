@@ -299,8 +299,10 @@ def test_unported_rows_raise():
     b.add_sphere((0, 0, 0), 1.0)
     b.add_light(type="infinite", L=1.0)
     assert b.build("cpu").lights.present == (tlights.INFINITE,)
+    # hair rows build (item 8c); a textured sigma still raises
+    assert SceneBuilder().add_material(type=12) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        SceneBuilder().add_material(type=12)      # hair
+        SceneBuilder().add_material(type=0, sigma_tex=0)
     lit_disk = SceneBuilder()      # disks are ported; area lights on them
     lit_disk.add_disk((0, 0, 0), (0, 1, 0), 1.0,
                       light=lit_disk.add_light(type="area", L=1.0, prim=-1))

@@ -38,8 +38,9 @@ new keywords, and what still raises.
     Beckmann, Disney parameters, dispersive glass's Cauchy fit, mixes of
     one type and of two), light maps the test writes as PFM files, and the
     cameras, table for table against pbrt_tpu's parse.
-(e) What is left out raises with its ROADMAP item, and the fused kernel's
-    gate refuses a portal scene with any non-matte row.
+(e) The hair and fourier keywords parse as pbrt_tpu's; what is left out
+    (a textured sigma or bump) raises with its ROADMAP item, and the fused
+    kernel's gate refuses a portal scene with any non-matte row.
 """
 
 import dataclasses
@@ -312,32 +313,39 @@ def test_new_keywords_parse_as_pbrt_tpu(tmp_path, camera):
     assert float(m.thin[row[9]]) == 1.0
 
 
-UNPORTED = {
-    "hair": ('Material "hair"', 8),
-    "fourier": ('Material "fourier" "string bsdffile" "x.bsdf"', 8),
+HAIR_FOURIER = {
+    "hair": 'Material "hair"',
+    "fourier": 'Material "fourier" "string bsdffile" "x.bsdf"',
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_left_out_materials_raise(name):
-    text, item = UNPORTED[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {item}$"):
-        tparser.parse_pbrt_string(
-            f'WorldBegin\n{text}\nShape "sphere"\nWorldEnd', device="cpu")
+@pytest.mark.parametrize("name", sorted(HAIR_FOURIER))
+def test_hair_and_fourier_materials_parse_as_pbrt_tpu(name, tmp_path):
+    """The hair row with its defaults (eumelanin 1.3) and a fourier row
+    whose bsdffile, relative to the scene's directory, the test writes
+    (tests/test_fourier.py's Lambertian table), table for table."""
+    from pbrt_tpu_torch.scene import fourier as tfourier
+    mu = np.linspace(-1.0, 1.0, 8)
+    tfourier.write_bsdf(str(tmp_path / "x.bsdf"), mu, [
+        [np.float32([[0.5 / np.pi * abs(a) if a * b < 0 else 0.0]])
+         for b in mu] for a in mu])
+    ts, _ = _both_text(f'WorldBegin\n{HAIR_FOURIER[name]}\n'
+                       'Shape "sphere"\nWorldEnd', base_dir=str(tmp_path))
+    assert ts.materials.has_hair == (name == "hair")
+    assert len(ts.fourier) == (name == "fourier")
 
 
 def test_builder_rows_left_out_raise():
     for row, item in ((dict(type=tm.MATTE, sigma_tex=0), 8),
-                      (dict(type=tm.HAIR), 8), (dict(type=tm.FOURIER), 8),
-                      (dict(type=tm.HAIR, sss_sigma_a=0.1), 8),
                       (dict(type=tm.MATTE, bump_tex=0), 8)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}$"):
             SceneBuilder().add_material(**row)
-    # the BSSRDF rows build; a thin Disney row ignores its
-    # scatterdistance, as pbrt does
-    for row in (dict(type=tm.SUBSURFACE), dict(type=tm.SSS_EXIT),
+    # the BSSRDF, hair and Fourier rows build; a thin Disney row ignores
+    # its scatterdistance, as pbrt does
+    for row in (dict(type=tm.HAIR), dict(type=tm.FOURIER, fourier_id=0),
+                dict(type=tm.HAIR, sss_sigma_a=0.1, beta_m=0.2),
+                dict(type=tm.SUBSURFACE), dict(type=tm.SSS_EXIT),
                 dict(type=tm.MATTE, sss_sigma_a=0.1),
                 dict(type=tm.DISNEY, scatter_d=(0.1, 0.1, 0.1)),
                 dict(type=tm.DISNEY, thin=1.0, scatter_d=(0.1, 0.1, 0.1))):
@@ -361,10 +369,15 @@ def test_fused_gate_refuses_non_matte_rows():
 
 
 def test_bridge_raises_on_left_out_rows():
+    """A textured sigma or bump raises; hair rows (item 8c) carry over."""
     js = jax_scene(entry._fill_portal_scene)
-    for k, v in (("mtype", tm.HAIR), ("sigma_tex", 0)):
+    for k, v in (("sigma_tex", 0), ("bump_tex", 0)):
         m = dataclasses.replace(
             js.materials, **{k: jnp.asarray(np.asarray(
                 getattr(js.materials, k)) * 0 + v)})
         with pytest.raises(NotImplementedError, match="item 8"):
             bridge.materials_from_jax(m)
+    m = dataclasses.replace(js.materials, mtype=jnp.asarray(np.asarray(
+        js.materials.mtype) * 0 + tm.HAIR), has_hair=True)
+    t = bridge.materials_from_jax(m)
+    assert t.has_hair and bool((t.mtype == tm.HAIR).all())

@@ -168,21 +168,43 @@ def test_non_matte_scene_gets_no_profile_or_raises(monkeypatch):
     assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
 
 
-def test_bridge_raises_on_unported_families():
+def test_bridge_carries_curves_and_hair_rows():
+    """Disks, curves (after the disks in the prim index space, no light
+    rows, the bound padded by the widest width, crv_n None without a
+    ribbon) and hair rows carry over, and equal the port's own build of
+    the same rows."""
     from pbrt_tpu.core.spectrum import RGB
     from pbrt_tpu.scene.types import SceneBuilder as JaxBuilder
-    b = JaxBuilder(RGB)
-    m = b.add_material(type=0, kd=0.5)
-    b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
-    assert bridge.scene_from_jax(b.build()).n_dsk == 1   # disks carry over
-    b.add_curve(np.zeros((4, 3)), 0.01, 0.01, mat=m)
-    with pytest.raises(NotImplementedError):
-        bridge.scene_from_jax(b.build())
-    hair = JaxBuilder(RGB)
-    hair.add_material(type=12)
-    hair.add_sphere((0.5, 0.5, 0.5), 0.2, mat=0)
-    with pytest.raises(NotImplementedError, match="hair"):
-        bridge.scene_from_jax(hair.build())
+    cp = np.float32([[0, 0, 0], [0.2, 0.5, 0], [0.4, 0.6, 0.2],
+                     [0.5, 1, 0.3]])
+    builders = (JaxBuilder(RGB), SceneBuilder())
+    for b in builders:
+        m = b.add_material(type=0, kd=0.5)
+        hair = b.add_material(type=12, sss_sigma_a=(0.5, 0.7, 1.4),
+                              beta_m=0.2, eta=1.55)
+        b.add_sphere((0.5, 0.5, 0.5), 0.2, mat=m)
+        b.add_disk((0.5, 0.5, 0.5), (0, 1, 0), 0.2, mat=m)
+        b.add_curve(cp, 0.05, 0.01, mat=hair)
+        b.add_curve(cp + 1, 0.02, 0.02, mat=m)
+    js = builders[0].build()
+    ts = bridge.scene_from_jax(js)
+    own = builders[1].build("cpu")
+    assert (ts.n_dsk, ts.n_crv, ts.n_base_prims) == (1, 2, 4)
+    assert ts.geom.crv_n is None and own.geom.crv_n is None
+    for k in ("crv_cp", "crv_w"):
+        assert torch.equal(getattr(ts.geom, k), getattr(own.geom, k)), k
+    for k in ("prim_mat", "prim_light", "prim_med_in", "world_lo",
+              "world_hi"):
+        assert torch.equal(getattr(ts, k), getattr(own, k)), k
+    assert ts.prim_light.tolist() == [-1, -1, -1, -1]
+    assert ts.prim_mat.tolist() == [0, 0, 1, 0]
+    for k in ("mtype", "sss_sigma_a", "beta_m", "beta_n", "hair_alpha",
+              "eta", "fourier_id"):
+        assert torch.equal(getattr(ts.materials, k),
+                           getattr(own.materials, k)), k
+    assert ts.materials.has_hair and own.materials.has_hair
+    assert not ts.materials.has_fourier and ts.fourier == ()
+    assert ts.fused_profile is None and own.fused_profile is None
 
 
 def test_scene_to_device_keeps_values():
