@@ -4,13 +4,14 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-1. Builds the six kernels (csrc/fused_path.cu, csrc/intersect.cu,
+1. Builds the seven kernels (csrc/fused_path.cu, csrc/intersect.cu,
    csrc/bvh_traverse.cu, csrc/bvh_binary.cu, csrc/kexp_traverse.cu,
-   csrc/smem_probe.cu) with nvcc and the host BVH builder
-   (csrc/bvh_builder.cpp) with g++, all at once, into build/kernels/ and
-   prints the card, its power limit, the build times and, from ptxas, the
-   registers and spills of every instantiation of the fused, the
-   brute-force and the wide-BVH experiment kernel (which must not spill).
+   csrc/smem_probe.cu, csrc/kd_traverse.cu) with nvcc and the host BVH
+   builder (csrc/bvh_builder.cpp) with g++, all at once, into
+   build/kernels/ and prints the card, its power limit, the build times
+   and, from ptxas, the registers and spills of every instantiation of the
+   fused, the brute-force, the wide-BVH experiment and the kd kernel (the
+   wide-BVH kernel must not spill).
 2. Holds the kernel against its plain-torch twin on the card on three
    scenes built by the port (portal mode 1 flat, mode-0 cornell, 940-tri
    clustered portal), at 64² × 2 spp, max_depth 4 and 6; checks that the
@@ -25,8 +26,8 @@ Run from the root of a checkout, with no arguments:
    execute, per bounce, with the share that falls on ended paths.
 5. Holds the brute-force intersection kernel against its plain-torch twin
    on three primitive tables (the portal scene, the sphere cornell, a
-   4,001-primitive table near the 4,096 cap that spans several
-   shared-memory tiles), for camera rays and for random rays with infinite
+   4,001-primitive table near pbrt_tpu's Pallas cap of 4,096 that spans
+   several shared-memory tiles), for camera rays and for random rays with infinite
    and finite tmax: prim equal and t bit-equal, for every design
    (INTERSECT_DESIGNS: neither step, two rays per thread, the early
    reject, both) at R, at R not a multiple of 64 and at R < 64.
@@ -239,11 +240,15 @@ Run from the root of a checkout, with no arguments:
    pbrt_tpu; the lanes off rtol 1e-6 counted for each). (b) The fur cell
    (entry._fur_scene: the file's ground, light and camera with 128 seeded
    hair strands), one 256² × 32-spp `path` pass of 2,097,152 lanes at
-   max_depth 3: ms by CUDA events (the pass the device-only profiler
-   traces), kernel 2's launches, device ms and the
-   shares of kernel 2 and of the curve fold (the pass profiled once more
-   with the fold left out) by the device-only profiler, idle share, peak
-   MiB and bytes a lane, the fold's tile; a 32 × 32 crop of the pass's
+   max_depth 3: ms by CUDA events, kernel 2's launches by the wrapper's
+   count, peak MiB and bytes a lane, the fold's tile; one query of the
+   pass (the closest hit of its camera rays) under the device-only
+   profiler: its device ms and the curve fold's share (the query profiled
+   once more with the fold left out), kernel 2's one launch in it by the
+   wrapper's count and its time on the query's inputs by CUDA events;
+   the whole
+   pass is not profiled, so its idle share is not measured; a 32 × 32
+   crop of the pass's
    lanes at its first sample against the CPU twins, mean rel 1e-3. (c) Phase 10's
    heightfield file with curves_oracle's two curves (a BVH scene): one
    256² × 32-spp `path` pass, every traversal and every brute-force query
@@ -257,6 +262,28 @@ Run from the root of a checkout, with no arguments:
    bit for bit; a 256² × 4-spp `path` pass of _sphere_cornell() with each
    sampler a render takes against pbrt_tpu's CPU means
    (tests/torch_sampler_means.json), rel 1e-3.
+22. The remaining paths. (a) The kd-tree cell: phase 10's heightfield
+   cornell (133,130 triangles) with its triangles in a kd-tree
+   (scene/kdtree.py, the host build timed), one 256² × 32-spp `path`
+   pass at max_depth 4 (13 launches of csrc/kd_traverse.cu, timed by CUDA
+   events): every walk of the pass held to the twin bit for bit on 65,536
+   of its rays, the whole camera-ray walk too, the image mean against the
+   same pass on the BVH (the same samples, rel 1e-3), the camera rays'
+   query (its launches by the wrappers' counts, its torch kernels' device
+   time by the device-only profiler, the walk's and kernel 2's times on
+   its inputs by CUDA events: the walk's share), the walk against
+   kernel 3 on the camera, shadow and bounce
+   rays in turns, and its bound from the twin's node steps and triangle
+   tests. (b) Kernel 2 past 4,096 primitives: one such pass on an
+   8,204-primitive heightfield cornell without a BVH, timed, every query
+   held to the twin on 65,536 rays. (c) The sharded path at world size 1
+   over NCCL on the main path's scene: render_sharded at 256² × 64 spp
+   against render() (rtol 2e-3, atol 3e-4), three training steps on kd
+   and emit (ms a step, kernel 1's launches a step, the loss falls, the
+   first step's gradients against single-process autograd of render(),
+   rtol 2e-3, atol 1e-6), dryrun_multichip(1). (d) A render stopped after
+   one pass and resumed equals the uninterrupted one; bsdftest on the
+   card; imgtool makesky against tests/oracle/sky_ref.pfm.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -268,6 +295,7 @@ result. It needs a CUDA device and never falls back to the CPU.
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -292,6 +320,9 @@ from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import bvh_binary as bb
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.ops import kdtree as kd_ops
+from pbrt_tpu_torch.parallel import multihost
+from pbrt_tpu_torch.parallel import render as par_render
 from pbrt_tpu_torch.samplers import make_sampler
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import camera as cam_mod
@@ -299,12 +330,13 @@ from pbrt_tpu_torch.scene import film as film_mod
 from pbrt_tpu_torch.scene import fourier as fourier_mod
 from pbrt_tpu_torch.scene import hair as hair_mod
 from pbrt_tpu_torch.scene import intersect as isect_mod
+from pbrt_tpu_torch.scene import kdtree as kd_mod
 from pbrt_tpu_torch.scene import materials as mat_mod
 from pbrt_tpu_torch.scene import shapes as shapes_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder, to_device
 from pbrt_tpu_torch.tools import kexp_kernels as kk
-from pbrt_tpu_torch.tools import kexp_prep, kexp_run
-from pbrt_tpu_torch.utils import imageio
+from pbrt_tpu_torch.tools import bsdftest, imgtool, kexp_prep, kexp_run
+from pbrt_tpu_torch.utils import checkpoint, imageio
 
 W = H = 256
 SPP = 64
@@ -429,6 +461,19 @@ SAMPLER_NAMES = (("sobol", (256, 256)), ("sobol", None),
                  ("maxmindist", None))
 SAMPLER_DIMS = (0, 1, 2, 3, 7, 64, 65, 130, 300)
 SAMPLER_MEANS = "tests/torch_sampler_means.json"
+# phase 22: the kd-tree cell (phase 10's heightfield cornell with its
+# triangles in a kd-tree), one 256² × 32-spp `path` pass at max_depth 4;
+# the walk held to its twin on this many rays of each query (every
+# R / 65,536-th); the float operations of a node step (the min of its
+# tmax, the split plane's subtract and multiply)
+KD_SPP, KD_DEPTH, KD_SUBSET, OPS_NODE = 32, 4, 1 << 16, 3
+# kernel 2 past 4,096 primitives: _fill_heightfield_cornell at (n, n_phi,
+# n_z) = 8,202 triangles, a sphere and the light's aaplane, no BVH
+BRUTE_BIG_HF = (64, 16, 8)
+# the sharded path at world size 1 on the main path's scene: bench.py's
+# workload (256², 64 spp, max_depth 4); three SGD steps on kd and emit
+# against a black target at this rate
+SHARD_SPP, TRAIN_STEPS, TRAIN_LR = 64, 3, 1.0
 # pbrt_tpu's float32 CPU mean of a 256² × 32-spp `path` render of
 # tests/test_lightdistrib.py's two-light scene under the spatial strategy
 # (max_depth 4, seed 0), printed by ``PYTHONPATH=. python
@@ -753,7 +798,7 @@ def fused_bound(scene, code):
 
 
 def cap_table(dev):
-    """A table near the intersection gate's cap of 4,096 primitives: the
+    """A table near pbrt_tpu's Pallas cap of 4,096 primitives: the
     portal box, a 3,776-triangle tessellated sphere, 200 small spheres
     and the light's aaplane (4,001 primitives; the triangles span eight
     512-row shared-memory tiles)."""
@@ -1237,6 +1282,23 @@ def _profile_once(fn, frags, cpu):
                 by_name[frag][0] += us / 1e3
                 by_name[frag][1] += evt.count
     return total, by_name
+
+
+def top_kernels(fn, n=5):
+    """One run of ``fn`` under the device-only profiler: (device ms, the
+    n kernels of most device time as [name, ms, launches])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(evt.key, evt.self_device_time_total / 1e3, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type != DeviceType.CPU]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), [[k[:90], ms, c] for k, ms, c in rows[:n]]
 
 
 def check_probe(dev):
@@ -3528,34 +3590,47 @@ def curves_files(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)
-    images = []
-
-    def timed_pass():
-        # one pass, timed by CUDA events on the stream and traced by the
-        # device-only profiler (its records are read after the stop
-        # event); a trace taken again times and counts its own pass
-        ik.intersect_brute.launches = 0
-        images.clear()
-        start.record()
-        images.append(fur_pass())
-        stop.record()
-    dev_ms, by, traces = device_ms_by_kernel(
-        timed_pass, ["intersect_kernel"], cpu=False, want=per_pass)
+    # the whole pass by CUDA events, its launches by the wrapper's count
+    ik.intersect_brute.launches = 0
+    start.record()
+    img = fur_pass()
+    stop.record()
+    torch.cuda.synchronize()
     pass_ms = start.elapsed_time(stop)
     launches = ik.intersect_brute.launches
     peak = torch.cuda.max_memory_allocated(dev) - resident
     tile = shapes_mod.curve_tile(W * H * FUR_SPP, scene.n_crv)
-    img = images[0]
     mean = float(img.double().mean()) / FUR_SPP
-    # the fold's device time: the same pass profiled with the fold left
-    # out (its queries then see no curve), as phase 20 takes the deposit's
+    # one query under the device-only profiler: the closest hit of the
+    # pass's camera rays (one brute-force launch, then the curve fold),
+    # and the same query with the fold left out (its rays then see no
+    # curve); a whole pass is some 320,000 kernel records, which the
+    # profiler reads back for minutes
+    rays = render_mod.camera_rays(cam, filt, cfg, W, H, FUR_SPP, 0, dev)[0]
+    inf = torch.full((rays.o.shape[0],), float("inf"), device=dev)
+
+    def fur_query():
+        return isect_mod.intersect(scene, rays.o, rays.d, inf)
+    q0 = ik.intersect_brute.launches
+    fur_query()
+    q_launches = ik.intersect_brute.launches - q0
+    dev_ms, _, traces = device_ms_by_kernel(fur_query, [], cpu=False)
     inner = isect_mod.closest_curve
     isect_mod.closest_curve = lambda sc, o, d, t, prim: (t, prim, None)
     try:
-        dev_ms_nofold, _, _ = device_ms_by_kernel(fur_pass, [], cpu=False)
+        dev_ms_nofold, _, _ = device_ms_by_kernel(fur_query, [], cpu=False)
     finally:
         isect_mod.closest_curve = inner
     fold_ms = dev_ms - dev_ms_nofold
+    # kernel 2's time on the query's own inputs by CUDA events: the
+    # profiler's traces of this query lost kernel 2's one record three
+    # times in a row (the wrapper's count says it launched)
+    with recording_brute_force() as calls:
+        fur_query()
+    k2_args = calls[0][0]
+    k2_ms = sync_ms(lambda: ik.intersect_brute(*k2_args), 5)
+    del calls, k2_args
+    del rays, inf
     crop_card = fur_pass(crop=FUR_CROP, spp=FUR_CROP_SPP)
     cpu_scene = to_device(scene, "cpu")
     crop_cpu = fur_pass(crop=FUR_CROP, spp=FUR_CROP_SPP, device="cpu",
@@ -3567,11 +3642,12 @@ def curves_files(dev):
     row = {"card": card, "strands": scene.n_crv, "lanes": lanes,
            "spp": FUR_SPP, "max_depth": FUR_DEPTH, "render_pass_cuda_ms":
            pass_ms, "launches": launches, "launches_expected": per_pass,
-           "device_ms": dev_ms, "intersect_device_ms": by[
-               "intersect_kernel"][0], "intersect_share": by[
-               "intersect_kernel"][0] / dev_ms, "curve_fold_device_ms":
-           fold_ms, "curve_fold_share": fold_ms / dev_ms,
-           "idle_share": 1.0 - dev_ms / pass_ms, "profile_traces": traces,
+           # the camera rays' closest-hit query, profiled alone; kernel
+           # 2's time on its inputs by CUDA events
+           "query_device_ms": dev_ms, "query_launches": q_launches,
+           "intersect_ms": k2_ms, "intersect_share": k2_ms / dev_ms,
+           "curve_fold_device_ms": fold_ms,
+           "curve_fold_share": fold_ms / dev_ms, "profile_traces": traces,
            "peak_mib": peak / 2**20, "bytes_per_lane": peak / lanes,
            "curve_fold_tile": tile, "mean": mean,
            "crop": {"window": FUR_CROP, "spp": FUR_CROP_SPP,
@@ -3580,9 +3656,9 @@ def curves_files(dev):
                     "rel": crop_rel}}
     print(f"phase 21 fur cell, {FUR_STRANDS} strands, `path` {W}² × "
           f"{FUR_SPP} spp: " + json.dumps(row))
-    check(launches == per_pass and by["intersect_kernel"][1] == per_pass,
-          f"fur launches {launches}, profiled {by}, the loop implies "
-          f"{per_pass}")
+    check(launches == per_pass and q_launches == 1,
+          f"fur launches {launches} (the loop implies {per_pass}), the "
+          f"profiled query's {q_launches}")
     check(bool(torch.isfinite(img).all()) and mean > 0.001,
           "the fur cell's image")
     check(crop_rel < 1e-3, f"the fur crop on the card against the CPU "
@@ -3746,6 +3822,384 @@ def curves_files(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the kd-tree, kernel 2 past 4,096 primitives, the sharded path
+# and the training step over NCCL, checkpoints and the tools
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_kd_walk(keep_full=()):
+    """Record every kd walk of scene/kdtree.py: a KD_SUBSET-ray subset of
+    its rays (every R / KD_SUBSET-th) with the kernel's (t, prim) there,
+    and the whole rays of the walks whose ordinals are in ``keep_full``.
+    Yields (subsets, {ordinal: (o, d, tmax)}); the kernel's wrapper still
+    counts its launches."""
+    calls, full = [], {}
+    inner = kd_mod.kdtree_intersect_tris
+
+    def record(kd, o, d, tmax):
+        t, prim, hit = inner(kd, o, d, tmax)
+        n = o.shape[0]
+        idx = torch.arange(0, n, max(1, n // KD_SUBSET),
+                           device=o.device)[:KD_SUBSET]
+        calls.append((o[idx], d[idx], tmax[idx], t[idx], prim[idx]))
+        if len(calls) - 1 in keep_full:
+            full[len(calls) - 1] = (o.clone(), d.clone(), tmax.clone())
+        return t, prim, hit
+    kd_mod.kdtree_intersect_tris = record
+    try:
+        yield calls, full
+    finally:
+        kd_mod.kdtree_intersect_tris = inner
+
+
+def kd_bound(kd, n_rays, counts):
+    """Each ray read once (28 B) and written once (8 B), the tree's tables
+    once; the node steps and triangle tests the twin counted on these
+    rays."""
+    table = sum(t.numel() * t.element_size()
+                for t in (kd.nodes, kd.prim_ids, kd.tris))
+    return bound_ms(36 * n_rays + table, OPS_NODE * counts["node_steps"]
+                    + OPS_TRI * counts["tri_tests"])
+
+
+def kd_cell(dev, card, start, stop, filt):
+    """(a) The kd-tree at full width; returns the phase's row for it."""
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=KD_DEPTH)
+    cam = entry._camera((W, H), dev)
+    b = SceneBuilder()
+    entry._fill_heightfield_cornell(b)
+    base = b.build(dev, use_bvh="never")
+    t0 = time.perf_counter()
+    kd = kd_mod.build_kdtree(base)
+    build_s = time.perf_counter() - t0
+    scene = dataclasses.replace(base, bvh=kd)
+    hf = b.build(dev)                  # the same scene on its BVH
+    check(scene.n_tri == 133130 and isinstance(hf.bvh, bvh_mod.FlatBVH)
+          and scene.fused_profile is None, "the kd cell's scene")
+    per_pass = _loop_queries(scene, KD_DEPTH)
+
+    def kd_pass(sc=scene):
+        return render_mod.render_pass(sc, cam, filt, cfg, W, H, KD_SPP, 0,
+                                      dev)
+    walk = kd_ops.kd_traverse
+    walk.launches = 0
+    # the queries of a `path` bounce: 0 the camera rays' closest hit, 1
+    # NEE's shadow ray, 2 the BSDF half's ray, 3 the next bounce's
+    with recording_kd_walk(keep_full=(0, 1, 3)) as (calls, full):
+        img = kd_pass()
+        torch.cuda.synchronize()
+    launches = walk.launches
+    check(launches == per_pass == len(calls),
+          f"kd walks {launches}, recorded {len(calls)}, the loop implies "
+          f"{per_pass}")
+    start.record()
+    img_again = kd_pass()
+    stop.record()
+    torch.cuda.synchronize()
+    pass_ms = start.elapsed_time(stop)
+    check(torch.equal(img, img_again), "two kd passes differ")
+    worst = 0.0
+    for k, (o, d, tmax, t, prim) in enumerate(calls):
+        t_ref, prim_ref = kd_ops.traverse_reference(kd, o, d, tmax)
+        worst = max(worst, float((t - t_ref).abs().max()))
+        check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
+              f"kd walk {k}: the kernel differs from its twin (t err "
+              f"{worst})")
+    # the same estimator on the BVH (the same samples): the means agree
+    img_bvh = kd_pass(hf)
+    m_kd, m_bvh = float(img.double().mean()), float(img_bvh.double().mean())
+    rel = abs(m_kd / m_bvh - 1.0)
+    px_off = float(((img - img_bvh).abs().amax(-1) > 1e-4).float().mean())
+    check(bool(torch.isfinite(img).all()) and rel < 1e-3,
+          f"kd image mean {m_kd} against the BVH's {m_bvh}")
+    # one query, the camera rays' closest hit (the walk, the sphere and
+    # the aaplane through kernel 2, the hit record): its launches by the
+    # wrappers' counts; its torch kernels' device time by the device-only
+    # profiler, whose traces of this query drop the two custom kernels'
+    # records in most runs (seen: 2 of 3 traces); the walk's and kernel
+    # 2's times on the query's own inputs by CUDA events
+    o_c, d_c, tmax_c = full[0]
+    inf = torch.full_like(tmax_c, float("inf"))
+
+    def query():
+        return isect_mod.intersect(scene, o_c, d_c, inf)
+    w0, k0 = walk.launches, ik.intersect_brute.launches
+    query()
+    q_launches = (walk.launches - w0, ik.intersect_brute.launches - k0)
+    prof_ms, by, traces = device_ms_by_kernel(
+        query, ["kd_traverse_kernel", "intersect_kernel"], cpu=False)
+    torch_ms = (prof_ms - by["kd_traverse_kernel"][0]
+                - by["intersect_kernel"][0])
+    t_c, _ = walk(kd, o_c, d_c, tmax_c)
+    k2_args = ik.pack_scene(scene, tris=False) + (
+        o_c, d_c, t_c, 0, scene.n_sph, scene.n_pln)
+    k2_ms = sync_ms(lambda: ik.intersect_brute(*k2_args), 5)
+    del k2_args
+    # the walk against kernel 3 on the same rays, in turns; the twin on
+    # the camera rays (all of them, bit for bit) with its counts
+    ms = {}
+    for name, i, any_hit in (("camera", 0, False), ("shadow", 1, True),
+                             ("bounce", 3, False)):
+        o, d, tmax = full[i]
+
+        def kd_fn():
+            return walk(kd, o, d, tmax)
+
+        def bvh_fn():
+            return bk.bvh_traverse(hf.bvh, o, d, tmax, any_hit)
+        for fn in (kd_fn, bvh_fn):
+            fn()
+        kd_a = sync_ms(kd_fn, 3)
+        bvh_a = sync_ms(bvh_fn, 3)
+        bvh_b = sync_ms(bvh_fn, 3)
+        kd_b = sync_ms(kd_fn, 3)
+        ms[name] = {"kd_ms": (kd_a + kd_b) / 2, "bvh_ms": (bvh_a + bvh_b) / 2,
+                    "finite_tmax_share": float(torch.isfinite(
+                        tmax).float().mean())}
+    t_k, p_k = walk(kd, o_c, d_c, tmax_c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_ref, p_ref, counts = kd_ops.traverse_reference(kd, o_c, d_c, tmax_c,
+                                                     counts=True)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0)
+    check(torch.equal(t_k, t_ref) and torch.equal(p_k, p_ref),
+          "kd walk on the camera rays: the kernel differs from its twin")
+    bnd = kd_bound(kd, o_c.shape[0], counts)
+    row = {"card": card, "triangles": scene.n_tri,
+           "nodes": kd.nodes.shape[0], "prim_ids": kd.prim_ids.shape[0],
+           "max_leaf": kd.max_leaf, "depth": kd.depth,
+           "host_build_s": build_s, "lanes": W * H * KD_SPP,
+           "spp": KD_SPP, "max_depth": KD_DEPTH,
+           "render_pass_cuda_ms": pass_ms, "launches": launches,
+           "launches_expected": per_pass, "held_rays_per_query":
+           calls[0][0].shape[0], "max_abs_err": worst,
+           "query_launches": q_launches, "query_torch_device_ms": torch_ms,
+           "query_device_ms": torch_ms + ms["camera"]["kd_ms"] + k2_ms,
+           "walk_ms": ms["camera"]["kd_ms"],
+           "walk_share": ms["camera"]["kd_ms"]
+           / (torch_ms + ms["camera"]["kd_ms"] + k2_ms),
+           "kernel2_ms": k2_ms, "profile_traces": traces,
+           "profiled_custom_records": [by["kd_traverse_kernel"][1],
+                                       by["intersect_kernel"][1]],
+           "mean": m_kd / KD_SPP,
+           "bvh_mean": m_bvh / KD_SPP, "mean_rel": rel,
+           "pixels_off_1e-4": px_off, "turns_ms": ms,
+           "twin_camera_ms": twin_ms, "counts_camera": counts,
+           "bound_ms": bnd[0], "bound_by": bnd[1]}
+    print(f"phase 22 kd cell ({card}): " + json.dumps(row))
+    check(q_launches == (1, 1), f"the query's launches {q_launches}")
+    return row
+
+
+def brute_past_4096(dev, card, start, stop, filt):
+    """(b) Kernel 2 on 8,204 primitives without a BVH: one 256² × 32-spp
+    pass, timed; every query held to the twin on KD_SUBSET of its rays."""
+    cfg = render_mod.RenderConfig(integrator="path", max_depth=KD_DEPTH)
+    cam = entry._camera((W, H), dev)
+    b = SceneBuilder()
+    entry._fill_heightfield_cornell(b, *BRUTE_BIG_HF)
+    scene = b.build(dev, use_bvh="never")
+    check(scene.bvh is None and scene.n_tri == 8202
+          and scene.n_prims == 8204, "the 8,204-primitive scene")
+    per_pass = _loop_queries(scene, KD_DEPTH)
+
+    def big_pass():
+        return render_mod.render_pass(scene, cam, filt, cfg, W, H, KD_SPP,
+                                      0, dev)
+    ik.intersect_brute.launches = 0
+    with recording_brute_force() as calls:
+        img = big_pass()
+        torch.cuda.synchronize()
+    launches = ik.intersect_brute.launches
+    check(launches == per_pass == len(calls),
+          f"brute-force launches {launches}, the loop implies {per_pass}")
+    start.record()
+    big_pass()
+    stop.record()
+    torch.cuda.synchronize()
+    pass_ms = start.elapsed_time(stop)
+    held = []
+    chunk_elems = ik.CHUNK_ELEMS
+    ik.CHUNK_ELEMS = 1 << 24          # the twin's fold in larger chunks
+    try:
+        for args, (t, prim) in calls:
+            n = args[3].shape[0]
+            idx = torch.arange(0, n, max(1, n // KD_SUBSET),
+                               device=dev)[:KD_SUBSET]
+            sub = args[:3] + tuple(a[idx] for a in args[3:6]) + args[6:]
+            held.append((sub, (t[idx], prim[idx])))
+        worst = _hold_brute("kernel 2 past 4,096 primitives", held)
+    finally:
+        ik.CHUNK_ELEMS = chunk_elems
+    mean = float(img.double().mean()) / KD_SPP
+    check(bool(torch.isfinite(img).all()) and mean > 1e-3,
+          "the 8,204-primitive pass's image")
+    row = {"card": card, "primitives": scene.n_prims,
+           "lanes": W * H * KD_SPP, "render_pass_cuda_ms": pass_ms,
+           "launches": launches, "launches_expected": per_pass,
+           "held_rays_per_query": KD_SUBSET, "max_abs_err": worst,
+           "mean": mean}
+    print(f"phase 22 kernel 2 past 4,096 primitives ({card}): "
+          + json.dumps(row))
+    return row
+
+
+def sharded_cell(dev, card):
+    """(c) The sharded render, three training steps and the dry run at
+    world size 1 over NCCL, on the main path's scene."""
+    world = multihost.initialize_multihost(
+        f"localhost:{entry._free_port()}", 1, 0, "cuda")
+    check(world == 1 and torch.distributed.get_backend() == "nccl",
+          "the process group")
+    try:
+        mesh = par_render.make_mesh(1)
+        scene, cam = entry._portal_scene(dev), entry._camera((W, H), dev)
+
+        def sharded():
+            return par_render.render_sharded(scene, cam, mesh,
+                                             spp=SHARD_SPP,
+                                             max_depth=MAX_DEPTH)
+        fp.fused_bounce.launches = 0
+        img = sharded()
+        shard_launches = fp.fused_bounce.launches
+        torch.cuda.synchronize()
+        shard_ms = sync_ms(sharded, 3)
+        ref = render_mod.render(scene, cam, spp=SHARD_SPP,
+                                max_depth=MAX_DEPTH, device=dev)
+        err = float((img - ref).abs().max())
+        torch.testing.assert_close(img, ref, rtol=2e-3, atol=3e-4)
+        target = torch.zeros_like(ref)
+        params = {"kd": scene.materials.kd, "emit": scene.lights.emit}
+        p, losses, step_ms, step_launches = params, [], [], []
+        for k in range(TRAIN_STEPS):
+            fp.fused_bounce.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, loss = par_render.inverse_render_step(
+                scene, cam, mesh, target, p, lr=TRAIN_LR, spp=SHARD_SPP,
+                max_depth=MAX_DEPTH)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_launches.append(fp.fused_bounce.launches)
+            if k == 0:
+                g_step = {n: (p[n] - new[n]) / TRAIN_LR for n in p}
+            losses.append(float(loss))
+            p = new
+        # single-process autograd of render() at the same call
+        leaves = {n: v.clone().requires_grad_() for n, v in params.items()}
+        img1 = render_mod.render(par_render._set_params(scene, leaves), cam,
+                                 spp=SHARD_SPP, max_depth=MAX_DEPTH,
+                                 device=dev)
+        loss1 = torch.mean((img1 - target) ** 2)
+        loss1.backward()
+        g_err = {}
+        for n in params:
+            g_err[n] = float((g_step[n] - leaves[n].grad).abs().max())
+            torch.testing.assert_close(g_step[n], leaves[n].grad, rtol=2e-3,
+                                       atol=1e-6)
+        check(abs(losses[0] / float(loss1.detach()) - 1.0) < 1e-4,
+              f"the step's loss {losses[0]} against {float(loss1.detach())}")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"the loss does not fall: {losses}")
+        # where a step's time goes: one more step (its result unused)
+        # under the device-only profiler, and its host time
+        step = par_render.make_train_step(
+            mesh, spp=SHARD_SPP, integrator="path", max_depth=MAX_DEPTH,
+            seed=0, resolution=(W, H))
+        t0 = time.perf_counter()
+        step_dev_ms, step_top = top_kernels(
+            lambda: step(scene, cam, params, target, TRAIN_LR))
+        step_prof_ms = 1e3 * (time.perf_counter() - t0)
+        dry = entry.dryrun_multichip(1)
+        check(math.isfinite(dry["loss"]) and dry["dkd"] > 0,
+              f"dryrun_multichip: {dry}")
+    finally:
+        torch.distributed.destroy_process_group()
+    row = {"card": card, "world": 1, "backend": "nccl",
+           "render_sharded": {"spp": SHARD_SPP, "max_depth": MAX_DEPTH,
+                              "cuda_ms": shard_ms,
+                              "fused_launches": shard_launches,
+                              "max_abs_err_vs_render": err},
+           "train": {"steps": TRAIN_STEPS, "lr": TRAIN_LR,
+                     "losses": losses, "step_ms": step_ms,
+                     "fused_launches_per_step": step_launches,
+                     "grad_max_abs_err": g_err,
+                     "profiled_step": {"host_ms": step_prof_ms,
+                                       "device_ms": step_dev_ms,
+                                       "top_kernels": step_top}},
+           "dryrun": dry}
+    print(f"phase 22 sharded path, world size 1 over NCCL ({card}): "
+          + json.dumps(row))
+    check(step_launches == [1] * TRAIN_STEPS and shard_launches == 1,
+          f"fused launches: render {shard_launches}, steps {step_launches}")
+    return row
+
+
+def checkpoint_and_tools(dev, card):
+    """(d) A render stopped after one pass and resumed equals the
+    uninterrupted one; bsdftest on the card; makesky against the
+    reference binary's sky."""
+    scene, cam = entry._portal_scene(dev), entry._camera((64, 64), dev)
+    kw = dict(every_spp=8, max_depth=MAX_DEPTH, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        full = checkpoint.render_with_checkpoints(scene, cam, 16, None, **kw)
+        checkpoint.render_with_checkpoints(scene, cam, 8, path, **kw)
+        check(checkpoint.load_checkpoint(path)["spp_done"] == 8,
+              "the checkpoint after one pass")
+        resumed = checkpoint.render_with_checkpoints(scene, cam, 16, path,
+                                                     **kw)
+        check(torch.equal(full, resumed) and float(full.mean()) > 1e-3,
+              "the resumed render differs from the uninterrupted one")
+        table = io.StringIO()
+        t0 = time.perf_counter()
+        failures = bsdftest.run(200_000, table, device=dev)
+        bsdf_s = time.perf_counter() - t0
+        print(table.getvalue().rstrip())
+        check(failures == 0, "bsdftest fails on the card")
+        sky = os.path.join(tmp, "sky.pfm")
+        check(imgtool.main(["makesky", sky, "--resolution", "32",
+                            "--elevation", "10", "--turbidity", "3",
+                            "--albedo", "0.5"]) == 0, "imgtool makesky")
+        ours = imageio.read_pfm(sky)
+    ref = imageio.read_pfm("tests/oracle/sky_ref.pfm")
+    nz = ref != 0
+    rel = float((np.abs(ours - ref) / (np.abs(ref) + 1e-3))[nz].max())
+    check(ours.shape == ref.shape and rel < 1e-4
+          and np.array_equal(ours == 0, ref == 0),
+          f"makesky against sky_ref.pfm: rel {rel}")
+    row = {"card": card, "resumed_equals_uninterrupted": True,
+           "bsdftest_failures": failures, "bsdftest_s": bsdf_s,
+           "makesky_rel": rel}
+    print(f"phase 22 checkpoint and tools ({card}): " + json.dumps(row))
+    return row
+
+
+def kd_sharded_tools(dev):
+    """Phase 22 (see the module's docstring). Returns the numbers for the
+    JSON lines."""
+    card = card_line()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    filt = film_mod.make_filter("box", device=dev)
+    out, secs = {"card": card}, {}
+    for key, fn in (("kd", lambda: kd_cell(dev, card, start, stop, filt)),
+                    ("brute_past_4096",
+                     lambda: brute_past_4096(dev, card, start, stop, filt)),
+                    ("sharded", lambda: sharded_cell(dev, card)),
+                    ("checkpoint_tools",
+                     lambda: checkpoint_and_tools(dev, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    print("phase 22 seconds by item: " + json.dumps(secs))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3762,7 +4216,8 @@ def main():
     ptxas = {}
     for name in _build.KERNELS:
         log = _build.load.ptxas_log.get(name, "")
-        if name in ("fused_path", "intersect", "kexp_traverse"):
+        if name in ("fused_path", "intersect", "kexp_traverse",
+                    "kd_traverse"):
             ptxas[name] = ptxas_summary(log)
             check(ptxas[name], f"no ptxas report for {name}")
             print(f"{name} kernels [registers, spill store bytes, spill load "
@@ -4383,6 +4838,14 @@ def main():
     p21["phase_s"] = time.perf_counter() - t0
     print(f"curves, hair, Fourier and samplers phase {p21['phase_s']:.1f} s")
 
+    # ---- 22. the kd-tree, kernel 2 past 4,096 primitives, the sharded
+    # path and the training step over NCCL, checkpoints and the tools
+    t0 = time.perf_counter()
+    p22 = kd_sharded_tools(dev)
+    p22["phase_s"] = time.perf_counter() - t0
+    print(f"kd-tree, sharded path, checkpoint and tools phase "
+          f"{p22['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -4400,7 +4863,11 @@ def main():
         "ptxas": ptxas["fused_path"],
         # phase 19's MLT on the portal scene: its launches, each held to
         # the twin, and the largest radiance error
-        "mlt_path": bdpt["mlt_fused"]}, {
+        "mlt_path": bdpt["mlt_fused"],
+        # phase 22: render_sharded and the training steps at world size 1
+        # over NCCL (launches a render and a step, ms a step)
+        "sharded_path": {k: p22["sharded"][k] for k in (
+            "render_sharded", "train")}}, {
         "name": "intersect", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/intersect.cu",
         "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
@@ -4441,7 +4908,14 @@ def main():
         # phase 21: curves_oracle's in-process pass (every query held)
         # and CLI launches, the fur cell's, the Fourier furnace's, the
         # sampler passes'; the BVH scene with curves' brute-force queries
-        "curves_path": p21["kernel"]}, {
+        "curves_path": p21["kernel"],
+        # phase 22: a pass over 8,204 primitives without a BVH (every
+        # query held to the twin on 65,536 rays) and the kd cell's
+        # spheres and aaplane (its ms on the camera query's inputs)
+        "past_4096": {k: p22["brute_past_4096"][k] for k in (
+            "primitives", "launches", "max_abs_err",
+            "render_pass_cuda_ms")},
+        "kd_path_query_ms": p22["kd"]["kernel2_ms"]}, {
         # the motion variant (18-float rows moved to each ray's time, one
         # ray a thread, no early reject), as phase 20's dofmotion pass
         # launches it; times and bound on that pass's camera rays, the
@@ -4534,9 +5008,26 @@ def main():
         "bound_ms": bound_ms(2 * 4 * 8 * kk.LANES, 8 * kk.LANES)[0],
         "bound_by": "bytes", "library_ms": probe["library_ms"],
         "device_ms": probe["device_ms"],
-        "library_device_ms": probe["library_device_ms"]}],
+        "library_device_ms": probe["library_device_ms"]}, {
+        # the port's own kernel (pbrt_tpu walks its kd-tree in plain JAX,
+        # a vmapped lax.while_loop, no Pallas kernel): ms and plain_ms on
+        # the kd cell's 2,097,152 camera rays, its launches and largest
+        # error over every walk of the pass (65,536 rays each), the bound
+        # from the twin's counts on the camera rays
+        "name": "kd_traverse", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/kd_traverse.cu",
+        "replaces": "pbrt_tpu/scene/kdtree.py:150",
+        "own_kernel": True,
+        "launches": p22["kd"]["launches"],
+        "max_abs_err": p22["kd"]["max_abs_err"],
+        "ms": p22["kd"]["turns_ms"]["camera"]["kd_ms"],
+        "plain_ms": p22["kd"]["twin_camera_ms"],
+        "bound_ms": p22["kd"]["bound_ms"], "bound_by": p22["kd"]["bound_by"],
+        "library_ms": None,
+        "kernel3_turns_ms": p22["kd"]["turns_ms"],
+        "ptxas": ptxas["kd_traverse"]}],
         "scene_files": files, "hero": hero, "bdpt": bdpt,
-        "sppm_motion": sm20, "curves": p21}))
+        "sppm_motion": sm20, "curves": p21, "kd_sharded_tools": p22}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

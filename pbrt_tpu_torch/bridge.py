@@ -18,7 +18,8 @@ hair rows and the Fourier tables. A BVH carries over as its
 flat node arrays and leaf-ordered triangles (with their motion, read from
 its 18-column rows), repacked by the port into its own traversal layouts
 (pbrt_tpu's packet-kernel tables are left behind), so both packages walk
-the same tree; a kd-tree raises. This is the tests'
+the same tree; a kd-tree carries over array for array, with the port's
+kernel layout packed from it. This is the tests'
 tool for feeding both packages one scene, so it defaults to the CPU, where
 JAX runs there; the port's own entry points default to the card.
 """
@@ -41,6 +42,7 @@ from pbrt_tpu_torch.scene.bssrdf import SSSTables
 from pbrt_tpu_torch.scene.fourier import FourierTable
 from pbrt_tpu_torch.scene.bvh import _finish_flat
 from pbrt_tpu_torch.scene.instances import InstanceTable
+from pbrt_tpu_torch.scene.kdtree import make_kdtree
 from pbrt_tpu_torch.scene.media import Medium
 from pbrt_tpu_torch.scene.textures import TextureTable
 from pbrt_tpu_torch.scene.types import Geometry, Scene
@@ -51,13 +53,18 @@ def _t(x, device):
 
 
 def bvh_from_jax(bvh, device="cpu"):
-    """pbrt_tpu's FlatBVH (or None) as the port's."""
+    """pbrt_tpu's FlatBVH or KdTree (or None) as the port's."""
     if bvh is None:
         return None
+    if type(bvh).__name__ == "KdTree":
+        return make_kdtree(*(np.asarray(getattr(bvh, k)) for k in (
+            "split_pos", "axis", "above_child", "n_prims", "prim_ids",
+            "world_lo", "world_hi", "v0", "v1", "v2")), int(bvh.max_leaf),
+            device=device)
     if type(bvh).__name__ != "FlatBVH":
         raise NotImplementedError(
-            f"bridge: accelerator {type(bvh).__name__} is not ported "
-            "(scene/kdtree.py: ROADMAP queue 1 item 6)")
+            f"bridge: accelerator {type(bvh).__name__} is not pbrt_tpu's "
+            "FlatBVH or KdTree")
     tri9 = np.asarray(bvh.tri9)
     n = np.asarray(bvh.prim_order).shape[0]
     dv = None

@@ -34,11 +34,14 @@
   query on the brute-force kernel.
 
 The makers build on the card unless the caller asks for ``device="cpu"``.
+``dryrun_multichip`` drives the sharded render and the training step
+(parallel/) on the portal scene over the process group's ranks.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pbrt_tpu_torch.core import transform
 from pbrt_tpu_torch.scene import camera as cam_mod
@@ -358,3 +361,57 @@ def _fur_camera(res=(256, 256), device="cuda"):
         transform.look_at((0, 1.3, -3.2), (0, 0.7, 0), (0, 1, 0),
                           device=device),
         35.0, res, device=device)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """The counterpart of ``__graft_entry__.py::dryrun_multichip``: a
+    sharded render of the portal scene and one full training step
+    (forward, backward, the gradients' all-reduce, the SGD update) over
+    the (dp, sp) mesh of the process group's ``n_devices`` ranks, on tiny
+    shapes. Each rank calls it; a process group of one rank on localhost
+    is set up when there is none and ``n_devices`` is 1 (NCCL on the card,
+    gloo for ``device="cpu"``). Returns {"mesh", "loss", "dkd",
+    "image_mean"}."""
+    import torch.distributed as dist
+
+    from pbrt_tpu_torch.parallel import (initialize_multihost,
+                                         inverse_render_step, make_mesh,
+                                         render_sharded)
+
+    if not dist.is_initialized():
+        if n_devices != 1:
+            raise RuntimeError(f"dryrun_multichip({n_devices}): start "
+                               f"{n_devices} processes, each calling "
+                               "parallel.initialize_multihost first")
+        initialize_multihost(f"localhost:{_free_port()}", 1, 0, device)
+    mesh = make_mesh(n_devices)
+    dp, sp = mesh.shape["dp"], mesh.shape.get("sp", 1)
+    dev = mesh.device
+    scene = _portal_scene(dev)
+    cam = _camera((16, max(16, 2 * sp)), dev)
+
+    img = render_sharded(scene, cam, mesh, spp=dp, integrator="path",
+                         max_depth=2)
+    target = torch.zeros_like(img)
+    params = {"kd": scene.materials.kd, "emit": scene.lights.emit}
+    new_params, loss = inverse_render_step(scene, cam, mesh, target, params,
+                                           spp=dp, max_depth=2)
+    loss = float(loss)
+    dkd = float((new_params["kd"] - params["kd"]).abs().sum())
+    if not (np.isfinite(loss) and np.isfinite(dkd)):
+        raise FloatingPointError(f"dryrun_multichip: loss {loss}, "
+                                 f"|dkd| {dkd}")
+    out = {"mesh": dict(mesh.shape), "loss": loss, "dkd": dkd,
+           "image_mean": float(img.mean())}
+    if dist.get_rank() == 0:
+        print(f"dryrun_multichip: mesh={out['mesh']} loss={loss:.6f} "
+              f"|dkd|={dkd:.6f} image_mean={out['image_mean']:.6f}")
+    return out

@@ -24,7 +24,9 @@ CTM's mean scale, a ribbon's normals through the inverse transpose; only
 the first four control points, as pbrt_tpu reads them). Everything
 pbrt_tpu's parser reads and the port cannot build yet raises
 ``NotImplementedError`` naming its ROADMAP queue 1 item, at the directive
-that asks for it: emissive disks and the kd-tree. Motion blur is read
+that asks for it: emissive disks. ``Accelerator "kdtree"`` over more
+than 256 triangles makes a kd-tree the scene's aggregate
+(scene/kdtree.py), as pbrt_tpu's parser does. Motion blur is read
 as pbrt_tpu reads it: ``ActiveTransform`` picks which of the two CTMs
 (shutter start and end) a directive changes, a ``trianglemesh`` under
 differing CTMs gets shutter-end vertices (an emissive one stays at the
@@ -1021,9 +1023,6 @@ class PbrtParser:
     def build(self, device="cuda"):
         """(scene, camera, options) on ``device``."""
         opts = dict(self.options)
-        if (opts.get("accelerator") == "kdtree"
-                and len(self.builder.tris) > 256):
-            _unported("Accelerator 'kdtree' (scene/kdtree.py)", 6)
         name, cp = opts["camera"]
         c2w = np.asarray(opts["camera_to_world"], np.float64)
         c2w_end = np.asarray(opts.get("camera_to_world_end", c2w),
@@ -1035,7 +1034,16 @@ class PbrtParser:
             tex_spread = float(2.0 * np.tan(np.radians(
                 cp.one("fov", 90.0)) / 2.0) / max(1, int(
                     opts["film"]["yres"])))
-        scene = self.builder.build(device, tex_spread=tex_spread)
+        # Accelerator "kdtree" over more than 256 triangles: the kd-tree
+        # is the aggregate instead of the BVH (api.cpp:788-801), as in
+        # pbrt_tpu's parser
+        kd = (opts.get("accelerator") == "kdtree"
+              and len(self.builder.tris) > 256)
+        scene = self.builder.build(device, use_bvh="never" if kd else "auto",
+                                   tex_spread=tex_spread)
+        if kd:
+            from pbrt_tpu_torch.scene.kdtree import build_kdtree
+            scene = dataclasses.replace(scene, bvh=build_kdtree(scene))
         # pbrt's camera space is left-handed (+z forward), as look_at
         # builds it, so the matrix is used as it is
         c2w_t = tr.Transform(

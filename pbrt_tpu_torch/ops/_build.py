@@ -1,10 +1,10 @@
 """Build and load the port's native code.
 
 Each ``csrc/*.cu`` file (the kernels ``fused_path``, ``intersect``,
-``bvh_traverse``, ``bvh_binary``, ``kexp_traverse`` and ``smem_probe``) is
-compiled by ``nvcc`` into a shared library with a plain C interface, loaded
-with ``ctypes``; ``csrc/*.cpp`` files (host code: the BVH builder) go
-through ``g++`` the same way. A library goes to ``build/kernels/`` at the
+``bvh_traverse``, ``bvh_binary``, ``kexp_traverse``, ``smem_probe`` and
+``kd_traverse``) is compiled by ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``; ``csrc/*.cpp`` files (host
+code: the BVH builder) go through ``g++`` the same way. A library goes to ``build/kernels/`` at the
 root of the checkout, named by a hash of its source, the headers beside it
 and the flags, so an edit rebuilds it and an unchanged source is reused.
 Nothing is compiled when this module is imported.
@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 KERNELS = ("fused_path", "intersect", "bvh_traverse", "bvh_binary",
-           "kexp_traverse", "smem_probe")
+           "kexp_traverse", "smem_probe", "kd_traverse")
 
 
 class CompilerNotFound(RuntimeError):

@@ -1,16 +1,21 @@
-"""Brute-force closest-hit kernel for small scenes (port of
+"""Brute-force closest-hit kernel (port of
 pbrt_tpu/ops/intersect_pallas.py).
 
 For every ray it tests every triangle, sphere and aaplane of a scene with
 no BVH and returns ``(t, prim)``: the closest hit distance and the global
 primitive index, −1 on a miss. It carries every integrator but the fused
-path on such scenes (scene/intersect.py holds the gate), and the spheres
-and aaplanes of a scene whose triangles sit in a BVH (scene/bvh.py).
+path on such scenes, of any primitive count (the kernel streams the
+tables through shared-memory tiles), and the spheres and aaplanes of a
+scene whose triangles sit in a BVH or a kd-tree (scene/bvh.py,
+scene/kdtree.py).
 
 ``intersect_brute`` dispatches on the device of its tensors: a CUDA tensor
 launches ``csrc/intersect.cu``; a CPU tensor runs ``_intersect_reference``,
-the plain-torch twin that does the same tests in the same order with the
-same tie rule. Nothing falls back from one to the other. The query is not
+the plain-torch twin that does the same tests with the same tie rule: it
+folds the triangles and spheres in chunks of rows, each chunk's first
+least ``t`` against the best so far under the same strict ``<``, which
+equals the kernel's one-by-one fold bit for bit and keeps its (R, chunk)
+temporaries bounded. Nothing falls back from one to the other. The query is not
 differentiated (pbrt_tpu's custom_vjp returns zero cotangents): callers
 run it under ``torch.no_grad()``.
 
@@ -36,8 +41,8 @@ import ctypes
 import torch
 
 BIG = 1e30
-MAX_PRIMS = 4096      # the gate of scene/intersect.py, as pbrt_tpu's
 TWO, REJECT = 1, 2   # design steps of csrc/intersect.cu
+CHUNK_ELEMS = 1 << 20  # the twin's (R, chunk) temporaries, in elements
 DESIGNS = (0, TWO, REJECT, TWO | REJECT)
 
 
@@ -115,65 +120,85 @@ def tri_reject_reference(tri, o, d):
     return reject, det, nu, nv, nt
 
 
-def _motion_row(row, time):
-    """A (18,) motion row v0 v1 v2 dv0 dv1 dv2 at each ray's shutter time
-    (R,): the moved vertex v0 and the edges of the moved vertices, as the
-    motion variant forms them (v + time·dv, then e1 = v1 − v0,
-    e2 = v2 − v0)."""
-    w = [row[k] + time * row[9 + k] for k in range(9)]
-    return (w[0], w[1], w[2], w[3] - w[0], w[4] - w[1], w[5] - w[2],
-            w[6] - w[0], w[7] - w[1], w[8] - w[2])
+def ray_tri_reference(o, d, rows, best_t):
+    """csrc/ray_tri.cuh's test, operation for operation in float32: rays
+    o, d (..., 3) against triangle rows (..., 9) = v0, e1, e2, broadcast
+    against each other and against best_t. Returns (t, hit); a hit needs
+    |det| > 1e-12, u ≥ 0, v ≥ 0, u + v ≤ 1, t > 1e-4 and t < best_t."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows.unbind(-1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    okd = det.abs() > 1e-12
+    inv_det = torch.where(okd, 1.0 / det, 0.0)
+    rx = ox - v0x
+    ry = oy - v0y
+    rz = oz - v0z
+    u = (rx * px + ry * py + rz * pz) * inv_det
+    qx = ry * e1z - rz * e1y
+    qy = rz * e1x - rx * e1z
+    qz = rx * e1y - ry * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-4)
+           & (t < best_t))
+    return t, hit
+
+
+def _motion_rows(rows, time):
+    """(C,18) motion rows v0 v1 v2 dv0 dv1 dv2 at each ray's shutter time
+    (R,): (R, C, 9) rows of the moved vertex v0 and the edges of the moved
+    vertices, as the motion variant forms them (v + time·dv, then
+    e1 = v1 − v0, e2 = v2 − v0)."""
+    w = rows[None, :, :9] + time[:, None, None] * rows[None, :, 9:]
+    return torch.cat([w[..., 0:3], w[..., 3:6] - w[..., 0:3],
+                      w[..., 6:9] - w[..., 0:3]], dim=-1)
+
+
+def _fold(best_t, best_p, t, hit, base):
+    """Fold a chunk's (R, C) hits into the best so far: the chunk's first
+    least t, taken where it is strictly nearer (the kernel's one-by-one
+    strict ``<`` gives the same)."""
+    tb, idx = torch.where(hit, t, torch.inf).min(dim=-1)
+    upd = hit.any(-1) & (tb < best_t)
+    return (torch.where(upd, tb, best_t),
+            torch.where(upd, (base + idx).to(best_p.dtype), best_p))
 
 
 def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln,
                          time=None):
-    """What the kernel computes, vectorized over rays, with Python loops
-    over the primitives in the kernel's order. Returns t (R,) float32 and
-    prim (R,) int32. With ``time`` (R,), what the motion variant
-    computes: ``tri`` holds (T,18) motion rows, moved to each ray's time
-    before the triangle test."""
+    """What the kernel computes, vectorized over rays and over chunks of
+    rows, in the kernel's order. Returns t (R,) float32 and prim (R,)
+    int32. With ``time`` (R,), what the motion variant computes: ``tri``
+    holds (T,18) motion rows, moved to each ray's time before the
+    triangle test."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
-    zero = torch.zeros_like(ox)
     best_t = torch.clamp_max(tmax, BIG)
     best_p = torch.full_like(ox, -1, dtype=torch.int32)
+    chunk = max(1, CHUNK_ELEMS // max(1, o.shape[0]))
 
     # triangles: Möller–Trumbore (shapes/triangle.cpp role)
-    for i in range(n_tri):
-        if time is None:
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[i].unbind(0)
-        else:
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _motion_row(
-                tri[i], time)
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        okd = det.abs() > 1e-12
-        inv_det = torch.where(okd, 1.0 / det, zero)
-        rx = ox - v0x
-        ry = oy - v0y
-        rz = oz - v0z
-        u = (rx * px + ry * py + rz * pz) * inv_det
-        qx = ry * e1z - rz * e1y
-        qy = rz * e1x - rx * e1z
-        qz = rx * e1y - ry * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        hit = (okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-4)
-               & (t < best_t))
-        best_t = torch.where(hit, t, best_t)
-        best_p = torch.where(hit, i, best_p)
+    for c0 in range(0, n_tri, chunk):
+        rows = tri[c0:min(n_tri, c0 + chunk)]
+        if time is not None:
+            rows = _motion_rows(rows, time)
+        t, hit = ray_tri_reference(o[:, None], d[:, None], rows,
+                                   best_t[:, None])
+        best_t, best_p = _fold(best_t, best_p, t, hit, c0)
 
     # spheres: stable quadratic (sphere.cpp:141-150)
     if n_sph:
-        a = dx * dx + dy * dy + dz * dz
-    for i in range(n_sph):
-        cx, cy, cz, rad = sph[i].unbind(0)
-        lx = ox - cx
-        ly = oy - cy
-        lz = oz - cz
-        b = 2.0 * (lx * dx + ly * dy + lz * dz)
+        a = (dx * dx + dy * dy + dz * dz)[:, None]
+    for c0 in range(0, n_sph, chunk):
+        cx, cy, cz, rad = sph[c0:min(n_sph, c0 + chunk)].unbind(-1)
+        lx = ox[:, None] - cx
+        ly = oy[:, None] - cy
+        lz = oz[:, None] - cz
+        b = 2.0 * (lx * dx[:, None] + ly * dy[:, None] + lz * dz[:, None])
         c = lx * lx + ly * ly + lz * lz - rad * rad
         disc = b * b - 4.0 * a * c
         ok = disc >= 0.0
@@ -184,9 +209,8 @@ def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln,
         tn = torch.minimum(t0, t1)
         tf = torch.maximum(t0, t1)
         t = torch.where(tn > 1e-4, tn, tf)
-        hit = ok & (t > 1e-4) & (t < best_t)
-        best_t = torch.where(hit, t, best_t)
-        best_p = torch.where(hit, n_tri + i, best_p)
+        hit = ok & (t > 1e-4) & (t < best_t[:, None])
+        best_t, best_p = _fold(best_t, best_p, t, hit, n_tri + c0)
 
     # aaplanes (plane.cpp:15-55): open bounds on the rectangle
     ray_o, ray_d = (ox, oy, oz), (dx, dy, dz)
@@ -260,8 +284,7 @@ def _launch_design(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln, design):
     if dev.type != "cuda" or design not in DESIGNS:
         raise ValueError(f"design {design} on {dev}")
     if not (0 <= n_tri <= tri.shape[0] and 0 <= n_sph <= sph.shape[0]
-            and 0 <= n_pln <= pln.shape[0] and R > 0
-            and n_tri + n_sph + n_pln <= MAX_PRIMS):
+            and 0 <= n_pln <= pln.shape[0] and R > 0):
         raise ValueError(f"bad sizes n_tri={n_tri} n_sph={n_sph} "
                          f"n_pln={n_pln} R={R}")
     _check("tri", tri, f32, (tri.shape[0], 9), dev)
@@ -306,8 +329,7 @@ def intersect_brute_motion(tri, sph, pln, o, d, tmax, time, n_tri, n_sph,
     R = o.shape[0]
     f32 = torch.float32
     if not (0 <= n_tri <= tri.shape[0] and 0 <= n_sph <= sph.shape[0]
-            and 0 <= n_pln <= pln.shape[0] and R > 0
-            and n_tri + n_sph + n_pln <= MAX_PRIMS):
+            and 0 <= n_pln <= pln.shape[0] and R > 0):
         raise ValueError(f"bad sizes n_tri={n_tri} n_sph={n_sph} "
                          f"n_pln={n_pln} R={R}")
     _check("tri", tri, f32, (tri.shape[0], 18), dev)

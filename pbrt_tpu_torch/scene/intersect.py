@@ -8,8 +8,13 @@ pbrt_tpu chooses them:
   ``SceneBuilder.build`` for more than 256 triangles) sends its triangle
   queries through the traversal kernel of ops/bvh.py and its spheres and
   aaplanes through the brute-force kernel (scene/bvh.py).
-- **Brute force**: a scene without one, of at most 4096 triangles,
-  spheres and aaplanes, goes through the brute-force kernel of
+- **kd-tree**: a scene whose aggregate is a kd-tree (``Accelerator
+  "kdtree"``, scene/kdtree.py) walks its triangles through the kd kernel
+  of ops/kdtree.py, then its spheres and aaplanes through the
+  brute-force kernel and its disks in plain torch, and nothing else, as
+  pbrt_tpu's kd path.
+- **Brute force**: a scene without an aggregate, of any number of
+  triangles, spheres and aaplanes, goes through the brute-force kernel of
   ops/intersect.py as a whole.
 
 On a CUDA tensor these are the kernels, on a CPU tensor their twins.
@@ -23,7 +28,7 @@ hands the curve's (u, v) to ``finalize_hit`` as pbrt_tpu's cache does;
 the BVH path does not, and ``finalize_hit`` rescans the hit curve
 (bound t + 1e-3), as pbrt_tpu does.
 ``finalize_hit`` turns ``(t, prim)`` into a Hit record with normals, uvs
-and tangents. A kd-tree accelerator is not ported and raises.
+and tangents.
 
 Two-keyframe motion blur: on a scene with motion (``Scene.has_motion``),
 a query given the rays' shutter times ``time`` runs the kernels' motion
@@ -44,18 +49,23 @@ from pbrt_tpu_torch.core.vecmath import normalize, take
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import instances as inst_mod
+from pbrt_tpu_torch.scene import kdtree as kd_mod
 from pbrt_tpu_torch.scene import shapes
 from pbrt_tpu_torch.scene.shapes import Hit
 
 
-def _has_bvh(scene) -> bool:
+def _aggregate(scene):
+    """"kd", "bvh" or None: the scene's triangle aggregate. Any other
+    object there raises."""
     if scene.bvh is None:
-        return False
-    if not isinstance(scene.bvh, bvh_mod.FlatBVH):
-        raise NotImplementedError(
-            f"accelerator {type(scene.bvh).__name__}: only the BVH is "
-            "ported (scene/kdtree.py: ROADMAP queue 1 item 6)")
-    return True
+        return None
+    if isinstance(scene.bvh, kd_mod.KdTree):
+        return "kd"
+    if isinstance(scene.bvh, bvh_mod.FlatBVH):
+        return "bvh"
+    raise NotImplementedError(
+        f"aggregate {type(scene.bvh).__name__}: the port's are "
+        "scene/bvh.py::FlatBVH and scene/kdtree.py::KdTree")
 
 
 def _moving(scene, time) -> bool:
@@ -67,10 +77,6 @@ def _closest(scene, o, d, tmax, time=None):
     motion variant for rays with shutter times on a scene with motion).
     Not differentiated: the estimator differentiates the integrand, not
     the sampled hit distances."""
-    if scene.n_tri + scene.n_sph + scene.n_pln > ik.MAX_PRIMS:
-        raise NotImplementedError(
-            f"a scene of more than {ik.MAX_PRIMS} primitives without a BVH "
-            "(only triangles go into one): ROADMAP queue 1 item 6")
     with torch.no_grad():
         args = (o.detach().contiguous(), d.detach().contiguous(),
                 tmax.detach().contiguous())
@@ -147,7 +153,10 @@ def intersect(scene, o, d, tmax, surface_only=False, time=None) -> Hit:
     times, or None (shutter time 0). Returns Hit (R,...); with
     ``surface_only`` its uv, dpdu and dpdv are left out (see
     ``finalize_hit``)."""
-    if _has_bvh(scene):
+    agg = _aggregate(scene)
+    if agg == "kd":
+        return kd_mod.intersect_kd(scene, o, d, tmax, surface_only)
+    if agg == "bvh":
         return bvh_mod.intersect_bvh(scene, o, d, tmax, surface_only,
                                      time=time)
     t, prim = closest_disk(scene, o, d, *_closest(scene, o, d, tmax, time))
@@ -159,7 +168,10 @@ def intersect(scene, o, d, tmax, surface_only=False, time=None) -> Hit:
 
 def intersect_p(scene, o, d, tmax, time=None):
     """Any-hit (shadow) query → occluded mask (R,)."""
-    if _has_bvh(scene):
+    agg = _aggregate(scene)
+    if agg == "kd":
+        return kd_mod.intersect_p_kd(scene, o, d, tmax)
+    if agg == "bvh":
         return bvh_mod.intersect_p_bvh(scene, o, d, tmax, time=time)
     occ = _closest(scene, o, d, tmax, time)[1] >= 0
     if scene.n_dsk:

@@ -10,21 +10,23 @@ Bézier curves, then the virtual prims of instanced objects
 not emissive); ``prim_med_in`` / ``prim_med_out`` to the media inside
 and outside it (MediumInterface, −1 = vacuum).
 
-``Scene.bvh`` is the triangles' BVH (scene/bvh.py::FlatBVH) or None;
-``SceneBuilder.build`` makes one for scenes of more than 256 triangles,
-as pbrt_tpu does. Disks, curves and instances are intersected outside
-the kernels, in plain torch, as pbrt_tpu does (scene/intersect.py). A
-curve has no light row; its world bound pads its control points by its
-widest width. ``crv_n`` (the ribbons' normals) is None unless some curve
-is a ribbon, as pbrt_tpu's static specialisation has it.
+``Scene.bvh`` is the triangles' aggregate: a BVH (scene/bvh.py::FlatBVH),
+a kd-tree (scene/kdtree.py::KdTree, which the parser puts there for
+``Accelerator "kdtree"``) or None; ``SceneBuilder.build`` makes a BVH
+for scenes of more than 256 triangles, as pbrt_tpu does. Disks, curves
+and instances are intersected outside the kernels, in plain torch, as
+pbrt_tpu does (scene/intersect.py). A curve has no light row; its world
+bound pads its control points by its widest width. ``crv_n`` (the
+ribbons' normals) is None unless some curve is a ribbon, as pbrt_tpu's
+static specialisation has it.
 ``Scene.fourier`` holds the measured tables (scene/fourier.py) that
 FOURIER rows name. A scene with a subsurface row (or a solid Disney row
 with scatterdistance) carries ``has_sss`` and the BSSRDF's radial tables
 (scene/bssrdf.py). A scene with two-keyframe motion (a triangle given
 shutter-end vertices) carries ``has_motion`` and each triangle's motion
 ``tri_dv0..2`` (its vertex at shutter time t is v + t·dv), and its world
-bounds cover both keyframes. Emissive disks and the kd-tree are not
-ported and raise ``NotImplementedError``. A scene's spectra have 3
+bounds cover both keyframes. Emissive disks are not ported and raise
+``NotImplementedError``. A scene's spectra have 3
 channels (RGB) or 60 (sampled, for the hero-wavelength integrators): the
 builder's ``SpectrumConfig`` decides, and lifts RGB parameters to 60
 bins with ``core/spectrum.py::from_rgb``, as pbrt_tpu's builder does.

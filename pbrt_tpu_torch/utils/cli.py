@@ -77,7 +77,7 @@ def main(argv=None):
     from pbrt_tpu_torch.core import spectrum as spec_mod
     from pbrt_tpu_torch.frontend.parser import _INTEGRATORS, parse_file
     from pbrt_tpu_torch.integrators.render import render
-    from pbrt_tpu_torch.ops import bvh, fused_path, intersect
+    from pbrt_tpu_torch.ops import bvh, fused_path, intersect, kdtree
     from pbrt_tpu_torch.scene.types import require_device
     from pbrt_tpu_torch.utils import imageio
     from pbrt_tpu_torch.utils import stats as stats_mod
@@ -118,7 +118,7 @@ def main(argv=None):
 
     counters = (fused_path.fused_bounce, intersect.intersect_brute,
                 bvh.bvh_traverse, intersect.intersect_brute_motion,
-                bvh.bvh_traverse_motion)
+                bvh.bvh_traverse_motion, kdtree.kd_traverse)
     before = [c.launches for c in counters]
     t = {}
     if device.type == "cuda":
@@ -163,7 +163,9 @@ def main(argv=None):
             prims=dict(tri=scene.n_tri, sph=scene.n_sph, pln=scene.n_pln,
                        dsk=scene.n_dsk, crv=scene.n_crv,
                        vprims=scene.n_vprims,
-                       bvh=scene.bvh is not None, motion=scene.has_motion),
+                       bvh=scene.bvh is not None,
+                       kdtree=type(scene.bvh).__name__ == "KdTree",
+                       motion=scene.has_motion),
             media=len(scene.media), textures=scene.textures is not None,
             sss_rows=_sss_rows(scene))))
     return 0

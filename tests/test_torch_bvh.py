@@ -517,14 +517,16 @@ def test_deep_wide_tree_raises_at_pack_time():
     assert tris.shape == (fits + 1, 12)
 
 
-class KdTree:
-    """Stands for an accelerator that is not the port's FlatBVH."""
+class OctTree:
+    """Stands for an accelerator that is neither the port's FlatBVH nor
+    its KdTree."""
 
 
 def test_unported_accelerators_raise(small_pair, soup):
-    """Motion blur and the kd-tree raise, naming their ROADMAP item; a
-    device that is neither the CPU nor a CUDA card raises; on the CPU no
-    kernel is launched."""
+    """The binary kernel's packer raises on motion, naming its ROADMAP
+    item; an aggregate that is neither a BVH nor a kd-tree raises, in the
+    queries and in the bridge; a device that is neither the CPU nor a
+    CUDA card raises; on the CPU no kernel is launched."""
     with_bvh, _ = small_pair
     tb = soup[2]
     z = np.zeros((4, 3), np.float32)
@@ -532,14 +534,13 @@ def test_unported_accelerators_raise(small_pair, soup):
         bvh_binary._pack_threaded(z[:1], z[:1], np.zeros(1, np.int32),
                                np.ones(1, np.int32), np.zeros(1, np.int32),
                                z, z, z, dv=(z, z, z))
-    kd = dataclasses.replace(with_bvh, bvh=KdTree())
+    other = dataclasses.replace(with_bvh, bvh=OctTree())
     ray = torch.zeros(4, 3)
     for query in (tisect.intersect, tisect.intersect_p):
-        with pytest.raises(NotImplementedError,
-                           match="KdTree.*ROADMAP queue 1 item 6"):
-            query(kd, ray + 0.5, ray + 1.0, torch.ones(4))
-    with pytest.raises(NotImplementedError, match="KdTree"):
-        bridge.bvh_from_jax(KdTree())
+        with pytest.raises(NotImplementedError, match="OctTree"):
+            query(other, ray + 0.5, ray + 1.0, torch.ones(4))
+    with pytest.raises(NotImplementedError, match="OctTree"):
+        bridge.bvh_from_jax(OctTree())
     with pytest.raises(ValueError, match="split method"):
         tbvh.build_bvh(with_bvh, split_method="kdtree")
     meta = torch.zeros(4, 3, device="meta")

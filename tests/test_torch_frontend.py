@@ -609,9 +609,6 @@ def test_simple_scene_and_spd_light():
 UNPORTED = {
     "emissive_disk": ('WorldBegin\nAreaLightSource "diffuse"\n'
                       'Shape "disk"\nWorldEnd'),
-    "kdtree": ('Accelerator "kdtree"\nWorldBegin\nShape "heightfield" '
-               '"integer nu" [20] "integer nv" [20] "float Pz" ['
-               + " 0" * 400 + ']\nWorldEnd', 6),
 }
 
 

@@ -44,6 +44,18 @@ pbrt_tpu's does on the CPU backend.
   queue 3). The reference is taken with √'s derivative set to 0 where
   its argument is ≤ 0 (``finite_sqrt_gradient``; values unchanged), as
   the port's ``core/vecmath.py::safe_sqrt`` takes it.
+- **Subsurface scene**: tests/oracle/sss_oracle.pbrt (a kdsubsurface
+  sphere on a matte floor) with its `path` integrator, sampler and depth,
+  over the 16² window of the sphere's lit top (SSS_CROP) × 4 spp:
+  gradients with respect to kd and emit through
+  ``subsurface_transport``'s probe chain (the probe rays start on the hit
+  and their hits carry ``t``'s gradient), with the same √ derivative as
+  the volpath reference.
+- **Hair scene**: tests/oracle/curves_oracle.pbrt with its two curves
+  made of the hair material (eumelanin 1.3), over the 16² window
+  (HAIR_CROP) where a curve covers 28% of the pixels × 4 spp: gradients
+  with respect to kd and emit through HAIR rows of the BSDF, √ as
+  above.
 
 Each scene is one jitted pbrt_tpu program (``value_and_grad`` over all its
 parameters), shared by the file's tests through module-scoped fixtures.
@@ -65,6 +77,7 @@ from pbrt_tpu.core import spectrum as jspec
 from pbrt_tpu.core import transform as jtransform
 from pbrt_tpu.core.spectrum import RGB
 from pbrt_tpu.frontend import load_pbrt as jload_pbrt
+from pbrt_tpu.frontend import parse_pbrt_string as jparse
 from pbrt_tpu.scene import camera as jcam
 from pbrt_tpu.scene import film as jfilm
 from pbrt_tpu.scene.types import SceneBuilder as JaxBuilder
@@ -81,6 +94,10 @@ BRUTE_PARAMS = ("kd", "emit", "portal_lo", "portal_hi")
 BVH_PARAMS = ("kd", "emit")
 HERO_PARAMS = ("kd", "emit")
 VOLPATH_PARAMS = ("kd", "emit", "sigma_a", "sigma_s")
+SSS_PARAMS = ("kd", "emit")
+HAIR_PARAMS = ("kd", "emit")
+HAIR_CROP = (52, 68, RES, RES)  # a curve's lit stretch on the ground
+SSS_CROP = (40, 16, RES, RES)  # the sphere's lit top: max |∂/∂emit| > 1e-3
 ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "oracle")
 FILE_RES = 96
 CROP = (40, 40, RES, RES)     # a 16² window of the files' 96² films
@@ -224,6 +241,35 @@ def volpath():
                      CROP)
 
 
+@pytest.fixture(scope="module")
+def sss():
+    js, jc, cfg = _file_scene("sss")
+    assert js.has_sss
+    with finite_sqrt_gradient():
+        return _both(js, jc, SSS_PARAMS, cfg, (FILE_RES, FILE_RES),
+                     SSS_CROP)
+
+
+def _hair_text():
+    """curves_oracle.pbrt with its curves made of hair."""
+    with open(os.path.join(ORACLE, "curves_oracle.pbrt")) as f:
+        text = f.read()
+    old = 'Material "matte" "rgb Kd" [0.2 0.5 0.3]'
+    assert old in text
+    return text.replace(old, 'Material "hair" "float eumelanin" [1.3]')
+
+
+@pytest.fixture(scope="module")
+def hair():
+    js, jc, jo = jparse(_hair_text(), base_dir=ORACLE)
+    assert js.n_crv == 2
+    cfg = dict(integrator=jo["integrator"], sampler=jo["sampler"],
+               max_depth=jo["max_depth"])
+    with finite_sqrt_gradient():
+        return _both(js, jc, HAIR_PARAMS, cfg, (FILE_RES, FILE_RES),
+                     HAIR_CROP)
+
+
 def _check(result, name):
     v_jax, g_jax, v_t, g_t = result
     np.testing.assert_allclose(v_t, v_jax, rtol=1e-5)
@@ -277,3 +323,13 @@ def test_hero_scene_gradients_match_jax_grad(hero, name):
 @pytest.mark.parametrize("name", VOLPATH_PARAMS)
 def test_volpath_scene_gradients_match_jax_grad(volpath, name):
     _check(volpath, name)
+
+
+@pytest.mark.parametrize("name", SSS_PARAMS)
+def test_sss_probe_chain_gradients_match_jax_grad(sss, name):
+    _check(sss, name)
+
+
+@pytest.mark.parametrize("name", HAIR_PARAMS)
+def test_hair_row_gradients_match_jax_grad(hair, name):
+    _check(hair, name)

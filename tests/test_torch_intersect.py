@@ -210,17 +210,23 @@ def test_tie_goes_to_the_first_primitive():
 
 
 def test_gate_and_devices():
-    """Scenes past the gate raise with their ROADMAP item; a device that
-    is neither the CPU nor a CUDA card raises; on the CPU no kernel is
-    launched."""
+    """The brute-force path has no gate: a scene of 4,097 spheres without
+    a BVH (past pbrt_tpu's 4,096 of its Pallas path) is intersected, each
+    ray hitting the sphere in front of it; a device that is neither the
+    CPU nor a CUDA card raises; on the CPU no kernel is launched."""
     b = SceneBuilder()
     m = b.add_material(type=0, kd=0.5)
-    for i in range(ik.MAX_PRIMS + 1):
+    for i in range(4097):
         b.add_sphere((i, 0, 0), 0.25, mat=m)
     big = b.build("cpu")
+    assert big.bvh is None and big.n_prims == 4097
     ray = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        tisect.intersect(big, ray, ray + 1.0, torch.ones(4))
+    x = torch.tensor([0.0, 1.0, 2048.0, 4096.0])
+    o = torch.stack([x, torch.zeros(4), torch.full((4,), -1.0)], -1)
+    hit = tisect.intersect(big, o, torch.tensor([[0.0, 0.0, 1.0]] * 4),
+                           torch.full((4,), np.inf))
+    assert hit.prim_id.tolist() == [0, 1, 2048, 4096]
+    np.testing.assert_allclose(hit.t.numpy(), 0.75, rtol=1e-6)
     ts = entry._portal_scene("cpu", strategy="portal")
     tabs = ik.pack_scene(ts)
     meta = torch.zeros(4, 3, device="meta")
