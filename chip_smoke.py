@@ -265,16 +265,20 @@ Run from the root of a checkout, with no arguments:
 22. The remaining paths. (a) The kd-tree cell: phase 10's heightfield
    cornell (133,130 triangles) with its triangles in a kd-tree
    (scene/kdtree.py, the host build timed), one 256² × 32-spp `path`
-   pass at max_depth 4 (13 launches of csrc/kd_traverse.cu, timed by CUDA
-   events): every walk of the pass held to the twin bit for bit on 65,536
-   of its rays, the whole camera-ray walk too, the image mean against the
-   same pass on the BVH (the same samples, rel 1e-3), the camera rays'
-   query (its launches by the wrappers' counts, its torch kernels' device
-   time by the device-only profiler, the walk's and kernel 2's times on
-   its inputs by CUDA events: the walk's share), the walk against
-   kernel 3 on the camera, shadow and bounce
-   rays in turns, and its bound from the twin's node steps and triangle
-   tests. (b) Kernel 2 past 4,096 primitives: one such pass on an
+   pass at max_depth 4 (13 closest-hit launches of csrc/kd_traverse.cu,
+   timed by CUDA events) and one `ao` pass (the integrator's default
+   radius: a closest-hit walk and an any-hit walk): every walk of the two passes, closest-hit
+   and any-hit, held to the twin bit for bit on 65,536 of its rays, the
+   whole camera-ray and occlusion-ray walks too, the any-hit boolean
+   against the closest-hit walk's on every occlusion ray, each image
+   mean against the same pass on the BVH (the same samples, rel 1e-3),
+   the camera rays' query (its launches by the wrappers' counts, its
+   torch kernels' device time by the device-only profiler, the walk's
+   and kernel 2's times on its inputs by CUDA events: the walk's share),
+   the walk against kernel 3 on the camera, shadow (NEE), bounce and
+   occlusion rays in turns (the occlusion rays through the any-hit walk
+   and the closest-hit walk), and each instantiation's bound from the twin's node steps and
+   triangle tests. (b) Kernel 2 past 4,096 primitives: one such pass on an
    8,204-primitive heightfield cornell without a BVH, timed, every query
    held to the twin on 65,536 rays. (c) The sharded path at world size 1
    over NCCL on the main path's scene: render_sharded at 256² × 64 spp
@@ -3830,35 +3834,39 @@ def curves_files(dev):
 @contextlib.contextmanager
 def recording_kd_walk(keep_full=()):
     """Record every kd walk of scene/kdtree.py: a KD_SUBSET-ray subset of
-    its rays (every R / KD_SUBSET-th) with the kernel's (t, prim) there,
-    and the whole rays of the walks whose ordinals are in ``keep_full``.
-    Yields (subsets, {ordinal: (o, d, tmax)}); the kernel's wrapper still
-    counts its launches."""
-    calls, full = [], {}
+    its rays (every R / KD_SUBSET-th) with the kernel's (t, prim) there
+    and whether it was the any-hit walk, the whole rays of the walks whose
+    ordinals are in ``keep_full``, and the whole rays and prims of every
+    any-hit walk. Yields (subsets, {ordinal: (o, d, tmax)}, [(o, d, tmax,
+    prim)]); the kernel's wrapper still counts its launches."""
+    calls, full, shadows = [], {}, []
     inner = kd_mod.kdtree_intersect_tris
 
-    def record(kd, o, d, tmax):
-        t, prim, hit = inner(kd, o, d, tmax)
+    def record(kd, o, d, tmax, any_hit=False):
+        t, prim, hit = inner(kd, o, d, tmax, any_hit)
         n = o.shape[0]
         idx = torch.arange(0, n, max(1, n // KD_SUBSET),
                            device=o.device)[:KD_SUBSET]
-        calls.append((o[idx], d[idx], tmax[idx], t[idx], prim[idx]))
+        calls.append((o[idx], d[idx], tmax[idx], t[idx], prim[idx],
+                      any_hit))
         if len(calls) - 1 in keep_full:
             full[len(calls) - 1] = (o.clone(), d.clone(), tmax.clone())
+        if any_hit:
+            shadows.append((o.clone(), d.clone(), tmax.clone(),
+                            prim.clone()))
         return t, prim, hit
     kd_mod.kdtree_intersect_tris = record
     try:
-        yield calls, full
+        yield calls, full, shadows
     finally:
         kd_mod.kdtree_intersect_tris = inner
 
 
 def kd_bound(kd, n_rays, counts):
-    """Each ray read once (28 B) and written once (8 B), the tree's tables
-    once; the node steps and triangle tests the twin counted on these
-    rays."""
-    table = sum(t.numel() * t.element_size()
-                for t in (kd.nodes, kd.prim_ids, kd.tris))
+    """Each ray read once (28 B) and written once (8 B), the kernel's
+    tables (8-byte nodes, 48-byte leaf-ordered records) once; the node
+    steps and triangle tests the twin counted on these rays."""
+    table = sum(t.numel() * t.element_size() for t in (kd.nodes, kd.tris))
     return bound_ms(36 * n_rays + table, OPS_NODE * counts["node_steps"]
                     + OPS_TRI * counts["tri_tests"])
 
@@ -3878,34 +3886,57 @@ def kd_cell(dev, card, start, stop, filt):
     check(scene.n_tri == 133130 and isinstance(hf.bvh, bvh_mod.FlatBVH)
           and scene.fused_profile is None, "the kd cell's scene")
     per_pass = _loop_queries(scene, KD_DEPTH)
+    marks = [time.perf_counter()]     # the seconds of each item below
 
-    def kd_pass(sc=scene):
-        return render_mod.render_pass(sc, cam, filt, cfg, W, H, KD_SPP, 0,
+    def kd_pass(sc=scene, c=cfg):
+        return render_mod.render_pass(sc, cam, filt, c, W, H, KD_SPP, 0,
                                       dev)
+    cfg_ao = render_mod.RenderConfig(integrator="ao")  # default radius
     walk = kd_ops.kd_traverse
-    walk.launches = 0
-    # the queries of a `path` bounce: 0 the camera rays' closest hit, 1
-    # NEE's shadow ray, 2 the BSDF half's ray, 3 the next bounce's
-    with recording_kd_walk(keep_full=(0, 1, 3)) as (calls, full):
+    walk.launches = walk.any_hit_launches = 0
+    # the queries of a `path` bounce, all closest-hit walks: 0 the camera
+    # rays', 1 NEE's shadow ray (its trace takes the emission of what it
+    # hits, so the walk finds the closest hit), 2 the BSDF half's ray, 3
+    # the next bounce's; then the `ao` pass: its camera rays' walk and its
+    # occlusion rays' any-hit walk (per_pass + 1)
+    with recording_kd_walk(keep_full=(0, 1, 3, per_pass + 1)) as (
+            calls, full, shadows):
         img = kd_pass()
+        img_ao = kd_pass(c=cfg_ao)
         torch.cuda.synchronize()
-    launches = walk.launches
-    check(launches == per_pass == len(calls),
+    launches, any_launches = walk.launches, walk.any_hit_launches
+    modes = [c[5] for c in calls]
+    check(launches == per_pass + 2 == len(calls),
           f"kd walks {launches}, recorded {len(calls)}, the loop implies "
-          f"{per_pass}")
+          f"{per_pass} + the ao pass's 2")
+    check(any_launches == sum(modes) == len(shadows) == 1 and modes[-1],
+          f"kd any-hit walks {any_launches}, recorded modes {modes}")
     start.record()
     img_again = kd_pass()
     stop.record()
     torch.cuda.synchronize()
     pass_ms = start.elapsed_time(stop)
     check(torch.equal(img, img_again), "two kd passes differ")
-    worst = 0.0
-    for k, (o, d, tmax, t, prim) in enumerate(calls):
-        t_ref, prim_ref = kd_ops.traverse_reference(kd, o, d, tmax)
-        worst = max(worst, float((t - t_ref).abs().max()))
+    marks.append(time.perf_counter())
+    worst = {False: 0.0, True: 0.0}
+    for k, (o, d, tmax, t, prim, any_hit) in enumerate(calls):
+        t_ref, prim_ref = kd_ops.traverse_reference(kd, o, d, tmax, any_hit)
+        worst[any_hit] = max(worst[any_hit],
+                             float((t - t_ref).abs().max()))
         check(torch.equal(prim, prim_ref) and torch.equal(t, t_ref),
-              f"kd walk {k}: the kernel differs from its twin (t err "
-              f"{worst})")
+              f"kd walk {k} (any hit: {any_hit}): the kernel differs from "
+              f"its twin (t err {worst})")
+    # the any-hit walk's boolean is the closest-hit walk's on every
+    # occlusion ray of the ao pass
+    n_shadow_rays = 0
+    for k, (o, d, tmax, prim) in enumerate(shadows):
+        _, p_c = walk(kd, o, d, tmax)
+        check(torch.equal(prim >= 0, p_c >= 0),
+              f"any-hit walk {k}: its boolean differs from the closest "
+              f"hit's on {int(((prim >= 0) != (p_c >= 0)).sum())} rays")
+        n_shadow_rays += o.shape[0]
+    del shadows
+    marks.append(time.perf_counter())
     # the same estimator on the BVH (the same samples): the means agree
     img_bvh = kd_pass(hf)
     m_kd, m_bvh = float(img.double().mean()), float(img_bvh.double().mean())
@@ -3913,6 +3944,12 @@ def kd_cell(dev, card, start, stop, filt):
     px_off = float(((img - img_bvh).abs().amax(-1) > 1e-4).float().mean())
     check(bool(torch.isfinite(img).all()) and rel < 1e-3,
           f"kd image mean {m_kd} against the BVH's {m_bvh}")
+    img_ao_bvh = kd_pass(hf, cfg_ao)
+    m_ao, m_ao_bvh = (float(x.double().mean()) for x in (img_ao,
+                                                         img_ao_bvh))
+    rel_ao = abs(m_ao / m_ao_bvh - 1.0)
+    check(bool(torch.isfinite(img_ao).all()) and rel_ao < 1e-3,
+          f"kd ao image mean {m_ao} against the BVH's {m_ao_bvh}")
     # one query, the camera rays' closest hit (the walk, the sphere and
     # the aaplane through kernel 2, the hit record): its launches by the
     # wrappers' counts; its torch kernels' device time by the device-only
@@ -3936,45 +3973,66 @@ def kd_cell(dev, card, start, stop, filt):
         o_c, d_c, t_c, 0, scene.n_sph, scene.n_pln)
     k2_ms = sync_ms(lambda: ik.intersect_brute(*k2_args), 5)
     del k2_args
-    # the walk against kernel 3 on the same rays, in turns; the twin on
-    # the camera rays (all of them, bit for bit) with its counts
+    marks.append(time.perf_counter())
+    # the walk against kernel 3 on the same rays, in turns, each set
+    # through the walk the pass gives it (the occlusion rays through the
+    # any-hit walk, and also through the closest-hit one);
+    # the twin on the camera and occlusion rays (all of them, bit for bit)
+    # with its counts
     ms = {}
-    for name, i, any_hit in (("camera", 0, False), ("shadow", 1, True),
-                             ("bounce", 3, False)):
+    for name, i, any_hit in (("camera", 0, False), ("shadow", 1, False),
+                             ("bounce", 3, False),
+                             ("ao", per_pass + 1, True)):
         o, d, tmax = full[i]
 
         def kd_fn():
+            return walk(kd, o, d, tmax, any_hit)
+
+        def kd_closest_fn():
             return walk(kd, o, d, tmax)
 
         def bvh_fn():
             return bk.bvh_traverse(hf.bvh, o, d, tmax, any_hit)
-        for fn in (kd_fn, bvh_fn):
+        fns = (kd_fn, bvh_fn) + ((kd_closest_fn,) if any_hit else ())
+        for fn in fns:
             fn()
-        kd_a = sync_ms(kd_fn, 3)
-        bvh_a = sync_ms(bvh_fn, 3)
-        bvh_b = sync_ms(bvh_fn, 3)
-        kd_b = sync_ms(kd_fn, 3)
-        ms[name] = {"kd_ms": (kd_a + kd_b) / 2, "bvh_ms": (bvh_a + bvh_b) / 2,
+        got = {}
+        for fn in fns + fns[::-1]:
+            got[fn] = got.get(fn, 0.0) + sync_ms(fn, 10) / 2
+        ms[name] = {"kd_ms": got[kd_fn], "bvh_ms": got[bvh_fn],
                     "finite_tmax_share": float(torch.isfinite(
                         tmax).float().mean())}
-    t_k, p_k = walk(kd, o_c, d_c, tmax_c)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    t_ref, p_ref, counts = kd_ops.traverse_reference(kd, o_c, d_c, tmax_c,
-                                                     counts=True)
-    torch.cuda.synchronize()
-    twin_ms = 1e3 * (time.perf_counter() - t0)
-    check(torch.equal(t_k, t_ref) and torch.equal(p_k, p_ref),
-          "kd walk on the camera rays: the kernel differs from its twin")
-    bnd = kd_bound(kd, o_c.shape[0], counts)
+        if any_hit:
+            ms[name]["kd_closest_ms"] = got[kd_closest_fn]
+    marks.append(time.perf_counter())
+    twin = {}
+    for name, i, any_hit in (("camera", 0, False),
+                             ("ao", per_pass + 1, True)):
+        o, d, tmax = full[i]
+        t_k, p_k = walk(kd, o, d, tmax, any_hit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_ref, p_ref, counts = kd_ops.traverse_reference(
+            kd, o, d, tmax, any_hit, counts=True)
+        torch.cuda.synchronize()
+        twin[name] = (1e3 * (time.perf_counter() - t0), counts,
+                      kd_bound(kd, o.shape[0], counts))
+        check(torch.equal(t_k, t_ref) and torch.equal(p_k, p_ref),
+              f"kd walk on the {name} rays: the kernel differs from its "
+              f"twin")
+    marks.append(time.perf_counter())
+    twin_ms, counts, bnd = twin["camera"]
     row = {"card": card, "triangles": scene.n_tri,
            "nodes": kd.nodes.shape[0], "prim_ids": kd.prim_ids.shape[0],
            "max_leaf": kd.max_leaf, "depth": kd.depth,
            "host_build_s": build_s, "lanes": W * H * KD_SPP,
            "spp": KD_SPP, "max_depth": KD_DEPTH,
            "render_pass_cuda_ms": pass_ms, "launches": launches,
-           "launches_expected": per_pass, "held_rays_per_query":
-           calls[0][0].shape[0], "max_abs_err": worst,
+           "any_hit_launches": any_launches,
+           "launches_expected": per_pass + 2, "held_rays_per_query":
+           calls[0][0].shape[0], "max_abs_err": worst[False],
+           "any_hit_max_abs_err": worst[True],
+           "shadow_rays_any_equals_closest": n_shadow_rays,
            "query_launches": q_launches, "query_torch_device_ms": torch_ms,
            "query_device_ms": torch_ms + ms["camera"]["kd_ms"] + k2_ms,
            "walk_ms": ms["camera"]["kd_ms"],
@@ -3985,9 +4043,17 @@ def kd_cell(dev, card, start, stop, filt):
                                        by["intersect_kernel"][1]],
            "mean": m_kd / KD_SPP,
            "bvh_mean": m_bvh / KD_SPP, "mean_rel": rel,
+           "ao_mean": m_ao / KD_SPP, "ao_bvh_mean": m_ao_bvh / KD_SPP,
+           "ao_mean_rel": rel_ao, "ao_radius": cfg_ao.ao_radius,
            "pixels_off_1e-4": px_off, "turns_ms": ms,
            "twin_camera_ms": twin_ms, "counts_camera": counts,
-           "bound_ms": bnd[0], "bound_by": bnd[1]}
+           "bound_ms": bnd[0], "bound_by": bnd[1],
+           "twin_ao_ms": twin["ao"][0], "counts_ao": twin["ao"][1],
+           "bound_ao_ms": twin["ao"][2][0],
+           "bound_ao_by": twin["ao"][2][1],
+           "item_s": dict(zip(("passes", "twin_checks", "bvh_and_query",
+                               "turns", "twin_full"),
+                              np.diff(marks).tolist()))}
     print(f"phase 22 kd cell ({card}): " + json.dumps(row))
     check(q_launches == (1, 1), f"the query's launches {q_launches}")
     return row
@@ -5010,22 +5076,42 @@ def main():
         "device_ms": probe["device_ms"],
         "library_device_ms": probe["library_device_ms"]}, {
         # the port's own kernel (pbrt_tpu walks its kd-tree in plain JAX,
-        # a vmapped lax.while_loop, no Pallas kernel): ms and plain_ms on
-        # the kd cell's 2,097,152 camera rays, its launches and largest
-        # error over every walk of the pass (65,536 rays each), the bound
-        # from the twin's counts on the camera rays
+        # a vmapped lax.while_loop, no Pallas kernel), its closest-hit
+        # instantiation: ms and plain_ms on the kd cell's 2,097,152 camera
+        # rays, its launches and largest error over the pass's
+        # closest-hit walks (65,536 rays each), the bound from the twin's
+        # counts on the camera rays; kernel 3 in turns on the camera,
+        # shadow (NEE) and bounce rays
         "name": "kd_traverse", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/kd_traverse.cu",
         "replaces": "pbrt_tpu/scene/kdtree.py:150",
-        "own_kernel": True,
-        "launches": p22["kd"]["launches"],
+        "own_kernel": True, "redesigned": True,
+        "launches": p22["kd"]["launches"] - p22["kd"]["any_hit_launches"],
         "max_abs_err": p22["kd"]["max_abs_err"],
         "ms": p22["kd"]["turns_ms"]["camera"]["kd_ms"],
         "plain_ms": p22["kd"]["twin_camera_ms"],
         "bound_ms": p22["kd"]["bound_ms"], "bound_by": p22["kd"]["bound_by"],
         "library_ms": None,
         "kernel3_turns_ms": p22["kd"]["turns_ms"],
-        "ptxas": ptxas["kd_traverse"]}],
+        "ptxas": ptxas["kd_traverse"]}, {
+        # its any-hit instantiation, which the any-hit query (the ao
+        # pass's occlusion rays) launches: ms and plain_ms on those rays
+        # (beside the closest-hit walk's ms on them), launches and largest
+        # error over the cell's any-hit walks, the bound from the twin's
+        # counts on those rays
+        "name": "kd_traverse_any_hit", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/kd_traverse.cu",
+        "replaces": "pbrt_tpu/scene/kdtree.py:150",
+        "own_kernel": True,
+        "launches": p22["kd"]["any_hit_launches"],
+        "max_abs_err": p22["kd"]["any_hit_max_abs_err"],
+        "ms": p22["kd"]["turns_ms"]["ao"]["kd_ms"],
+        "plain_ms": p22["kd"]["twin_ao_ms"],
+        "bound_ms": p22["kd"]["bound_ao_ms"],
+        "bound_by": p22["kd"]["bound_ao_by"], "library_ms": None,
+        "closest_hit_ms": p22["kd"]["turns_ms"]["ao"]["kd_closest_ms"],
+        "rays_any_equals_closest":
+            p22["kd"]["shadow_rays_any_equals_closest"]}],
         "scene_files": files, "hero": hero, "bdpt": bdpt,
         "sppm_motion": sm20, "curves": p21, "kd_sharded_tools": p22}))
     print(json.dumps({"ok": True, "device": {

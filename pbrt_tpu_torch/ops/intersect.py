@@ -122,12 +122,14 @@ def tri_reject_reference(tri, o, d):
 
 def ray_tri_reference(o, d, rows, best_t):
     """csrc/ray_tri.cuh's test, operation for operation in float32: rays
-    o, d (..., 3) against triangle rows (..., 9) = v0, e1, e2, broadcast
-    against each other and against best_t. Returns (t, hit); a hit needs
-    |det| > 1e-12, u ≥ 0, v ≥ 0, u + v ≤ 1, t > 1e-4 and t < best_t."""
+    o, d (..., 3) against triangle rows (..., 9) = v0, e1, e2 (or the
+    nine components as a sequence), broadcast against each other and
+    against best_t. Returns (t, hit); a hit needs |det| > 1e-12, u ≥ 0,
+    v ≥ 0, u + v ≤ 1, t > 1e-4 and t < best_t."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows.unbind(-1)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        rows.unbind(-1) if torch.is_tensor(rows) else rows)
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -150,12 +152,23 @@ def ray_tri_reference(o, d, rows, best_t):
 
 def _motion_rows(rows, time):
     """(C,18) motion rows v0 v1 v2 dv0 dv1 dv2 at each ray's shutter time
-    (R,): (R, C, 9) rows of the moved vertex v0 and the edges of the moved
-    vertices, as the motion variant forms them (v + time·dv, then
-    e1 = v1 − v0, e2 = v2 − v0)."""
-    w = rows[None, :, :9] + time[:, None, None] * rows[None, :, 9:]
-    return torch.cat([w[..., 0:3], w[..., 3:6] - w[..., 0:3],
-                      w[..., 6:9] - w[..., 0:3]], dim=-1)
+    (R,): the nine (R, C) components of the moved vertex v0 and the edges
+    of the moved vertices, as the motion variant forms them (v + time·dv,
+    then e1 = v1 − v0, e2 = v2 − v0), each contiguous."""
+    w = [rows[:, k] + time[:, None] * rows[:, 9 + k] for k in range(9)]
+    return w[0:3] + [w[3 + k] - w[k] for k in range(3)] \
+        + [w[6 + k] - w[k] for k in range(3)]
+
+
+def _sqrt_rn(x):
+    """The correctly rounded float32 square root, as the kernels' sqrtf.
+    torch's float32 sqrt on the CPU is not: it is 1 ulp off on about one
+    element in 160, and up to 1e-4 off on some of a process's first
+    calls. So the CPU takes it in float64, whose root rounds to the
+    float32 one."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def _fold(best_t, best_p, t, hit, base):
@@ -202,7 +215,7 @@ def _intersect_reference(tri, sph, pln, o, d, tmax, n_tri, n_sph, n_pln,
         c = lx * lx + ly * ly + lz * lz - rad * rad
         disc = b * b - 4.0 * a * c
         ok = disc >= 0.0
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sq = _sqrt_rn(torch.clamp_min(disc, 0.0))
         q = torch.where(b >= 0.0, -0.5 * (b + sq), -0.5 * (b - sq))
         t0 = q / torch.clamp_min(a, 1e-20)
         t1 = c / torch.where(q.abs() > 1e-20, q, 1e-20)

@@ -20,8 +20,10 @@ a CUDA tensor, its twin on a CPU tensor); the spheres and aaplanes then
 go through the brute-force kernel with the walk's ``t`` as their bound,
 as on the BVH path, and the disks in plain torch. As pbrt_tpu's kd path
 (pbrt_tpu/scene/kdtree.py:251-287), there is no instance walk, no curve
-fold and no shutter time, and the any-hit query is the closest-hit
-query's ``valid``.
+fold and no shutter time. The any-hit query gives pbrt_tpu's answer, the
+closest-hit query's ``valid``, through the walk's any-hit instantiation,
+which stops at the first triangle hit; the other families are folded in
+below ``tmax``.
 """
 
 from __future__ import annotations
@@ -55,8 +57,9 @@ class KdTree:
     v1: torch.Tensor
     v2: torch.Tensor
     # the kernel's layout (ops/kdtree.py::pack_nodes, pack_tris)
-    nodes: torch.Tensor        # (N,4) int32
-    tris: torch.Tensor         # (T,9) float32 v0, e1, e2
+    nodes: torch.Tensor        # (N,2) int32, 8-byte nodes
+    tris: torch.Tensor         # (E,12) float32 records in leaf order: v0,
+    #                            e1, e2, the triangle's index (int bits)
     max_leaf: int = MAX_PRIMS_PER_LEAF
     depth: int = 0             # interior nodes on the longest root path
 
@@ -88,7 +91,8 @@ def make_kdtree(split_pos, axis, above_child, n_prims, prim_ids, world_lo,
                   nodes=kd_ops.pack_nodes(arrs["split_pos"], arrs["axis"],
                                           arrs["above_child"],
                                           arrs["n_prims"]),
-                  tris=kd_ops.pack_tris(arrs["v0"], arrs["v1"], arrs["v2"]),
+                  tris=kd_ops.pack_tris(arrs["v0"], arrs["v1"], arrs["v2"],
+                                        arrs["prim_ids"]),
                   max_leaf=int(max_leaf),
                   depth=_tree_depth(np.asarray(axis),
                                     np.asarray(above_child)))
@@ -193,9 +197,11 @@ def build_kdtree(scene, max_depth=None) -> KdTree:
                        device=scene.geom.tri_v0.device)
 
 
-def kdtree_intersect_tris(kd: KdTree, o, d, tmax):
-    """Closest triangle hit through the kd walk: (t, tri index, hit)."""
-    t, i = kd_ops.kd_traverse(kd, o, d, tmax)
+def kdtree_intersect_tris(kd: KdTree, o, d, tmax, any_hit=False):
+    """Closest triangle hit through the kd walk: (t, tri index, hit); with
+    ``any_hit`` the first hit the walk meets (only ``hit`` is the closest
+    hit's)."""
+    t, i = kd_ops.kd_traverse(kd, o, d, tmax, any_hit)
     return t, i, i >= 0
 
 
@@ -237,7 +243,21 @@ def intersect_kd(scene, o, d, tmax, surface_only=False):
 
 
 def intersect_p_kd(scene, o, d, tmax):
-    """Any-hit (shadow) query: the closest hit's validity, as pbrt_tpu's
-    ``intersect_p_kd``."""
+    """Any-hit (shadow) query: pbrt_tpu's ``intersect_p_kd``, the closest
+    hit's validity, which is whether any triangle, sphere, aaplane or disk
+    is hit below tmax. The walk stops at its first triangle hit; the
+    spheres and aaplanes through the brute-force kernel and the disks are
+    then tested below the walk's t (tmax itself where it missed)."""
+    from pbrt_tpu_torch.scene import bvh as bvh_mod
+    from pbrt_tpu_torch.scene import intersect as isect_mod
+
     with torch.no_grad():
-        return _closest(scene, o, d, tmax)[1] >= 0
+        o_q, d_q, tmax_q = bvh_mod._query_args(o, d, tmax)
+        best_t = torch.clamp_max(tmax_q, ik.BIG)
+        t, _, occ = kdtree_intersect_tris(scene.bvh, o_q, d_q, best_t,
+                                          any_hit=True)
+        if scene.n_sph or scene.n_pln:
+            occ = occ | (bvh_mod._brute_families(scene, o_q, d_q, t)[1] >= 0)
+        if scene.n_dsk:
+            occ = occ | isect_mod.any_disk(scene, o_q, d_q, t)
+    return occ

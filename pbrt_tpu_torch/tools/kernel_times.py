@@ -3,11 +3,11 @@ experiment kernel at the shapes their callers give them, through their
 public wrappers only, so that the same script times another checkout of
 the port (an earlier commit) on the same card:
 
-    python pbrt_tpu_torch/tools/kernel_times.py [render] [kexp]   # this one
+    python pbrt_tpu_torch/tools/kernel_times.py [render] [kexp] [kd]
     PYTHONPATH=<other checkout> python pbrt_tpu_torch/tools/kernel_times.py
 
 (run as a file, the script imports ``pbrt_tpu_torch`` from PYTHONPATH
-first; with no argument it times both groups). ``render``: the fused
+first; with no argument it times ``render`` and ``kexp``). ``render``: the fused
 kernel on ``_portal_scene`` (2,097,152 lanes, max_depth 4); the
 brute-force kernel on 2,097,152 camera rays against the portal-strategy
 portal, ``_sphere_cornell`` and a 4,001-primitive table, and at the call
@@ -17,12 +17,22 @@ inputs (``kexp_prep.prep``) for the 133,130-triangle heightfield tree and
 the 100,000-triangle soup, 2,097,152 rays per set (primary, random,
 sorted, bounce closest hit, shadow any-hit), through the wide-BVH kernel
 (``kexp_kernels.traverse``) in the configurations of KEXP_CONFIGS, and
-through the render path's 4-wide kernel beside them. Prints one JSON
-line: the package's path, the card and the mean ms of each launch by CUDA
-events (and, where the package records it, the threads per block of each
-staged launch). Needs a CUDA device.
+through the render path's 4-wide kernel beside them. ``kd``: the kd
+cell (``_heightfield_cornell()``'s triangles in a kd-tree, a 256² ×
+32-spp `path` pass at max_depth 4): the camera, shadow and bounce rays
+of its walks 0, 1 and 3, recorded from the pass, and the occlusion rays
+of an `ao` pass of the cell at the integrator's default radius, through
+the kd walk's public wrapper (each set through the walk its pass gives
+it: the occlusion rays through the any-hit walk where the package has
+one, and also through the closest-hit walk), and through the render
+path's 4-wide kernel on the scene's BVH, and the two passes. Prints one JSON
+line: the package's path, the card and the mean ms of each launch by
+CUDA events (and, where the package records it, the threads per block of
+each staged launch). Needs a CUDA device.
 """
 
+import dataclasses
+import inspect
 import json
 import math
 import subprocess
@@ -36,7 +46,9 @@ from pbrt_tpu_torch.integrators import render as render_mod
 from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
+from pbrt_tpu_torch.ops import kdtree as kd_ops
 from pbrt_tpu_torch.scene import film as film_mod
+from pbrt_tpu_torch.scene import kdtree as kd_mod
 from pbrt_tpu_torch.scene.types import SceneBuilder
 from pbrt_tpu_torch.tools import kexp_kernels as kk
 from pbrt_tpu_torch.tools import kexp_prep, kexp_run
@@ -117,6 +129,65 @@ def kexp_times(dev):
     return ms, threads
 
 
+def kd_times(dev):
+    """{set: {label: ms}} of the kd walk (and kernel 3) on the kd cell's
+    camera, shadow and bounce rays (walks 0, 1 and 3 of its `path` pass)
+    and on the occlusion rays of an `ao` pass (the default radius) of the
+    same cell; {"pass": {name: ms}} of the
+    two passes."""
+    b = SceneBuilder()
+    entry._fill_heightfield_cornell(b)
+    scene = b.build(dev, use_bvh="never")
+    kd = kd_mod.build_kdtree(scene)
+    hf = b.build(dev)
+    walk = kd_ops.kd_traverse
+
+    cam = entry._camera((RES, RES), dev)
+    filt = film_mod.make_filter("box", device=dev)
+    scene_kd = dataclasses.replace(scene, bvh=kd)
+
+    def walks_of(cfg):
+        calls = []
+
+        def record(kd_, o, d, tmax, *args, **kw):
+            calls.append((o.clone(), d.clone(), tmax.clone()))
+            return walk(kd_, o, d, tmax, *args, **kw)
+        # a wrapper that counts its launches on its module's name finds
+        # them
+        record.launches = record.any_hit_launches = 0
+        kd_ops.kd_traverse = record
+        try:
+            render_mod.render_pass(scene_kd, cam, filt, cfg, RES, RES, SPP,
+                                   0, dev)
+            torch.cuda.synchronize()
+        finally:
+            kd_ops.kd_traverse = walk
+        return calls
+    cfg_path = render_mod.RenderConfig(integrator="path", max_depth=MAX_DEPTH)
+    cfg_ao = render_mod.RenderConfig(integrator="ao")
+    path, ao = walks_of(cfg_path), walks_of(cfg_ao)
+    has_any = "any_hit" in inspect.signature(walk).parameters
+    ms = {}
+    for name, rays, any_hit in (("camera", path[0], False),
+                                ("shadow", path[1], False),
+                                ("bounce", path[3], False),
+                                ("ao", ao[1], True)):
+        o, d, tmax = rays
+        row = ms[name] = {}
+        if any_hit and has_any:
+            row["walk"] = ms_of(lambda: walk(kd, o, d, tmax, any_hit=True))
+            row["walk_closest"] = ms_of(lambda: walk(kd, o, d, tmax))
+        else:
+            row["walk"] = ms_of(lambda: walk(kd, o, d, tmax))
+        row["kernel3"] = ms_of(lambda: bk.bvh_traverse(hf.bvh, o, d, tmax,
+                                                       any_hit))
+    # the two passes themselves
+    ms["pass"] = {name: ms_of(lambda: render_mod.render_pass(
+        scene_kd, cam, filt, cfg, RES, RES, SPP, 0, dev), 3)
+        for name, cfg in (("path", cfg_path), ("ao", cfg_ao))}
+    return ms
+
+
 def main(groups=("render", "kexp")):
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times.py needs a CUDA device")
@@ -130,6 +201,9 @@ def main(groups=("render", "kexp")):
                            for t, rows in kms.items()}
     if "render" in groups:
         out = render_times(dev)
+    if "kd" in groups:
+        line["kd_ms"] = {k: {lab: round(v, 4) for lab, v in row.items()}
+                         for k, row in kd_times(dev).items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()

@@ -6,7 +6,9 @@ pbrt_tpu.
     pbrt_tpu's ``build_kdtree`` array for array (split_pos, axis,
     above_child, n_prims, prim_ids, the world box) and in ``max_leaf``,
     on tests/test_bvh_io.py's ``random_tri_scene(300, seed=5)`` and on a
-    seeded 4,050-triangle heightfield; ``bridge.bvh_from_jax`` carries
+    seeded 4,050-triangle heightfield; the kernel's 8-byte nodes and
+    leaf-ordered triangle records hold those arrays and the vertices,
+    node for node and record for record; ``bridge.bvh_from_jax`` carries
     pbrt_tpu's tree over to the same arrays and the same kernel layout.
 (b) The walk: the twin of csrc/kd_traverse.cu
     (``ops/kdtree.py::traverse_reference``) against pbrt_tpu's
@@ -15,10 +17,15 @@ pbrt_tpu.
     within rtol 1e-5 (XLA may contract the leaf test's multiply-adds);
     against the port's brute-force twin on the same triangles, prim
     equal and the hits' t bit for bit (the same test in the same order).
+    The any-hit twin's boolean equals the closest-hit twin's ``prim >=
+    0`` and pbrt_tpu's ``intersect_p_kd`` on rays with finite and
+    infinite ``tmax``.
 (c) Scenes: a file with ``Accelerator "kdtree"`` over a 722-triangle
     heightfield, two spheres, an aaplane light and a disk through the
-    port's ``intersect`` (every Hit field) and a `path` pass against
-    pbrt_tpu's; any-hit is closest-hit's ``valid``, as in pbrt_tpu.
+    port's ``intersect`` (every Hit field), ``intersect_p`` (the any-hit
+    walk, then the other families; pbrt_tpu's answer, the closest hit's
+    ``valid``, also below finite ``tmax``) and a `path` pass against
+    pbrt_tpu's.
 (d) The brute-force path past 4,096 primitives: a 5,000-triangle scene
     with spheres and an aaplane, ``use_bvh="never"``, through the port's
     ``intersect`` against pbrt_tpu's ``_intersect_brute`` (pbrt_tpu's
@@ -131,12 +138,25 @@ def test_build_equals_jax(trees, name):
         assert got.dtype == want.dtype, k
         np.testing.assert_array_equal(got, want, err_msg=k)
     assert tk.max_leaf == jk.max_leaf
-    assert 0 < tk.depth < kops.STACK_DEPTH
-    # the kernel's layout: nodes hold the arrays, rows v0, e1, e2
-    np.testing.assert_array_equal(tk.nodes[:, 0].view(torch.float32),
-                                  tk.split_pos)
-    np.testing.assert_array_equal(tk.nodes[:, 3], tk.n_prims)
-    np.testing.assert_array_equal(tk.tris[:, 3:6], tk.v1 - tk.v0)
+    assert 0 < tk.depth < kops.MAX_DEPTH
+    # the kernel's layout: every 8-byte node holds its arrays, every
+    # leaf-ordered record v0, e1, e2 and the index of its prim_ids entry
+    leaf = tk.axis == kops.LEAF
+    x, y = tk.nodes[:, 0], tk.nodes[:, 1]
+    assert tk.nodes.shape == (tk.axis.shape[0], 2)
+    assert torch.equal(y & 3, torch.where(leaf, kops.LEAF, tk.axis))
+    assert torch.equal(y >> 2, torch.where(leaf, tk.n_prims,
+                                           tk.above_child))
+    assert torch.equal(x[leaf], tk.above_child[leaf])
+    assert torch.equal(x[~leaf], tk.split_pos[~leaf].view(torch.int32))
+    assert bool((tk.n_prims[~leaf] == 0).all())
+    ids = tk.prim_ids.long()
+    assert tk.tris.shape == (ids.shape[0], 12)
+    assert torch.equal(tk.tris[:, 9].view(torch.int32), tk.prim_ids)
+    assert torch.equal(tk.tris[:, 0:3], tk.v0[ids])
+    assert torch.equal(tk.tris[:, 3:6], tk.v1[ids] - tk.v0[ids])
+    assert torch.equal(tk.tris[:, 6:9], tk.v2[ids] - tk.v0[ids])
+    assert not tk.tris[:, 10:].any()
 
 
 @pytest.mark.parametrize("name", sorted(FILLS))
@@ -166,6 +186,53 @@ def test_walk_twin_matches_jax(trees, name):
     np.testing.assert_array_equal(t_t[h_j], t_b.numpy()[h_j])
 
 
+def _rows(tk, prim):
+    """Triangle rows v0, e1, e2 of the scene's triangles ``prim``."""
+    v0 = tk.v0[prim]
+    return torch.cat([v0, tk.v1[prim] - v0, tk.v2[prim] - v0], -1)
+
+
+@pytest.mark.parametrize("name", sorted(FILLS))
+def test_any_hit_twin_matches_closest_and_jax(trees, name):
+    """The any-hit twin (the walk that ends at its first hit) on rays
+    with finite and infinite tmax: its boolean equals the closest-hit
+    twin's ``prim >= 0`` and pbrt_tpu's ``intersect_p_kd``; its hit is a
+    hit of its triangle below tmax, no nearer than the closest; it tests
+    fewer triangles; the CPU wrapper is the twin."""
+    js, jk, ts, tk = trees[name]
+    o, d = _rays(2000, 16, aim=4.0)
+    if name.startswith("height"):
+        o[:, 1] = np.abs(o[:, 1]) + 1.0
+        d[:, 1] = -np.abs(d[:, 1])
+    tmax = np.random.RandomState(17).uniform(0.5, 14.0, len(o)).astype(
+        np.float32)
+    tmax[::3] = np.inf
+    occ_j = np.asarray(jkd.intersect_p_kd(
+        dataclasses.replace(js, bvh=jk), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(tmax)))
+    args = [torch.as_tensor(x) for x in (o, d, tmax)]
+    t_c, i_c, n_c = kops.traverse_reference(tk, *args, counts=True)
+    t_a, i_a, n_a = kops.traverse_reference(tk, *args, any_hit=True,
+                                            counts=True)
+    hit = i_c >= 0
+    inf = torch.isinf(args[2])
+    assert 0.05 < float(hit.float().mean()) < 0.9
+    assert bool((hit & inf).any() and (hit & ~inf).any())
+    assert torch.equal(i_a >= 0, hit)
+    np.testing.assert_array_equal(hit.numpy(), occ_j)
+    assert torch.equal(t_a[~hit], args[2][~hit])
+    assert bool((t_a[hit] >= t_c[hit]).all() and (t_a[hit] < args[2][hit])
+                .all())
+    t_r, h_r = ik.ray_tri_reference(args[0][hit], args[1][hit],
+                                    _rows(tk, i_a[hit].long()),
+                                    args[2][hit])
+    assert bool(h_r.all()) and torch.equal(t_r, t_a[hit])
+    assert n_a["tri_tests"] < n_c["tri_tests"]
+    assert n_a["node_steps"] < n_c["node_steps"]
+    t_w, i_w = kops.kd_traverse(tk, *(a[:64] for a in args), any_hit=True)
+    assert torch.equal(t_w, t_a[:64]) and torch.equal(i_w, i_a[:64])
+
+
 def test_bridge_carries_a_kdtree(trees):
     _, jk, _, tk = trees["heightfield4050"]
     bk = bridge.bvh_from_jax(jk)
@@ -181,15 +248,22 @@ def test_walk_dispatch_and_bounds(trees):
     kernel's stack is refused before a launch."""
     _, _, _, tk = trees["soup300"]
     o, d = _rays(64, 2)
-    before = kops.kd_traverse.launches
+    before = (kops.kd_traverse.launches, kops.kd_traverse.any_hit_launches)
     t, i = kops.kd_traverse(tk, torch.as_tensor(o), torch.as_tensor(d),
                             torch.full((64,), np.inf))
-    assert kops.kd_traverse.launches == before
+    assert kops.kd_traverse.launches == before[0]
     assert t.dtype == torch.float32 and i.dtype == torch.int32
     meta = torch.zeros(4, 3, device="meta")
     with pytest.raises(NotImplementedError):
         kops.kd_traverse(tk, meta, meta, meta[:, 0])
-    assert tk.depth + 1 <= kops.STACK_DEPTH
+    t, i = kops.kd_traverse(tk, torch.as_tensor(o), torch.as_tensor(d),
+                            torch.full((64,), np.inf), any_hit=True)
+    assert (kops.kd_traverse.launches,
+            kops.kd_traverse.any_hit_launches) == before
+    # the kernel's stack holds this tree's far children, none past 64 levels
+    kops.check_depth(dataclasses.replace(tk, depth=kops.MAX_DEPTH))
+    with pytest.raises(ValueError):
+        kops.check_depth(dataclasses.replace(tk, depth=kops.MAX_DEPTH + 1))
 
 
 KD_FILE = """LookAt 0 3 -6  0 0.4 0  0 1 0
@@ -280,6 +354,35 @@ def test_kd_scene_queries_match_jax(kd_file):
     np.testing.assert_array_equal(occ.numpy(), hit)
     np.testing.assert_array_equal(np.asarray(jisect.intersect_p(
         js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))), hit)
+
+
+def test_kd_scene_any_hit_matches_jax(kd_file):
+    """``intersect_p`` on the kd file below finite tmax (a third
+    infinite, the rest around the closest hit's t, so that the segment
+    ends before or after it): the port's any-hit walk, then the spheres,
+    the aaplane and the disk, against pbrt_tpu's ``intersect_p_kd``
+    (the closest hit's ``valid``); some segments are blocked by a sphere
+    or the disk and by no triangle."""
+    js, _, _, ts, _, _ = kd_file
+    o, d = _rays(3000, 18, -3.0, 3.0)
+    o[:, 1] = np.abs(o[:, 1]) + 1.5
+    d[:, 1] = -np.abs(d[:, 1])
+    big = torch.full((len(o),), 1e30)
+    t_hit = tisect.intersect(ts, torch.as_tensor(o), torch.as_tensor(d),
+                             big).t.numpy()
+    rs = np.random.RandomState(19)
+    tmax = (np.minimum(t_hit, 20.0) * rs.uniform(0.6, 1.4, len(o))).astype(
+        np.float32)
+    tmax[::3] = np.inf
+    want = np.asarray(jisect.intersect_p(js, jnp.asarray(o), jnp.asarray(d),
+                                         jnp.asarray(tmax)))
+    args = [torch.as_tensor(x) for x in (o, d, tmax)]
+    got = tisect.intersect_p(ts, *args)
+    assert 0.1 < want.mean() < 0.9
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, walk_hit, _ = tkd.kdtree_intersect_tris(
+        ts.bvh, *args[:2], torch.clamp_max(args[2], ik.BIG), any_hit=True)
+    assert bool((got & ~walk_hit).any() and walk_hit.any())
 
 
 def test_kd_scene_pass_matches_jax(kd_file):

@@ -102,6 +102,21 @@ def scenes():
     return {"two_lights": _both(fill_two_lights), "area": _both(fill_area)}
 
 
+@pytest.fixture(scope="module")
+def spatial(scenes):
+    """Each scene's spatial table in each package, built once: name ->
+    (pbrt_tpu's, the port's)."""
+    tables = {}
+
+    def get(name):
+        if name not in tables:
+            js, ts = scenes[name]
+            tables[name] = (jld.build_spatial_distribution(js),
+                            tld.build_spatial_distribution(ts))
+        return tables[name]
+    return get
+
+
 # ---------------------------------------------------------------------------
 # the spatial strategy
 # ---------------------------------------------------------------------------
@@ -122,15 +137,14 @@ def _rows_off(ts, got, want):
 
 
 @pytest.mark.parametrize("name", ["two_lights", "area"])
-def test_spatial_tables_match_pbrt_tpu(scenes, name):
+def test_spatial_tables_match_pbrt_tpu(scenes, spatial, name):
     """func, cdf and func_int of every voxel to rel 1e-6, but for the
     rows where a sphere light's entry is off by XLA's contracted cone
     (found: 6 of 4,096 rows on the area scene, by up to 1.9e-6), which
     hold rtol 2e-5, the bound of tests/test_torch_intersect.py's sphere
     hits."""
-    js, ts = scenes[name]
-    want = jld.build_spatial_distribution(js)
-    got = tld.build_spatial_distribution(ts)
+    _, ts = scenes[name]
+    want, got = spatial(name)
     assert tuple(np.asarray(want.res)) == got.res
     off = _rows_off(ts, got.func.numpy(), np.asarray(want.func))
     assert off.mean() <= 0.01, f"{off.sum()} rows"
@@ -147,7 +161,7 @@ def test_spatial_tables_match_pbrt_tpu(scenes, name):
 
 
 @pytest.mark.parametrize("name", ["two_lights", "area"])
-def test_sample_spatial_matches_pbrt_tpu(scenes, name):
+def test_sample_spatial_matches_pbrt_tpu(scenes, spatial, name):
     """Seeded points inside and outside the bounds, seeded u."""
     js, ts = scenes[name]
     rng = np.random.default_rng(11)
@@ -155,8 +169,7 @@ def test_sample_spatial_matches_pbrt_tpu(scenes, name):
     p = (lo + (hi - lo) * rng.uniform(-0.1, 1.1, (8192, 3))).astype(
         np.float32)
     u = rng.random(8192).astype(np.float32)
-    jd, td = jld.build_spatial_distribution(js), \
-        tld.build_spatial_distribution(ts)
+    jd, td = spatial(name)
     iw, pw = jld.sample_spatial(jd, js, jnp.asarray(p), jnp.asarray(u))
     ig, pg = tld.sample_spatial(td, ts, torch.as_tensor(p),
                                 torch.as_tensor(u))
@@ -178,33 +191,36 @@ def _check_pass(got, want, name):
 
 
 @pytest.mark.parametrize("integrator", ["path", "volpath"])
-def test_pass_under_spatial_matches_pbrt_tpu(scenes, integrator):
+def test_pass_under_spatial_matches_pbrt_tpu(scenes, spatial, integrator):
     """A 16² × 4-spp pass of the area scene with the spatial strategy,
     each package with its own table; `volpath` in a homogeneous camera
     medium."""
     js, _ = scenes["area"]
+    jd, td = spatial("area")
     if integrator == "volpath":
         js = dataclasses.replace(js, media=(jmedia.make_homogeneous(
             (0.05, 0.06, 0.07), (0.2, 0.2, 0.2), 0.3),), camera_med=0)
+        jd = jld.build_spatial_distribution(js)
     ts = bridge.scene_from_jax(js)
+    if integrator == "volpath":
+        td = tld.build_spatial_distribution(ts)
     cfg = dict(integrator=integrator, max_depth=5, seed=2,
                light_strategy="spatial")
     jc = area_camera()
     want = np.asarray(jrender.render_pass(
         js, jc, jfilm.make_filter("box"), jrender.RenderConfig(**cfg), RES,
-        RES, SPP, jnp.asarray(0, jnp.uint32),
-        jld.build_spatial_distribution(js)))
+        RES, SPP, jnp.asarray(0, jnp.uint32), jd))
     got = trender.render_pass(
         ts, bridge.camera_from_jax(jc), tfilm.make_filter("box"),
         trender.RenderConfig(**cfg), RES, RES, SPP, 0, "cpu",
-        power_distr=tld.build_spatial_distribution(ts)).numpy()
+        power_distr=td).numpy()
     _check_pass(got, want, integrator)
 
 
-def test_voxels_prefer_their_light(scenes):
+def test_voxels_prefer_their_light(scenes, spatial):
     """tests/test_lightdistrib.py: points beside a light choose it."""
     _, ts = scenes["two_lights"]
-    d = tld.build_spatial_distribution(ts)
+    _, d = spatial("two_lights")
     u = trng.uniform(torch.arange(1000), 0, 0)
     for x, want in ((-8.0, 0), (8.0, 1)):
         p = torch.tensor([[x, 0.1, 0.0]]).expand(1000, 3)
