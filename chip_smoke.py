@@ -288,6 +288,27 @@ Run from the root of a checkout, with no arguments:
    rtol 2e-3, atol 1e-6), dryrun_multichip(1). (d) A render stopped after
    one pass and resumed equals the uninterrupted one; bsdftest on the
    card; imgtool makesky against tests/oracle/sky_ref.pfm.
+23. The renderer's statistics (``RenderConfig.collect_stats``: the
+   per-bounce counts of live lanes, which send the `path` pass through
+   the wavefront loop, every closest hit on the brute-force kernel). (a)
+   bench.py's own stats call (the portal scene at 256² × 1 spp, seed 0,
+   max_depth 4, 65,536 lanes): its counts against pbrt_tpu's on the CPU
+   (REF_LIVE_COUNTS), equal but for at most 7 lanes a bounce, each
+   difference printed with the CPU twins' counts and the lanes whose
+   radiance the card and the CPU disagree on. (b) The main path at full
+   width with the stats (256² × 64 spp, two 2,097,152-lane passes through
+   ``render_pass``): kernel 2's launches by the wrapper (the loop's
+   static count), none of kernel 1 and no query on the CPU; every lane's
+   radiance against the fused kernel's on the same lanes with phase 6's
+   limits, the counts pass by pass against ``fused_path.live_mask`` of the
+   fused launch's residual codes (at most 6e-3 of the lanes off), the
+   render's ``live_per_bounce`` and ``dead_lane_frac``, the stats pass's
+   time beside the fused pass's (CUDA events). (c)
+   ``utils.stats.device_trace`` around one 1-spp stats pass writes a
+   Chrome trace: its size and kernel records printed, nothing held on
+   them. (d) ``entry.entry()`` on the card: one fused launch, the image
+   mean against pbrt_tpu's ``__graft_entry__.entry()`` on the CPU
+   (REF_ENTRY_MEAN) to rel 1e-3.
    Then prints a JSON line of the kernels (with each kernel's roofline
    bound computed from this run's inputs, the scene files' numbers
    under "scene_files" and the hero phase's under "hero") and {"ok": true,
@@ -353,6 +374,13 @@ MAX_DEPTH = 4
 # rounds the camera's float32 3×3 product to bf16.
 REF_IMAGE_MEAN = 0.11957985907793045
 TPU_IMAGE_MEAN = 0.11655332893133163
+# pbrt_tpu's live-lane counts of bench.py's stats call (render_pass with
+# collect_stats on the portal scene, 256² × 1 spp, seed 0, max_depth 4)
+# and the mean of __graft_entry__.entry()'s image (32² × 2 spp, the film's
+# sum), on the CPU backend: ``PYTHONPATH=. python tests/test_torch_stats.py``
+REF_LIVE_COUNTS = [65536, 62248, 45553, 36573, 29650]
+REF_ENTRY_MEAN = 0.18277400063415797
+LIVE_TIE_LANES = 7        # lanes a bounce that a float seam tie may flip
 # pbrt_tpu's float32 image means on the CPU backend for the generic loop's
 # renders below (max_depth 4, independent sampler, box filter), printed by
 # ``PYTHONPATH=. python tests/test_torch_li_loop.py``: scene, integrator,
@@ -4266,6 +4294,227 @@ def kd_sharded_tools(dev):
     return out
 
 
+@contextlib.contextmanager
+def recording_stats_path():
+    """Record, per call, the wavefront loop's (L, live) and the fused
+    path's L (``li_path``'s two branches) and count the brute-force
+    twin's calls; the kernels' wrappers still count their launches."""
+    rec = {"loop": [], "fused": [], "twin_calls": 0}
+    loop, fused, twin = (render_mod._li_loop, fp.li_path_fused,
+                         ik._intersect_reference)
+
+    def record_loop(*args, **kw):
+        out = loop(*args, **kw)
+        rec["loop"].append(out)
+        return out
+
+    def record_fused(*args, **kw):
+        out = fused(*args, **kw)
+        rec["fused"].append(out)
+        return out
+
+    def count_twin(*args, **kw):
+        rec["twin_calls"] += 1
+        return twin(*args, **kw)
+    render_mod._li_loop, fp.li_path_fused = record_loop, record_fused
+    ik._intersect_reference = count_twin
+    try:
+        yield rec
+    finally:
+        render_mod._li_loop, fp.li_path_fused = loop, fused
+        ik._intersect_reference = twin
+
+
+def stats_bench_call(dev, scene, filt, card):
+    """Phase 23 (a): bench.py's stats call against pbrt_tpu's counts."""
+    cfg = render_mod.RenderConfig(max_depth=MAX_DEPTH, collect_stats=True)
+    cam = entry._camera((W, H), dev)
+    with recording_stats_path() as rec:
+        img, live = render_mod.render_pass(scene, cam, filt, cfg, W, H, 1, 0,
+                                           dev)
+    torch.cuda.synchronize()
+    counts = [int(v) for v in live.cpu()]
+    diff = [c - r for c, r in zip(counts, REF_LIVE_COUNTS)]
+    print(f"phase 23 (a) bench.py's stats call, {W}² × 1 spp ({card}): live "
+          f"counts {counts} vs pbrt_tpu {REF_LIVE_COUNTS}, differences "
+          f"{diff}; dead_lane_frac "
+          f"{1.0 - sum(counts) / (len(counts) * W * H):.4f}")
+    check(live.dtype == torch.float32 and live.device.type == "cuda",
+          f"live counts {live.dtype} on {live.device}")
+    check(rec["twin_calls"] == 0 and not rec["fused"],
+          "the stats call left the card or took the fused kernel")
+    out = {"live": counts, "ref": REF_LIVE_COUNTS, "diff": diff}
+    if any(diff):
+        # the same lanes on the CPU twins: the card's differences are
+        # seam ties if the twins give pbrt_tpu's counts and the card's
+        # lanes differ from theirs in no more lanes than a bounce's count
+        scene_c = to_device(scene, "cpu")
+        cam_c = entry._camera((W, H), "cpu")
+        filt_c = film_mod.make_filter("box", device="cpu")
+        with recording_stats_path() as rec_c:
+            _, live_c = render_mod.render_pass(scene_c, cam_c, filt_c, cfg, W,
+                                               H, 1, 0, "cpu")
+        L_g, L_c = rec["loop"][0][0].cpu(), rec_c["loop"][0][0]
+        lanes_off = torch.nonzero(
+            (L_g - L_c).abs().amax(-1) > 1e-4).flatten().tolist()
+        out.update(cpu_live=[int(v) for v in live_c], lanes_off=lanes_off)
+        print(f"phase 23 (a): CPU twins' counts {out['cpu_live']}; lanes "
+              f"whose radiance differs from the CPU's: {lanes_off}")
+        check(out["cpu_live"] == REF_LIVE_COUNTS,
+              "the CPU twins' counts differ from pbrt_tpu's")
+        check(max(abs(v) for v in diff) <= min(LIVE_TIE_LANES,
+                                                 len(lanes_off)),
+              f"live counts off by {diff}")
+    check(math.isfinite(float(img.sum())), "non-finite stats image")
+    return out
+
+
+def stats_full_width(dev, scene, filt, card):
+    """Phase 23 (b): the main path at full width with the stats."""
+    cam = entry._camera((W, H), dev)
+    cfg = render_mod.RenderConfig(max_depth=MAX_DEPTH)
+    cfg_s = dataclasses.replace(cfg, collect_stats=True)
+    n_pass = SPP // CHUNK
+    want = n_pass * _loop_queries(scene, MAX_DEPTH)
+    torch.cuda.synchronize()
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    bk.bvh_traverse.launches = 0
+    kd_ops.kd_traverse.launches = 0
+    with recording_stats_path() as rec:
+        stats = [render_mod.render_pass(scene, cam, filt, cfg_s, W, H, CHUNK,
+                                        k * CHUNK, dev)
+                 for k in range(n_pass)]
+        torch.cuda.synchronize()
+    n_k, n_i = fp.fused_bounce.launches, ik.intersect_brute.launches
+    n_t = bk.bvh_traverse.launches + kd_ops.kd_traverse.launches
+    print(f"phase 23 (b) stats render {W}² × {SPP} spp: {n_i} intersect "
+          f"launches (the loop's {want}), {n_k} fused, {n_t} traversal, "
+          f"{rec['twin_calls']} queries on the CPU")
+    check(n_k == 0 and n_t == 0, "the stats render left the wavefront loop")
+    check(n_i == want, f"{n_i} intersect launches, the loop implies {want}")
+    check(rec["twin_calls"] == 0, "a query of the stats render ran on the CPU")
+    check(len(rec["loop"]) == n_pass, "the passes did not run the loop")
+    with recording_fused() as calls, recording_stats_path() as rec_f:
+        fused = [render_mod.render_pass(scene, cam, filt, cfg, W, H, CHUNK,
+                                        k * CHUNK, dev)
+                 for k in range(n_pass)]
+        torch.cuda.synchronize()
+    check(len(calls) == n_pass and not rec_f["loop"],
+          "the fused render did not launch the kernel once a pass")
+    R = W * H * CHUNK
+    live_per_pass, bad_total, worst, off_lanes = [], 0, 0.0, []
+    for k in range(n_pass):
+        L_s, live = rec["loop"][k]
+        L_f = rec_f["fused"][k]
+        check(L_s.shape == L_f.shape == (R, 3), "lane counts")
+        d = (L_s - L_f).abs()
+        bad = d.amax(-1) > 1e-4
+        bad_total += int(bad.sum())
+        worst = max(worst, float(d.max()))
+        torch.testing.assert_close(L_s[~bad], L_f[~bad], atol=1.1e-4,
+                                   rtol=0)
+        live_f = fp.live_mask(calls[k][2][0]).sum(-1).to(torch.float32)
+        off = (live - live_f).abs()
+        off_lanes.append([int(v) for v in off.cpu()])
+        live_per_pass.append([int(v) for v in live.cpu()])
+        check(float(off.max()) <= 6e-3 * R,
+              f"pass {k}: live counts off the fused residuals' by "
+              f"{off_lanes[-1]}")
+        check(math.isfinite(float(stats[k][0].sum())), "non-finite image")
+    img_s = sum(img for img, _ in stats) / SPP
+    img_f = sum(fused) / SPP
+    rel = abs(float(img_s.mean() - img_f.mean())) / float(img_f.mean())
+    check(bad_total <= 6e-3 * R * n_pass, f"{bad_total} lanes off the fused")
+    check(rel < 0.01, f"image means differ by rel {rel}")
+    live_tot = [sum(col) for col in zip(*live_per_pass)]
+    live_per_bounce = [v / (W * H * SPP) for v in live_tot]
+    dead = 1.0 - sum(live_per_bounce) / len(live_per_bounce)
+    # each pass once more, timed in turns (stats, fused, fused, stats)
+    ms = {}
+    for key in ("stats", "fused", "fused", "stats"):
+        c = cfg_s if key == "stats" else cfg
+        ms[key] = ms.get(key, 0.0) + sync_ms(
+            lambda: render_mod.render_pass(scene, cam, filt, c, W, H, CHUNK,
+                                           0, dev), 3) / 2
+    out = {"launches": n_i, "loop_queries": want, "live_per_pass":
+           live_per_pass, "off_fused_live": off_lanes,
+           "lanes_off_fused": bad_total, "max_abs_err": worst,
+           "mean_rel": rel, "live_per_bounce": live_per_bounce,
+           "dead_lane_frac": dead, "pass_ms": {k: round(v, 4)
+                                               for k, v in ms.items()},
+           "image_mean": float(img_s.double().mean())}
+    print(f"phase 23 (b) ({card}): live_per_bounce "
+          f"{[round(v, 4) for v in live_per_bounce]}, dead_lane_frac "
+          f"{dead:.4f}; lanes off the fused kernel {bad_total} of "
+          f"{R * n_pass} (max {worst:.3g}), means rel {rel:.3g}; counts "
+          f"off the fused residuals' {off_lanes}; a 32-spp pass "
+          f"{out['pass_ms']['stats']} ms with the stats vs "
+          f"{out['pass_ms']['fused']} ms fused (CUDA events)")
+    return out
+
+
+def stats_trace(dev, scene, filt):
+    """Phase 23 (c): a device trace of one 1-spp stats pass."""
+    from pbrt_tpu_torch.utils import stats as stats_mod
+    cfg = render_mod.RenderConfig(max_depth=MAX_DEPTH, collect_stats=True)
+    cam = entry._camera((W, H), dev)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with stats_mod.device_trace(log_dir) as prof:
+            render_mod.render_pass(scene, cam, filt, cfg, W, H, 1, 0, dev)
+            torch.cuda.synchronize()
+        size = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+    n_kernel = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"phase 23 (c) device_trace: {size} bytes, {len(events)} events, "
+          f"{n_kernel} kernel records")
+    check(size > 0 and events, "empty trace")
+    return {"bytes": size, "events": len(events), "kernel_records": n_kernel}
+
+
+def stats_entry(dev):
+    """Phase 23 (d): entry() on the card."""
+    fn, args = entry.entry()
+    torch.cuda.synchronize()
+    fp.fused_bounce.launches = 0
+    ik.intersect_brute.launches = 0
+    img = fn(*args)
+    torch.cuda.synchronize()
+    n_k, n_i = fp.fused_bounce.launches, ik.intersect_brute.launches
+    mean = float(img.double().mean())
+    rel = abs(mean - REF_ENTRY_MEAN) / REF_ENTRY_MEAN
+    print(f"phase 23 (d) entry(): {tuple(img.shape)} on {img.device}, mean "
+          f"{mean!r} vs pbrt_tpu {REF_ENTRY_MEAN!r} (rel {rel:.3g}), {n_k} "
+          f"fused and {n_i} intersect launches")
+    check(img.shape == (32, 32, 3) and img.device.type == "cuda",
+          "entry()'s image")
+    check(n_k == 1 and n_i == 0, "entry() did not launch the kernel once")
+    check(rel < 1e-3, f"entry() mean off by rel {rel}")
+    return {"launches": n_k, "mean": mean, "rel": rel}
+
+
+def stats_phase(dev):
+    """Phase 23 (see the module's docstring)."""
+    card = card_line()
+    scene = entry._portal_scene(dev)
+    filt = film_mod.make_filter("box", device=dev)
+    out, secs = {"card": card}, {}
+    for key, fn in (("bench_call",
+                     lambda: stats_bench_call(dev, scene, filt, card)),
+                    ("full_width",
+                     lambda: stats_full_width(dev, scene, filt, card)),
+                    ("trace", lambda: stats_trace(dev, scene, filt)),
+                    ("entry", lambda: stats_entry(dev))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    print("phase 23 seconds by item: " + json.dumps(secs))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -4912,6 +5161,12 @@ def main():
     print(f"kd-tree, sharded path, checkpoint and tools phase "
           f"{p22['phase_s']:.1f} s")
 
+    # ---- 23. the renderer's statistics: live lanes per bounce
+    t0 = time.perf_counter()
+    p23 = stats_phase(dev)
+    p23["phase_s"] = time.perf_counter() - t0
+    print(f"stats phase {p23['phase_s']:.1f} s")
+
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
@@ -4933,7 +5188,9 @@ def main():
         # phase 22: render_sharded and the training steps at world size 1
         # over NCCL (launches a render and a step, ms a step)
         "sharded_path": {k: p22["sharded"][k] for k in (
-            "render_sharded", "train")}}, {
+            "render_sharded", "train")},
+        # phase 23 (d): entry()'s forward step on the card
+        "entry_launches": p23["entry"]["launches"]}, {
         "name": "intersect", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/intersect.cu",
         "replaces": "pbrt_tpu/ops/intersect_pallas.py:34",
@@ -4981,7 +5238,13 @@ def main():
         "past_4096": {k: p22["brute_past_4096"][k] for k in (
             "primitives", "launches", "max_abs_err",
             "render_pass_cuda_ms")},
-        "kd_path_query_ms": p22["kd"]["kernel2_ms"]}, {
+        "kd_path_query_ms": p22["kd"]["kernel2_ms"],
+        # phase 23: the main path's 64-spp render with collect_stats (the
+        # wavefront loop, every query here): launches, the loop's count,
+        # the largest radiance difference from the fused kernel's lanes
+        "stats_path": {k: p23["full_width"][k] for k in (
+            "launches", "loop_queries", "max_abs_err", "lanes_off_fused",
+            "pass_ms")}}, {
         # the motion variant (18-float rows moved to each ray's time, one
         # ray a thread, no early reject), as phase 20's dofmotion pass
         # launches it; times and bound on that pass's camera rays, the
@@ -5113,7 +5376,8 @@ def main():
         "rays_any_equals_closest":
             p22["kd"]["shadow_rays_any_equals_closest"]}],
         "scene_files": files, "hero": hero, "bdpt": bdpt,
-        "sppm_motion": sm20, "curves": p21, "kd_sharded_tools": p22}))
+        "sppm_motion": sm20, "curves": p21, "kd_sharded_tools": p22,
+        "stats": p23}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

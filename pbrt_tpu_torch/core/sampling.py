@@ -1,7 +1,7 @@
-"""Sampling utilities (port of the parts of pbrt_tpu/core/sampling.py that
-the ported integrators use): Distribution1D (discrete and continuous, one
-shared or one per row), Distribution2D for the environment map, the warps
-and the power heuristic."""
+"""Sampling utilities (port of pbrt_tpu/core/sampling.py):
+Distribution1D (discrete and continuous, one shared or one per row),
+Distribution2D for the environment map, the warps and their pdfs, and
+the balance and power heuristics."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ PI = math.pi
 PI_OVER_2 = math.pi / 2
 PI_OVER_4 = math.pi / 4
 INV_PI = 1.0 / math.pi
+INV_2PI = 0.5 / math.pi
 INV_4PI = 0.25 / math.pi
 
 
@@ -91,6 +92,15 @@ def sample_distribution_1d_discrete(d: Distribution1D, u: torch.Tensor):
     return off, pmf
 
 
+def distribution_1d_discrete_pdf(d: Distribution1D, idx: torch.Tensor
+                                 ) -> torch.Tensor:
+    """DiscretePDF (sampling.h:101-104): the pmf of index idx (uniform
+    for a zero-integral distribution)."""
+    func_int = torch.where(d.func_int > 0, d.func_int, 1.0)
+    return torch.where(d.func_int > 0, _take(d.func, idx) / (func_int * d.n),
+                       1.0 / d.n)
+
+
 @dataclasses.dataclass
 class Distribution2D:
     """Piecewise-constant 2D distribution (sampling.h:124-132): one
@@ -156,6 +166,10 @@ def uniform_sample_triangle(u: torch.Tensor) -> torch.Tensor:
     return torch.stack([1.0 - su0, u[..., 1] * su0], dim=-1)
 
 
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    return (nf * f_pdf) / torch.clamp_min(nf * f_pdf + ng * g_pdf, 1e-20)
+
+
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
@@ -183,3 +197,7 @@ def cosine_sample_hemisphere(u: torch.Tensor) -> torch.Tensor:
     d = concentric_sample_disk(u)
     z = vecmath.safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return torch.cat([d, z[..., None]], dim=-1)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI

@@ -86,17 +86,32 @@ def cie_z(lam):
             + _pw_gauss(lam, 0.681, 459.0, 26.0, 13.8))
 
 
+def cie_xyz(lam):
+    """(...,) wavelengths → (..., 3) CIE matching values (numpy or
+    torch, as given)."""
+    if isinstance(lam, torch.Tensor):
+        return torch.stack([cie_x(lam), cie_y(lam), cie_z(lam)], dim=-1)
+    return np.stack([cie_x(lam), cie_y(lam), cie_z(lam)], axis=-1)
+
+
 # sRGB / Rec.709 primaries, D65 white (spectrum.cpp XYZToRGB)
 _XYZ_TO_RGB = np.array([
     [3.240479, -1.537150, -0.498535],
     [-0.969256, 1.875991, 0.041556],
     [0.055648, -0.204043, 1.057311]], np.float64)
+_RGB_TO_XYZ = np.linalg.inv(_XYZ_TO_RGB)
 
 
 def xyz_to_rgb(xyz) -> np.ndarray:
     """(..., 3) XYZ → linear RGB, in float32 as pbrt_tpu computes it."""
     return (np.asarray(xyz, np.float32)
             @ _XYZ_TO_RGB.T.astype(np.float32))
+
+
+def rgb_to_xyz(rgb):
+    """(..., 3) linear RGB → XYZ in float32, summed term by term as
+    pbrt_tpu's product (``_dot``, no matmul); numpy or torch, as given."""
+    return _dot(rgb, _RGB_TO_XYZ.T.astype(np.float32), lanes=1)
 
 
 @functools.lru_cache()

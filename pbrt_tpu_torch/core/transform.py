@@ -1,9 +1,13 @@
 """4x4 transforms and the two-keyframe AnimatedTransform (port of
-pbrt_tpu/core/transform.py:29-129, 155-260).
+pbrt_tpu/core/transform.py:29-260).
 
 ``look_at_matrix`` and ``rotate_matrix`` are host numpy: the scene parser
 keeps its current transformation matrix in float64 and takes these
 matrices as pbrt_tpu rounds them (LookAt and Rotate through float32).
+The builders for programmatic scenes (``identity``, ``translate``,
+``scale``, ``rotate`` and ``rotate_x/y/z``, ``look_at``, ``perspective``,
+``orthographic``) compute each matrix and its inverse on the host as
+pbrt_tpu's do and return a ``Transform`` on ``device``.
 
 Applying a transform is a (R,3)·(3,3) product, left to ``torch.matmul``.
 TF32 would keep only about three decimal digits of a float32 product on
@@ -59,6 +63,27 @@ def from_matrix(m, device="cpu") -> Transform:
     return _from_np(m, np.linalg.inv(m), device)
 
 
+def identity(device="cpu") -> Transform:
+    return _from_np(np.eye(4), np.eye(4), device)
+
+
+def translate(delta, device="cpu") -> Transform:
+    d = np.asarray(delta, np.float32)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = d
+    mi = np.eye(4, dtype=np.float32)
+    mi[:3, 3] = -d
+    return _from_np(m, mi, device)
+
+
+def scale(s, device="cpu") -> Transform:
+    """Scale by s (a number or three); the inverse by 1/s in float32."""
+    s = np.broadcast_to(np.asarray(s, np.float32), (3,))
+    m = np.diag(np.append(s, 1.0).astype(np.float32))
+    mi = np.diag(np.append(1.0 / s, 1.0).astype(np.float32))
+    return _from_np(m, mi, device)
+
+
 def rotate_matrix(theta_deg: float, axis) -> np.ndarray:
     """transform.cpp Rotate about ``axis`` (Rodrigues, float64), rounded
     to float32."""
@@ -69,6 +94,24 @@ def rotate_matrix(theta_deg: float, axis) -> np.ndarray:
     K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
     m[:3, :3] = c * np.eye(3) + s * K + (1 - c) * np.outer(a, a)
     return m.astype(np.float32)
+
+
+def rotate(theta_deg: float, axis, device="cpu") -> Transform:
+    """Rotate by theta_deg about axis; the inverse is the transpose."""
+    m = rotate_matrix(theta_deg, axis)
+    return _from_np(m, m.T, device)
+
+
+def rotate_x(deg, device="cpu") -> Transform:
+    return rotate(deg, (1, 0, 0), device)
+
+
+def rotate_y(deg, device="cpu") -> Transform:
+    return rotate(deg, (0, 1, 0), device)
+
+
+def rotate_z(deg, device="cpu") -> Transform:
+    return rotate(deg, (0, 0, 1), device)
 
 
 def look_at_matrix(eye, look, up) -> np.ndarray:
@@ -100,6 +143,30 @@ def look_at(eye, look, up, device="cpu") -> Transform:
     """transform.cpp LookAt: camera-to-world (host math in float64, as
     pbrt_tpu does, then rounded to float32)."""
     m = look_at_matrix(eye, look, up)
+    return _from_np(m.astype(np.float32),
+                    np.linalg.inv(m).astype(np.float32), device)
+
+
+def perspective(fov_deg: float, near: float, far: float,
+                device="cpu") -> Transform:
+    """transform.cpp Perspective: camera space to the projected screen
+    space (float64 on the host, then rounded)."""
+    inv_tan = 1.0 / np.tan(np.radians(fov_deg) / 2.0)
+    persp = np.array([
+        [1, 0, 0, 0],
+        [0, 1, 0, 0],
+        [0, 0, far / (far - near), -far * near / (far - near)],
+        [0, 0, 1, 0]], np.float64)
+    m = np.diag([inv_tan, inv_tan, 1.0, 1.0]) @ persp
+    return _from_np(m.astype(np.float32),
+                    np.linalg.inv(m).astype(np.float32), device)
+
+
+def orthographic(znear: float, zfar: float, device="cpu") -> Transform:
+    """transform.cpp Orthographic: z from [znear, zfar] to [0, 1]."""
+    m = np.eye(4)
+    m[2, 2] = 1.0 / (zfar - znear)
+    m[2, 3] = -znear / (zfar - znear)
     return _from_np(m.astype(np.float32),
                     np.linalg.inv(m).astype(np.float32), device)
 

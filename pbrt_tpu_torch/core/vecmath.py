@@ -1,6 +1,5 @@
-"""Vector math over batched ``(..., 3)`` tensors (port of the subset of
-pbrt_tpu/core/vecmath.py that the fused path and the generic wavefront
-loop use)."""
+"""Vector math over batched ``(..., 3)`` tensors and batched bounding
+boxes (port of pbrt_tpu/core/vecmath.py)."""
 
 from __future__ import annotations
 
@@ -58,6 +57,18 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
                                            1e-30))[..., None]
 
 
+def distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return length(a - b)
+
+
+def distance_squared(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return length_squared(a - b)
+
+
+def lerp(t, a, b):
+    return (1.0 - t) * a + t * b
+
+
 def face_forward(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Flip n into the hemisphere of v (geometry.h Faceforward)."""
     return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
@@ -73,6 +84,16 @@ def coordinate_system(v1: torch.Tensor):
     v2 = torch.stack([1.0 + s * x ** 2 * a, s * b, -s * x], dim=-1)
     v3 = torch.stack([b, s + y ** 2 * a, -y], dim=-1)
     return v2, v3
+
+
+def spherical_direction(sin_theta, cos_theta, phi, x=None, y=None,
+                        z=None) -> torch.Tensor:
+    """geometry.h SphericalDirection, in the frame (x, y, z) if given."""
+    d = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                     cos_theta], dim=-1)
+    if x is None:
+        return d
+    return d[..., 0:1] * x + d[..., 1:2] * y + d[..., 2:3] * z
 
 
 def spherical_theta(v: torch.Tensor) -> torch.Tensor:
@@ -96,6 +117,28 @@ def offset_ray_origin(p: torch.Tensor, n: torch.Tensor,
     nf = face_forward(n, w)
     scale = SHADOW_EPS * torch.clamp_min(p.abs().amax(dim=-1), 1.0)
     return p + scale[..., None] * nf
+
+
+@dataclasses.dataclass
+class Bounds3:
+    """Axis-aligned boxes, batched (geometry.h Bounds3f): lo, hi (...,3)."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+    def diagonal(self) -> torch.Tensor:
+        return self.hi - self.lo
+
+    def surface_area(self) -> torch.Tensor:
+        d = self.diagonal()
+        return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                      + d[..., 2] * d[..., 0])
+
+    def centroid(self) -> torch.Tensor:
+        return 0.5 * (self.lo + self.hi)
+
+
+def bounds_union(a: Bounds3, b: Bounds3) -> Bounds3:
+    return Bounds3(torch.minimum(a.lo, b.lo), torch.maximum(a.hi, b.hi))
 
 
 def bounds_intersect_p(lo: torch.Tensor, hi: torch.Tensor, o: torch.Tensor,

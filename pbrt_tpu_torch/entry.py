@@ -34,6 +34,8 @@
   query on the brute-force kernel.
 
 The makers build on the card unless the caller asks for ``device="cpu"``.
+``entry()`` returns the forward render step of ``__graft_entry__.entry``
+and its arguments (on the card, one launch of the fused kernel).
 ``dryrun_multichip`` drives the sharded render and the training step
 (parallel/) on the portal scene over the process group's ranks.
 """
@@ -320,6 +322,26 @@ def _camera(res=(64, 64), device="cuda"):
         transform.look_at((0.5, 0.5, -1.4), (0.5, 0.5, 1.0), (0, 1, 0),
                           device=device),
         40.0, res, device=device)
+
+
+def entry(device="cuda"):
+    """(fn, args): ``fn(*args)`` renders 2 samples a pixel of the portal
+    scene at 32², ``path`` at max_depth 3 with a box filter (the main
+    path's kernel on the card), the film's sum over the samples."""
+    from pbrt_tpu_torch.integrators.render import RenderConfig, render_pass
+    from pbrt_tpu_torch.scene import film as film_mod
+
+    device = require_device(device)
+    scene = _portal_scene(device)
+    cam = _camera((32, 32), device)
+    filt = film_mod.make_filter("box", device=device)
+    cfg = RenderConfig(integrator="path", max_depth=3)
+
+    def fn(scene, cam, filt, spp_offset):
+        return render_pass(scene, cam, filt, cfg, 32, 32, 2, spp_offset,
+                           device)
+
+    return fn, (scene, cam, filt, 0)
 
 
 def _fill_fur(b, n_strands=128, seed=0):

@@ -64,6 +64,9 @@ class RenderConfig:
     ao_radius: float = 1e6
     ao_cos_sample: bool = True
     seed: int = 0
+    # also return the per-bounce counts of live lanes from the wavefront
+    # loop (bench.py's dead-lane accounting); off in production renders
+    collect_stats: bool = False
 
 
 def _bounce_dims(b):
@@ -166,7 +169,13 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     iteration (emission only) runs no NEE and no continuation, and a loop
     that continues through specular lobes only (`indirect=False`:
     `whitted`, `direct`) stops after the first bounce when no material row
-    can sample a delta lobe."""
+    can sample a delta lobe.
+
+    With ``cfg.collect_stats`` it returns (L, live): live (n_bounces,)
+    float32 on the lanes' device holds the count of active lanes as each
+    bounce starts, as pbrt_tpu's loop counts them (0 for the bounces a
+    static stop skips: every path has ended there). No count is read on
+    the host."""
     R = o.shape[0]
     C = scene.n_channels
     dev = o.device
@@ -182,7 +191,11 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     inf = torch.full((R,), vecmath.INF, device=dev)
 
     n_bounces = cfg.max_depth + 1 if indirect else min(cfg.max_depth + 1, 8)
+    live = (torch.zeros(n_bounces, device=dev) if cfg.collect_stats
+            else None)
     for b in range(n_bounces):
+        if live is not None:
+            live[b] = active.sum(dtype=torch.float32)
         # pbrt's termination order (path.cpp:23-24 `if (!foundIntersection
         # || bounces >= maxDepth) break;`): the FINAL iteration collects
         # emission only, no NEE and no continuation
@@ -276,6 +289,8 @@ def _li_loop(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
         d_cur = torch.where(alive[..., None], wi, d_cur)
         specular = torch.where(alive, is_spec if nee else True, specular)
         active = alive
+    if live is not None:
+        return L, live
     return L
 
 
@@ -297,6 +312,11 @@ _LIGHT_STRATEGIES = ("uniform", "power", "spatial")
 
 # pbrt_tpu's integrators the port has not yet, by ROADMAP queue 1 item
 _UNPORTED_INTEGRATORS = {}
+# integrators that run the wavefront loop ``_li_loop`` (``path`` through
+# the loop whenever ``collect_stats`` is set), the only ones that count
+# live lanes
+_STATS_INTEGRATORS = ("path", "direct", "directlighting", "whitted",
+                      "mypath")
 
 
 def camera_rays(cam, filt, cfg: RenderConfig, width: int, height: int,
@@ -331,12 +351,21 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
     of filter-weighted radiance (divide by the total spp outside), or the
     (hc,wc,C) sum over ``crop`` = (px0, py0, wc, hc), the cropped pixel
     bounds (Film::croppedPixelBounds, core/film.cpp:58-66). The scene,
-    camera and filter must already live on ``device``."""
+    camera and filter must already live on ``device``.
+
+    With ``cfg.collect_stats`` it returns (img, live), live the
+    (n_bounces,) float32 counts of live lanes as each bounce of the
+    wavefront loop starts (``_li_loop``); an integrator that does not
+    run that loop raises ``ValueError``."""
     device = require_device(device)
     if cfg.integrator not in _INTEGRATORS:
         raise NotImplementedError(
             f"integrator {cfg.integrator!r}: ROADMAP queue 1 item "
             f"{_UNPORTED_INTEGRATORS.get(cfg.integrator, '9')}")
+    if cfg.collect_stats and cfg.integrator not in _STATS_INTEGRATORS:
+        raise ValueError(f"collect_stats: integrator {cfg.integrator!r} "
+                         "does not run the wavefront loop that counts live "
+                         "lanes")
     if cfg.light_strategy not in _LIGHT_STRATEGIES:
         raise ValueError(f"unknown light strategy {cfg.light_strategy!r}")
     rays, pid, sidx, w_filt = camera_rays(cam, filt, cfg, width, height,
@@ -353,6 +382,9 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
                                                   - cam.shutter_open)
     L = _INTEGRATORS[cfg.integrator](scene, rays.o, rays.d, pid, sidx, sfn,
                                      cfg, power_distr, **kw)
+    live = None
+    if cfg.collect_stats:
+        L, live = L
     if check_finite and not bool(torch.isfinite(L).all()):
         raise FloatingPointError(
             f"non-finite radiance in the pass at spp offset {spp_offset}")
@@ -361,8 +393,10 @@ def render_pass(scene, cam, filt, cfg: RenderConfig, width: int, height: int,
     L = torch.where(bad[..., None], 0.0, L)
     contrib = L * w_filt[..., None]
     _, _, wc, hc = crop if crop is not None else (0, 0, width, height)
-    img = contrib.reshape(chunk, wc * hc, -1).sum(0)
-    return img.reshape(hc, wc, -1)
+    img = contrib.reshape(chunk, wc * hc, -1).sum(0).reshape(hc, wc, -1)
+    if live is not None:
+        return img, live
+    return img
 
 
 def light_distribution(scene, strategy: str):
@@ -498,3 +532,6 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
     if progress is not None:
         progress.finish()
     return img / spp
+
+
+render_image = render

@@ -66,6 +66,9 @@ from pbrt_tpu_torch.utils import stats as stats_mod
 GRID_RES = 64          # at most 64 cells an axis
 SPPM_ALPHA = 2.0 / 3.0
 PHOTON_PID_BASE = 1 << 24   # the photons' sample keys start here
+# a photon's scan of a cell's entries when the caller gives no bound
+# (``render_sppm`` passes ``needed_capacity``'s)
+MAX_PER_CELL = 32
 _DIFFUSE = (mat_mod.MATTE, mat_mod.PLASTIC, mat_mod.SUBSTRATE, mat_mod.UBER,
             mat_mod.TRANSLUCENT)
 _SENTINEL = 2 ** 30    # the cell of an invalid visible point's entries
@@ -450,7 +453,7 @@ def _deposit(scene, vps, radius, grid, hit_p, d_in, beta, start, slots, phi,
 
 
 def photon_pass(scene, vps, radius, n_photons, it, seed, max_depth, grid_lo,
-                grid_hi, max_per_cell):
+                grid_hi, max_per_cell=MAX_PER_CELL):
     """Shoot the iteration's photons and deposit their flux on the visible
     points (sppm.cpp's photon pass). Returns (phi (R,C), M (R,), the
     entries skipped past ``max_per_cell``, as a Python float)."""

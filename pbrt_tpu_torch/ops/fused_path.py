@@ -60,11 +60,13 @@ def eligible(scene, cfg) -> bool:
     """Dispatch gate: the scene has a fused profile and the config asks
     for what the kernel implements. A scene with motion never runs it (its
     rays carry shutter times the kernel does not take), as pbrt_tpu's gate
-    refuses a pass with times."""
+    refuses a pass with times; nor does a pass that counts live lanes
+    (``cfg.collect_stats``: the wavefront loop counts them)."""
     return (getattr(scene, "fused_profile", None) is not None
             and not getattr(scene, "has_motion", False)
             and cfg.sampler == "independent"
-            and cfg.light_strategy == "uniform")
+            and cfg.light_strategy == "uniform"
+            and not cfg.collect_stats)
 
 
 def _axes_of(ax: int):

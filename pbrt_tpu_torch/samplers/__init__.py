@@ -359,6 +359,27 @@ def make_sobol_global(resolution, spp: int = 16) -> Callable:
     return sample
 
 
+def radical_inverse(base_idx: torch.Tensor, a: torch.Tensor
+                    ) -> torch.Tensor:
+    """RadicalInverse (lowdiscrepancy.h:78-96) of a in base
+    prime[base_idx] per lane, 21 digits: base_idx (R,) integer, a (R,)
+    integers holding uint32 values. Each step is ``_radical_inverse``'s
+    fused multiply-add."""
+    primes = torch.as_tensor(_PRIMES.astype(np.int64), device=a.device)
+    base = primes[base_idx.long().clamp(0, _N_PRIMES - 1)]
+    inv_base = 1.0 / base.to(torch.float32)
+    a = a.long() & 0xFFFFFFFF
+    rev = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    inv_bn = inv_base
+    for _ in range(21):
+        nxt = a // base
+        rev = (rev.double() + (a - nxt * base).double() * inv_bn.double()
+               ).float()
+        inv_bn = inv_bn * inv_base
+        a = nxt
+    return torch.clamp_max(rev, ONE_MINUS_EPS)
+
+
 def _radical_inverse(dim: int, a):
     """RadicalInverse (lowdiscrepancy.h:78-96) in base prime(dim % 66),
     21 digits: the Cranley–Patterson sampler's formula. pbrt_tpu's loop

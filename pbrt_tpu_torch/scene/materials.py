@@ -314,9 +314,10 @@ def tr_g1(w, alpha):
     return 1.0 / (1.0 + tr_lambda(w, alpha))
 
 
-def _vndf_tr(wo, u, ax, ay):
-    """Visible-normal sampling (Heitz 2018; TrowbridgeReitz::Sample_wh
-    with sampleVisibleArea), isotropic when ax is ay."""
+def tr_sample_wh_aniso(wo, u, ax, ay):
+    """Anisotropic visible-normal sampling (Heitz 2018; the
+    sampleVisibleArea path of TrowbridgeReitz::Sample_wh); the isotropic
+    one when ax is ay."""
     sign = torch.sign(wo[..., 2:3] + 1e-20)
     v = sign * wo
     vh = vecmath.normalize(
@@ -345,7 +346,7 @@ def _vndf_tr(wo, u, ax, ay):
 
 
 def tr_sample_wh(wo, u, alpha):
-    return _vndf_tr(wo, u, alpha, alpha)
+    return tr_sample_wh_aniso(wo, u, alpha, alpha)
 
 
 def tr_pdf_wh(wo, wh, alpha):
@@ -414,6 +415,26 @@ def beck_lambda(w, alpha):
 
 def beck_g(wo, wi, alpha):
     return 1.0 / (1.0 + beck_lambda(wo, alpha) + beck_lambda(wi, alpha))
+
+
+def beck_sample_wh_full(wo, u, alpha):
+    """Full-distribution Beckmann sampling (microfacet.cpp Sample_wh, the
+    !sampleVisibleArea branch: tan²θ = −α² ln(1 − u₁)), flipped into wo's
+    hemisphere; its pdf is ``beck_pdf_wh_full``. The render samples the
+    visible normals (``beck_sample_wh``): this one is for A/B variance."""
+    u1 = torch.clamp_max(u[..., 0], 0.99999)
+    tan2t = -alpha * alpha * torch.log1p(-u1)
+    phi = 2.0 * math.pi * u[..., 1]
+    cost = 1.0 / torch.sqrt(1.0 + tan2t)
+    sint = vecmath.safe_sqrt(1.0 - cost * cost)
+    wh = torch.stack([sint * torch.cos(phi), sint * torch.sin(phi), cost],
+                     dim=-1)
+    return wh * torch.sign(wo[..., 2:3] + 1e-20)
+
+
+def beck_pdf_wh_full(wo, wh, alpha):
+    """The full distribution's pdf D(wh)·|cos θh| (microfacet.cpp Pdf)."""
+    return beck_d(wh, alpha) * abs_cos_theta(wh)
 
 
 def beck_g1(w, alpha):
@@ -1272,7 +1293,7 @@ def _disney_sample(mp, kd, wo, u_lobe, u, wi_cos):
     k_diff, n_cc, n_mt, n_lt, n, n_entry = _disney_lobe_counts(mp)
     n_pick = torch.clamp_min(n - n_entry, 1.0)
     ax, ay = _disney_alphas(mp)
-    wi_spec = vecmath.reflect(wo, _vndf_tr(wo, u, ax, ay))
+    wi_spec = vecmath.reflect(wo, tr_sample_wh_aniso(wo, u, ax, ay))
     # clearcoat: the exact GTR1 wh inversion (disney.cpp:285-305)
     gloss = _disney_cc_gloss(mp)
     a2g = gloss * gloss
@@ -1292,7 +1313,7 @@ def _disney_sample(mp, kd, wo, u_lobe, u, wi_cos):
     bad_mt = torch.zeros_like(u_lobe, dtype=torch.bool)
     if mp.has_disney_trans:
         axt, ayt = _disney_trans_alphas(mp)
-        wh_mt = _vndf_tr(wo, u, axt, ayt)
+        wh_mt = tr_sample_wh_aniso(wo, u, axt, ayt)
         wh_mt_o = wh_mt * torch.sign(vecmath.dot(wh_mt, wo))[..., None]
         eta_r = torch.where(cos_theta(wo) > 0.0, 1.0 / mp.eta, mp.eta)
         wi_mt, mt_ok = vecmath.refract(wo, wh_mt_o, eta_r)

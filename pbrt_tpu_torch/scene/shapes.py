@@ -1,12 +1,15 @@
 """Hit records, per-ray (paired) shape tests and area sampling (port of
 the triangle, sphere, aaplane and disk parts of pbrt_tpu/scene/shapes.py).
 
-pbrt_tpu's all-pairs ``intersect_triangles / _spheres / _aaplanes`` have
-no counterpart here: the brute-force closest hit over the whole scene is
-the kernel of ops/intersect.py (and its plain-torch twin). What remains
-are the routines that work on ONE primitive per ray, gathered beforehand
-(light sampling, Pdf_Li and the portal samplers), and the all-pairs disk
-test, which pbrt_tpu, too, runs outside its kernel.
+The render path never runs an all-pairs test of triangles, spheres or
+aaplanes: the brute-force closest hit over the whole scene is the kernel
+of ops/intersect.py (and its plain-torch twin), and BVH and kd scenes
+walk their trees. The routines here work on ONE primitive per ray,
+gathered beforehand (light sampling, Pdf_Li and the portal samplers);
+pbrt_tpu's all-pairs ``intersect_triangles / _spheres / _aaplanes`` are
+those paired tests broadcast over (ray, primitive) pairs, for callers
+outside the render path. The all-pairs disk test is the one the render
+path runs, outside the kernel, as pbrt_tpu does.
 """
 
 from __future__ import annotations
@@ -65,6 +68,15 @@ def intersect_triangle_paired(o, d, tmax, v0, v1, v2):
     return t, u, v, hit
 
 
+def intersect_triangles(o, d, tmax, v0, v1, v2):
+    """All-pairs ray×triangle test: o, d (R,3), tmax (R,); v0..v2 (T,3),
+    or (R,T,3) per ray (motion-blurred vertices at each ray's time).
+    Returns (t, u, v, hit): each (R,T)."""
+    V0, V1, V2 = (v if v.ndim == 3 else v[None] for v in (v0, v1, v2))
+    return intersect_triangle_paired(o[:, None], d[:, None], tmax[:, None],
+                                     V0, V1, V2)
+
+
 def triangle_normal(v0, v1, v2):
     return normalize(cross(v1 - v0, v2 - v0))
 
@@ -107,6 +119,13 @@ def intersect_sphere_paired(o, d, tmax, center, radius):
     t = torch.where(tn > 1e-4, tn, tf)
     hit = ok & (t > 1e-4) & (t < tmax)
     return t, hit
+
+
+def intersect_spheres(o, d, tmax, center, radius):
+    """All-pairs ray×sphere: o, d (R,3), tmax (R,); center (S,3), radius
+    (S,). Returns (t, hit): (R,S)."""
+    return intersect_sphere_paired(o[:, None], d[:, None], tmax[:, None],
+                                   center[None], radius[None])
 
 
 def sphere_normal_uv(p, center, radius):
@@ -226,6 +245,27 @@ def intersect_aaplane_paired(o, d, tmax, lo, hi, ax):
     hit = (ok & (t > 1e-4) & (t < tmax)
            & (p0 > lo0) & (p0 < hi0) & (p1 > lo1) & (p1 < hi1))
     return t, u, v, hit
+
+
+def intersect_aaplanes(o, d, tmax, lo, hi, ax):
+    """All-pairs ray×axis-aligned rectangle (plane.cpp:15-55): o, d
+    (R,3), tmax (R,); lo, hi (P,3), ax (P,). Returns (t, u, v, hit):
+    each (R,P)."""
+    R, P = o.shape[0], lo.shape[0]
+    return intersect_aaplane_paired(
+        o[:, None].expand(R, P, 3), d[:, None].expand(R, P, 3),
+        tmax[:, None], lo[None].expand(R, P, 3), hi[None].expand(R, P, 3),
+        ax[None].expand(R, P))
+
+
+def aaplane_corners(lo, hi, ax):
+    """V0..V3 (plane.cpp:85-107): V0 = lo, V2 = hi, V1 = lo with the ax1
+    coordinate of hi, V3 = lo with the ax0 coordinate of hi."""
+    ax0, ax1 = aaplane_axes(ax)
+    c = take_axis(lo, ax)
+    v1 = axis_point(ax, ax0, ax1, c, take_axis(lo, ax0), take_axis(hi, ax1))
+    v3 = axis_point(ax, ax0, ax1, c, take_axis(hi, ax0), take_axis(lo, ax1))
+    return lo, v1, hi, v3
 
 
 def axis_point(ax, ax0, ax1, c, c0, c1):
