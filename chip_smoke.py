@@ -285,7 +285,14 @@ Run from the root of a checkout, with no arguments:
    against render() (rtol 2e-3, atol 3e-4), three training steps on kd
    and emit (ms a step, kernel 1's launches a step, the loss falls, the
    first step's gradients against single-process autograd of render(),
-   rtol 2e-3, atol 1e-6), dryrun_multichip(1). (d) A render stopped after
+   rtol 2e-3, atol 1e-6), one step under the profiler (its device ms, top
+   kernels, none of them torch's ``indexing_backward``, and the share of
+   replay's material gather backward), dryrun_multichip(1); before them
+   ``ops/fastgather.gather_rows`` on 4,194,304 lanes of tables of 5, 256
+   and 4,096 rows (the forward equal to ``table[idx]``, the backward
+   within rtol 1e-4 of a float64 ``index_add_``, both timed beside
+   ``index_add_``, the one-hot product's backward at 256 rows and
+   advanced indexing's at 5). (d) A render stopped after
    one pass and resumed equals the uninterrupted one; bsdftest on the
    card; imgtool makesky against tests/oracle/sky_ref.pfm.
 23. The renderer's statistics (``RenderConfig.collect_stats``: the
@@ -343,6 +350,7 @@ from pbrt_tpu_torch.integrators import sppm as sppm_mod
 from pbrt_tpu_torch.ops import _build
 from pbrt_tpu_torch.ops import bvh as bk
 from pbrt_tpu_torch.ops import bvh_binary as bb
+from pbrt_tpu_torch.ops import fastgather
 from pbrt_tpu_torch.ops import fused_path as fp
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.ops import kdtree as kd_ops
@@ -1316,21 +1324,28 @@ def _profile_once(fn, frags, cpu):
     return total, by_name
 
 
-def top_kernels(fn, n=5):
-    """One run of ``fn`` under the device-only profiler: (device ms, the
-    n kernels of most device time as [name, ms, launches])."""
+def top_kernels(fn, op, n=5):
+    """One run of ``fn`` under the profiler, host and device: (device ms,
+    the n kernels of most device time as [name, ms, launches], every
+    kernel's name, the device ms of the host op named ``op`` with the
+    kernels it launched, or None where no such op ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    avgs = prof.key_averages()
     rows = [(evt.key, evt.self_device_time_total / 1e3, evt.count)
-            for evt in prof.key_averages()
-            if evt.device_type != DeviceType.CPU]
+            for evt in avgs if evt.device_type != DeviceType.CPU]
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), [[k[:90], ms, c] for k, ms, c in rows[:n]]
+    op_ms = [evt.device_time_total / 1e3 for evt in avgs
+             if evt.device_type == DeviceType.CPU and evt.key == op]
+    return (sum(r[1] for r in rows), [[k[:90], ms, c] for k, ms, c in
+                                      rows[:n]], [r[0] for r in rows],
+            max(op_ms, default=None))
 
 
 def check_probe(dev):
@@ -4140,9 +4155,76 @@ def brute_past_4096(dev, card, start, stop, filt):
     return row
 
 
+GATHER_LANES, GATHER_ROWS = 1 << 22, (5, 256, 4096)
+# the profiler's name for replay's material gather backward
+GATHER_BWD_OP = "autograd::engine::evaluate_function: _GatherRowsBackward"
+
+
+def onehot_backward(idx, g, n):
+    """pbrt_tpu's one-hot gather backward, onehot(idx, n)ᵀ @ g in float32
+    (TF32 is off: core/transform.py) over chunks of lanes whose one-hot
+    fits fastgather.ONEHOT_BUDGET_BYTES: the alternative to ``index_add_``
+    that gather_checks times."""
+    out = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device)
+    cols = torch.arange(n, device=idx.device)
+    chunk = max(8, fastgather.ONEHOT_BUDGET_BYTES // (n * 4))
+    for s in range(0, idx.shape[0], chunk):
+        out.addmm_((idx[s:s + chunk, None] == cols).to(g.dtype).T,
+                   g[s:s + chunk])
+    return out
+
+
+def gather_checks(dev, card):
+    """(c) fastgather.gather_rows at the training step's 4,194,304 lanes
+    of width 3 (replay's kd rows): for each table size the forward equal
+    to ``table[idx]`` bit for bit and the backward within rtol 1e-4 of a
+    float64 ``index_add_``; the forward, the backward (on a retained
+    graph) and ``index_add_`` in float32 timed by CUDA events; at 5 rows
+    also advanced indexing's backward (torch's ``indexing_backward``, the
+    path replay left), at 256 the one-hot product's (``onehot_backward``,
+    pbrt_tpu's strategy there)."""
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    ct = (0.5 + torch.rand(GATHER_LANES, 3, generator=gen)).to(dev)
+    rows = {}
+    for n in GATHER_ROWS:
+        table = torch.rand(n, 3, generator=gen).to(dev).requires_grad_()
+        idx = torch.randint(0, n, (GATHER_LANES,), generator=gen).to(dev)
+        flat = table.detach()
+        out = fastgather.gather_rows(table, idx)
+        (grad,) = torch.autograd.grad(out, table, ct, retain_graph=True)
+        want = torch.zeros(n, 3, dtype=torch.float64, device=dev)
+        want.index_add_(0, idx, ct.double())
+        rel = float(((grad.double() - want).abs()
+                     / want.abs().clamp_min(1e-30)).max())
+        row = {"fwd_equal": bool(torch.equal(out.detach(), flat[idx])),
+               "bwd_max_rel_err": rel,
+               "fwd_ms": sync_ms(lambda: fastgather.gather_rows(flat, idx),
+                                 20),
+               "bwd_ms": sync_ms(lambda: torch.autograd.grad(
+                   out, table, ct, retain_graph=True), 10),
+               "index_add_ms": sync_ms(lambda: torch.zeros_like(
+                   flat).index_add_(0, idx, ct), 10)}
+        if n == GATHER_ROWS[0]:
+            leaf = flat.clone().requires_grad_()
+            old = leaf[idx]
+            row["index_backward_ms"] = sync_ms(lambda: torch.autograd.grad(
+                old, leaf, ct, retain_graph=True), 1)
+        if n == GATHER_ROWS[1]:
+            row["onehot_bwd_ms"] = sync_ms(
+                lambda: onehot_backward(idx, ct, n), 10)
+        rows[n] = row
+        check(row["fwd_equal"], f"gather_rows' forward at {n} rows")
+        check(rel <= 1e-4, f"gather_rows' backward at {n} rows: rel {rel}")
+    print(f"phase 22 fastgather ({card}, {GATHER_LANES} lanes × 3): "
+          + json.dumps(rows))
+    return rows
+
+
 def sharded_cell(dev, card):
     """(c) The sharded render, three training steps and the dry run at
-    world size 1 over NCCL, on the main path's scene."""
+    world size 1 over NCCL, on the main path's scene, after
+    ``gather_checks``."""
+    gather = gather_checks(dev, card)
     world = multihost.initialize_multihost(
         f"localhost:{entry._free_port()}", 1, 0, "cuda")
     check(world == 1 and torch.distributed.get_backend() == "nccl",
@@ -4203,8 +4285,9 @@ def sharded_cell(dev, card):
             mesh, spp=SHARD_SPP, integrator="path", max_depth=MAX_DEPTH,
             seed=0, resolution=(W, H))
         t0 = time.perf_counter()
-        step_dev_ms, step_top = top_kernels(
-            lambda: step(scene, cam, params, target, TRAIN_LR))
+        step_dev_ms, step_top, step_kernels, gather_bwd_ms = top_kernels(
+            lambda: step(scene, cam, params, target, TRAIN_LR),
+            GATHER_BWD_OP)
         step_prof_ms = 1e3 * (time.perf_counter() - t0)
         dry = entry.dryrun_multichip(1)
         check(math.isfinite(dry["loss"]) and dry["dkd"] > 0,
@@ -4220,14 +4303,29 @@ def sharded_cell(dev, card):
                      "losses": losses, "step_ms": step_ms,
                      "fused_launches_per_step": step_launches,
                      "grad_max_abs_err": g_err,
-                     "profiled_step": {"host_ms": step_prof_ms,
-                                       "device_ms": step_dev_ms,
-                                       "top_kernels": step_top}},
-           "dryrun": dry}
+                     "profiled_step": {
+                         "host_ms": step_prof_ms, "device_ms": step_dev_ms,
+                         "top_kernels": step_top,
+                         "gather_bwd_device_ms": gather_bwd_ms,
+                         "gather_bwd_share": None if gather_bwd_ms is None
+                         else gather_bwd_ms / step_dev_ms,
+                         # replay's bounces × the timed 5-row backward
+                         "gather_bwd_events_share":
+                             (MAX_DEPTH + 1) * gather[5]["bwd_ms"]
+                             / step_dev_ms}},
+           "dryrun": dry, "fastgather": gather}
     print(f"phase 22 sharded path, world size 1 over NCCL ({card}): "
           + json.dumps(row))
+    prof = row["train"]["profiled_step"]
+    print(f"phase 22 training step ({card}): {step_ms} ms a step (host "
+          f"clock), one step's device time {step_dev_ms:.3f} ms, the "
+          f"material gather's backward {prof['gather_bwd_device_ms']} ms "
+          f"(share {prof['gather_bwd_share']}; by events "
+          f"{prof['gather_bwd_events_share']:.4f})")
     check(step_launches == [1] * TRAIN_STEPS and shard_launches == 1,
           f"fused launches: render {shard_launches}, steps {step_launches}")
+    slow = [k for k in step_kernels if "indexing_backward" in k]
+    check(not slow, f"the training step runs torch's index backward: {slow}")
     return row
 
 

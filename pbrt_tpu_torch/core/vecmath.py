@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from pbrt_tpu_torch.ops import fastgather
+
 INF = math.inf
 SHADOW_EPS = 1e-3  # conservative ray-offset epsilon (vecmath.SHADOW_EPS)
 MACHINE_EPS = 2.0 ** -24  # half the float32 epsilon (pbrt.h MachineEpsilon)
@@ -106,9 +108,9 @@ def spherical_phi(v: torch.Tensor) -> torch.Tensor:
 
 
 def take_axis(v: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """v[..., i] for a per-element component index i (pbrt_tpu's
-    fastgather.select_component; plain indexing here)."""
-    return torch.gather(v, -1, i.long().unsqueeze(-1)).squeeze(-1)
+    """v[..., i] for a per-element component index i in [0, C)
+    (``fastgather.select_component``, as pbrt_tpu's)."""
+    return fastgather.select_component(v, i)
 
 
 def offset_ray_origin(p: torch.Tensor, n: torch.Tensor,

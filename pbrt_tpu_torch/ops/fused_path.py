@@ -28,6 +28,7 @@ import torch
 
 from pbrt_tpu_torch.core import rng
 from pbrt_tpu_torch.core.vecmath import SHADOW_EPS, cross
+from pbrt_tpu_torch.ops import fastgather
 
 CLUSTER = 32          # triangles per cull cluster
 # Scenes with more than CLUSTER_MIN_TRI triangles get the cluster-AABB
@@ -562,8 +563,10 @@ def replay(kd, emit, code, knee, kc, rr_threshold=1.0):
     """Differentiable reconstruction of L from the residuals: per bounce,
     emission + NEE with the entering beta, then beta ← beta·kd[m]·kc with
     the RR 1/(1−q) compensation recomputed from beta, so ∂L/∂kd flows
-    through it as in the generic path. kd (M,C); emit (C,); code, knee,
-    kc (n_b,R). Returns L (R,C)."""
+    through it as in the generic path; kd[m] is ``fastgather.gather_rows``,
+    whose backward sums the lanes of each material row (no
+    ``index_put_``). kd (M,C); emit (C,); code, knee, kc (n_b,R). Returns
+    L (R,C)."""
     nb, R = code.shape
     C = kd.shape[-1]
     beta = torch.ones((R, C), dtype=kd.dtype, device=kd.device)
@@ -574,7 +577,7 @@ def replay(kd, emit, code, knee, kc, rr_threshold=1.0):
         alive = ((cb & _B_ALIVE) > 0)[:, None]
         rr_div = ((cb & _B_RRDIV) > 0)[:, None]
         kem = ((cb & _B_EMIT) > 0)[:, None]
-        kd_b = kd[m]
+        kd_b = fastgather.gather_rows(kd, m)
         L = L + torch.where(kem, beta * emit[None], 0.0)
         L = L + beta * kd_b * (knee[b] * INV_PI)[:, None] * emit[None]
         bn = beta * kd_b * kc[b][:, None]

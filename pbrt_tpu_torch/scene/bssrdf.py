@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.ops import fastgather
 from pbrt_tpu_torch.scene import materials as mat_mod
 
 N_RHO = 100        # BSSRDFTable(100, 64): materials/subsurface.cpp:137
@@ -456,12 +457,13 @@ def _segment_lookup(cdf_rows, u_abs):
 
 
 def _row_taps(table, rid):
-    """tap(idx) = table[rid, idx] per lane, read from the flat table
-    without gathering whole rows."""
+    """tap(idx) = table[rid, idx] per lane (pbrt_tpu's select_along_last
+    of the lane's row), read from the flat table without gathering whole
+    rows."""
     n = table.shape[-1]
     flat = table.reshape(-1)
     base = rid * n
-    return lambda idx: torch.index_select(flat, 0, base + idx)
+    return lambda idx: fastgather.gather_rows(flat, base + idx)
 
 
 def _spline_coeffs(x_grid, tap, idx):
@@ -492,15 +494,16 @@ def sample_sr(tables: SSSTables, row_id, u):
     (r_world, valid), r_world −1 where not valid. ``row_id`` = mat·C +
     ch into the flattened tables."""
     rid = _rows(tables, row_id)
-    cdf = torch.index_select(tables.cdf, 0, rid)     # (R, 64)
-    s_t = torch.index_select(tables.sigma_t, 0, rid)
+    g_row = fastgather.make_row_gather(tables.profile.shape[0], rid)
+    cdf = g_row(tables.cdf)                          # (R, 64)
+    s_t = g_row(tables.sigma_t)
     total = cdf[:, -1]
     valid = (s_t > 0) & (total > 0)
     u_abs = u * total
     idx = _segment_lookup(cdf, u_abs)
     x0, x1, width, f0, f1, d0, d1 = _spline_coeffs(
         tables.radius, _row_taps(tables.profile, rid), idx)
-    cdf0 = cdf.gather(-1, idx[:, None])[:, 0]
+    cdf0 = fastgather.select_along_last(cdf, idx)
     up = (u_abs - cdf0) / torch.clamp_min(width, 1e-20)
     # the linear interpolant's inverse as the first guess, then 8 fixed
     # Newton–bisection steps (pbrt iterates to 1e-6; 8 reach it on this
@@ -554,9 +557,10 @@ def eval_profile_multi(tables: SSSTables, row_id, radii):
     Returns (list of sr_hat per radius, sigma_t, rho_eff)."""
     rid = _rows(tables, row_id)
     tap = _row_taps(tables.profile, rid)
-    s_t = torch.index_select(tables.sigma_t, 0, rid)
+    g_row = fastgather.make_row_gather(tables.profile.shape[0], rid)
+    s_t = g_row(tables.sigma_t)
     return ([_profile_at(tables, tap, s_t, r) for r in radii], s_t,
-            torch.index_select(tables.rho_eff, 0, rid))
+            g_row(tables.rho_eff))
 
 
 def eval_profile(tables: SSSTables, row_id, r_world):

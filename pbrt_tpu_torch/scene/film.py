@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.ops import fastgather
+
 BOX = 0
 TRIANGLE = 1
 GAUSSIAN = 2
@@ -121,8 +123,10 @@ def sample_filter_offset(filt: Filter, u: torch.Tensor):
         return off, torch.ones(u.shape[:-1], dtype=u.dtype, device=u.device)
     ix = (u[..., 0] * _N_TAB).to(torch.int32).clamp(0, _N_TAB - 1).long()
     iy = (u[..., 1] * _N_TAB).to(torch.int32).clamp(0, _N_TAB - 1).long()
-    off = torch.stack([filt.inv_cdf[ix], filt.inv_cdf_y[iy]], dim=-1)
-    return off, filt.w_x[ix] * filt.w_y[iy]
+    gx = fastgather.make_row_gather(_N_TAB, ix)
+    gy = fastgather.make_row_gather(_N_TAB, iy)
+    off = torch.stack([gx(filt.inv_cdf), gy(filt.inv_cdf_y)], dim=-1)
+    return off, gx(filt.w_x) * gy(filt.w_y)
 
 
 def splat(image: torch.Tensor, p_raster: torch.Tensor, value: torch.Tensor,

@@ -45,7 +45,8 @@ import math
 import torch
 
 from pbrt_tpu_torch.core import vecmath
-from pbrt_tpu_torch.core.vecmath import normalize, take
+from pbrt_tpu_torch.core.vecmath import normalize
+from pbrt_tpu_torch.ops import fastgather
 from pbrt_tpu_torch.ops import intersect as ik
 from pbrt_tpu_torch.scene import bvh as bvh_mod
 from pbrt_tpu_torch.scene import instances as inst_mod
@@ -183,14 +184,16 @@ def intersect_p(scene, o, d, tmax, time=None):
     return occ
 
 
-def _tri_verts(scene, ti, time):
-    """The vertices of triangles ``ti`` (R,), moved to the rays' shutter
-    times on a scene with motion (pbrt_tpu's finalize_hit lerp)."""
+def _tri_verts(scene, gt, time):
+    """The vertices of the triangles that the row gather ``gt`` reads
+    (``fastgather.make_row_gather`` over the triangles), moved to the
+    rays' shutter times on a scene with motion (pbrt_tpu's finalize_hit
+    lerp)."""
     g = scene.geom
-    hv = [take(v, ti) for v in (g.tri_v0, g.tri_v1, g.tri_v2)]
+    hv = [gt(v) for v in (g.tri_v0, g.tri_v1, g.tri_v2)]
     if _moving(scene, time):
         tt = time[:, None]
-        hv = [v + tt * take(dv, ti)
+        hv = [v + tt * gt(dv)
               for v, dv in zip(hv, (g.tri_dv0, g.tri_dv1, g.tri_dv2))]
     return hv
 
@@ -218,17 +221,18 @@ def _attach_t(scene, o, d, t, prim_id, time=None):
                                                     1e-30)
     if nt:
         on = (prim_id >= 0) & (prim_id < nt)
-        v0, v1, v2 = _tri_verts(scene, prim_id.clamp(0, nt - 1), time)
+        v0, v1, v2 = _tri_verts(
+            scene, fastgather.make_row_gather(nt, prim_id), time)
         n = vecmath.cross(v1 - v0, v2 - v0)
         ta = torch.where(on, plane_t(v0, n), ta)
         fam = fam | on
     if ns:
         on = (prim_id >= nt) & (prim_id < nt + ns)
-        i = (prim_id - nt).clamp(0, ns - 1)
-        oc = o - take(g.sph_center, i)
+        gs = fastgather.make_row_gather(ns, prim_id - nt)
+        oc = o - gs(g.sph_center)
         a = torch.clamp_min(vecmath.dot(d, d), 1e-20)
         b = vecmath.dot(oc, d)
-        disc = b * b - a * (vecmath.dot(oc, oc) - take(g.sph_radius, i) ** 2)
+        disc = b * b - a * (vecmath.dot(oc, oc) - gs(g.sph_radius) ** 2)
         sq = vecmath.safe_sqrt(disc)
         t_n, t_f = (-b - sq) / a, (-b + sq) / a
         near = (t_n - t.detach()).abs() <= (t_f - t.detach()).abs()
@@ -236,17 +240,16 @@ def _attach_t(scene, o, d, t, prim_id, time=None):
         fam = fam | on
     if npl:
         on = (prim_id >= nt + ns) & (prim_id < nt + ns + npl)
-        i = (prim_id - nt - ns).clamp(0, npl - 1)
-        axis = torch.nn.functional.one_hot(take(g.pln_ax, i).long(), 3)
-        ta = torch.where(on, plane_t(take(g.pln_lo, i), axis.to(o.dtype)),
-                         ta)
+        gp = fastgather.make_row_gather(npl, prim_id - nt - ns)
+        axis = torch.nn.functional.one_hot(gp(g.pln_ax).long(), 3)
+        ta = torch.where(on, plane_t(gp(g.pln_lo), axis.to(o.dtype)), ta)
         fam = fam | on
     if nd:
         base = nt + ns + npl
         on = (prim_id >= base) & (prim_id < base + nd)
-        i = (prim_id - base).clamp(0, nd - 1)
-        ta = torch.where(on, plane_t(take(g.dsk_center, i),
-                                     take(g.dsk_normal, i)), ta)
+        gd = fastgather.make_row_gather(nd, prim_id - base)
+        ta = torch.where(on, plane_t(gd(g.dsk_center), gd(g.dsk_normal)),
+                         ta)
         fam = fam | on
     if scene.n_crv:
         base = nt + ns + npl + nd
@@ -262,11 +265,10 @@ def _curve_rescan(scene, o, d, t, ci):
     t + 1e-3: (t, u, v, hit), each (R,). Each pair's test is independent
     of the other curves, so this is pbrt_tpu's rescan
     (``intersect_curves`` over every curve, read at column ci)."""
-    ci = ci.clamp(0, scene.n_crv - 1)
+    gc = fastgather.make_row_gather(scene.n_crv, ci)
     cp, w, n = _curve_tables(scene)
-    out = shapes.curve_pairs(o, d, t + 1e-3, take(cp, ci)[None],
-                             take(w, ci)[None],
-                             None if n is None else take(n, ci)[None])
+    out = shapes.curve_pairs(o, d, t + 1e-3, gc(cp)[None], gc(w)[None],
+                             None if n is None else gc(n)[None])
     return tuple(x[0] for x in out)
 
 
@@ -298,9 +300,9 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
 
     nt, nsp, npl = scene.n_tri, scene.n_sph, scene.n_pln
     if nt:
-        ti = prim_id.clamp(0, nt - 1)
+        gt = fastgather.make_row_gather(nt, prim_id)
         is_tri = (valid & (prim_id < nt))[..., None]
-        hv0, hv1, hv2 = _tri_verts(scene, ti, time)
+        hv0, hv1, hv2 = _tri_verts(scene, gt, time)
         ngt = shapes.triangle_normal(hv0, hv1, hv2)
         # barycentrics recomputed at the hit point (the kernel carries only
         # t and the prim id): project onto the triangle basis
@@ -316,14 +318,13 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
         bu = torch.clamp((d11 * d20 - d01 * d21) / denom, 0.0, 1.0)
         bv = torch.clamp((d00 * d21 - d01 * d20) / denom, 0.0, 1.0)
         w = torch.clamp(1.0 - bu - bv, 0.0, 1.0)
-        nst = normalize(w[..., None] * take(g.tri_n0, ti)
-                        + bu[..., None] * take(g.tri_n1, ti)
-                        + bv[..., None] * take(g.tri_n2, ti))
+        nst = normalize(w[..., None] * gt(g.tri_n0)
+                        + bu[..., None] * gt(g.tri_n1)
+                        + bv[..., None] * gt(g.tri_n2))
         ng = torch.where(is_tri, ngt, ng)
         ns = torch.where(is_tri, nst, ns)
     if nt and not surface_only:
-        uv0, uv1, uv2 = (take(g.tri_uv0, ti), take(g.tri_uv1, ti),
-                         take(g.tri_uv2, ti))
+        uv0, uv1, uv2 = gt(g.tri_uv0), gt(g.tri_uv1), gt(g.tri_uv2)
         uvt = w[..., None] * uv0 + bu[..., None] * uv1 + bv[..., None] * uv2
         uv = torch.where(is_tri, uvt, uv)
         # ∂p/∂u, ∂p/∂v from the uv parameterization (triangle.cpp:157-168)
@@ -340,14 +341,13 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
         dpdv_t = torch.where(ok_uv[..., None], dpdv_t, t2_fb)
         dpdu = torch.where(is_tri, dpdu_t, dpdu)
     if nsp:
-        si = (prim_id - nt).clamp(0, nsp - 1)
+        gs = fastgather.make_row_gather(nsp, prim_id - nt)
         is_sph = (valid & (prim_id >= nt) & (prim_id < nt + nsp))[..., None]
-        sph_c = take(g.sph_center, si)
+        sph_c = gs(g.sph_center)
         if surface_only:
             nsph = normalize(p - sph_c)
         else:
-            nsph, uvs = shapes.sphere_normal_uv(p, sph_c,
-                                                take(g.sph_radius, si))
+            nsph, uvs = shapes.sphere_normal_uv(p, sph_c, gs(g.sph_radius))
             uv = torch.where(is_sph, uvs, uv)
         ng = torch.where(is_sph, nsph, ng)
         ns = torch.where(is_sph, nsph, ns)
@@ -362,20 +362,20 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
             t1_fbs)
         dpdu = torch.where(is_sph, dpdu_s, dpdu)
     if npl:
-        pi = (prim_id - nt - nsp).clamp(0, npl - 1)
+        gp = fastgather.make_row_gather(npl, prim_id - nt - nsp)
         is_pln = (valid & (prim_id >= nt + nsp)
                   & (prim_id < nt + nsp + npl))[..., None]
-        npln = shapes.aaplane_normal(take(g.pln_ax, pi),
-                                     take(g.pln_facing, pi))
+        npln = shapes.aaplane_normal(gp(g.pln_ax), gp(g.pln_facing))
         ng = torch.where(is_pln, npln, ng)
         ns = torch.where(is_pln, npln, ns)
     if scene.n_dsk:
         base = nt + nsp + npl
-        di = (prim_id - base).clamp(0, scene.n_dsk - 1)
+        nd = fastgather.make_row_gather(scene.n_dsk, prim_id - base)(
+            g.dsk_normal)
         is_dsk = (valid & (prim_id >= base)
                   & (prim_id < base + scene.n_dsk))[..., None]
-        ng = torch.where(is_dsk, take(g.dsk_normal, di), ng)
-        ns = torch.where(is_dsk, take(g.dsk_normal, di), ns)
+        ng = torch.where(is_dsk, nd, ng)
+        ns = torch.where(is_dsk, nd, ns)
 
     # the geometric normal keeps its own orientation (as pbrt's); the
     # shading normal is flipped to its side
@@ -384,7 +384,8 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
         base = nt + nsp + npl + scene.n_dsk
         is_crv = (valid & (prim_id >= base)
                   & (prim_id < scene.n_base_prims))[..., None]
-        ci = (prim_id - base).clamp(0, scene.n_crv - 1)
+        ci = prim_id - base
+        gc = fastgather.make_row_gather(scene.n_crv, ci)
         if crv_uv is None:
             with torch.no_grad():
                 _, u_c, v_c, _ = _curve_rescan(scene, o.detach(),
@@ -394,8 +395,8 @@ def finalize_hit(scene, o, d, t, prim_id, surface_only=False,
             u_c, v_c = crv_uv
         cp, w, n = _curve_tables(scene)
         tang, n_c = shapes.curve_hit_frame(
-            o, d, take(cp, ci), take(w, ci), u_c, v_c, p,
-            nrows=None if n is None else take(n, ci))
+            o, d, gc(cp), gc(w), u_c, v_c, p,
+            nrows=None if n is None else gc(n))
         ng = torch.where(is_crv, n_c, ng)
         ns = torch.where(is_crv, n_c, ns)
         if not surface_only:

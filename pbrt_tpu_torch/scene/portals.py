@@ -21,6 +21,7 @@ import torch
 
 from pbrt_tpu_torch.core import vecmath
 from pbrt_tpu_torch.core.vecmath import absdot, normalize, take_axis
+from pbrt_tpu_torch.ops import fastgather
 from pbrt_tpu_torch.scene import shapes
 
 
@@ -54,9 +55,11 @@ def select_visible_portal(in_front, u):
 
 
 def _gather_portal(g_lights, pidx):
-    r = torch.arange(pidx.shape[0], device=pidx.device)
-    return (g_lights.portal_lo[r, pidx], g_lights.portal_hi[r, pidx],
-            g_lights.portal_ax[r, pidx], g_lights.portal_facing[r, pidx])
+    """Each lane's portal slot pidx of its light's (R, P, ...) rows."""
+    return (fastgather.select_row(g_lights.portal_lo, pidx),
+            fastgather.select_row(g_lights.portal_hi, pidx),
+            fastgather.select_row(g_lights.portal_ax, pidx),
+            fastgather.select_row(g_lights.portal_facing, pidx))
 
 
 def sample_portal(g_lights, pidx, ref_p, u):

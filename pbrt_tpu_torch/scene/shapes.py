@@ -27,6 +27,7 @@ from pbrt_tpu_torch.core.sampling import (uniform_cone_pdf,
                                           uniform_sample_triangle)
 from pbrt_tpu_torch.core.vecmath import (absdot, cross, length_squared,
                                          normalize, take_axis)
+from pbrt_tpu_torch.ops import fastgather
 
 BIG = 1e30
 
@@ -471,8 +472,9 @@ def closest_curves(o, d, tmax, cp, w, n=None, tile=None):
     for s, tables in _tiles(o, cp, w, n, tile):
         t, u, v, h = curve_pairs(o, d, tmax, *tables)
         tb, idx = torch.where(h, t, BIG).min(dim=0)
-        at = idx[None]
-        cur = (tb, idx + s, u.gather(0, at)[0], v.gather(0, at)[0])
+        # u, v at the argmin (pbrt_tpu's select_along_last of (R, N))
+        cur = (tb, idx + s, fastgather.select_along_last(u.T, idx),
+               fastgather.select_along_last(v.T, idx))
         if best is None:
             best = cur
         else:
